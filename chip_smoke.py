@@ -3,22 +3,28 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the three hand-written CUDA
+Run from the root of a checkout. It builds the four hand-written CUDA
 kernels from ``janus_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-once, into ``build/janus_tpu_torch/``) and runs five phases, each printing
-one JSON line:
+once, into ``build/janus_tpu_torch/``) and runs these phases, each
+printing one JSON line per result:
 
 1. device  — the card, its power limit, the kernel build time;
 2. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes, with times, the card's bound and, where one
    PyTorch call computes the same function, that call's time;
 3. demo    — the committed demo recognizer through ``SemanticEncoder`` on
-   the card and on the CPU: the packets must be byte-equal;
+   the card and on the CPU: the packets must be byte-equal; then the same
+   under the int8 configuration (``quantize_tree`` weights in each mode,
+   ``asr.decode_cross_kv_int8``), which must launch the K4 kernel;
 4. flagship — Whisper large-v3 (random weights from seed 0, bf16) encoding
    8 phrases of 10 s through ``SemanticEncoder.encode_batch``: per-stage
    and end-to-end times, launches of each kernel in that run, and the
    encoder output against a plain-version pass;
-5. the ``kernels`` summary line.
+5. flagship int8 — the same model with dynamic-int8 weights and int8
+   cross K/V (the analogue of CTranslate2 ``compute_type='int8'``): times,
+   launches (K4 once per decoder layer and forward), one decode step's
+   logits against the plain cross-attention, token agreement with phase 4;
+6. the ``kernels`` summary line.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -50,6 +56,7 @@ FLAGSHIP_BATCH = 8
 FLAGSHIP_SECONDS = 10.0
 MEL_SECONDS = (10, 30)           # K1 at the 10 s bucket and the 30 s window
 FLASH_T = (500, 1500)            # K2 at the 10 s bucket and the 30 s window
+CROSS_T = (500, 1500)            # K4 at the 10 s bucket and the 30 s window
 DEMO_TEXTS = ("alpha bravo", "fox golf hotel", "kilo lima")
 DEMO_TIMESTAMP = 1_700_000_000.25
 
@@ -78,7 +85,7 @@ def bound_ms(ops: float, op_peak: float, nbytes: float):
 
 
 def profile_decode_step(torch, asr_mod, params, acfg, enc, prompt,
-                        steps: int = 3) -> dict:
+                        steps: int = 3, cross_kv_int8: bool = False) -> dict:
     """One greedy decode step, timed bare (median of ``steps``) and then
     traced once under ``torch.profiler``: the kernels the device ran, the
     host's kernel-launch calls, the device's busy time, and its idle share
@@ -89,7 +96,8 @@ def profile_decode_step(torch, asr_mod, params, acfg, enc, prompt,
 
     state = asr_mod.init_decode_state(params, acfg, enc,
                                       max_len=prompt.shape[-1] + steps + 1,
-                                      dtype=torch.bfloat16)
+                                      dtype=torch.bfloat16,
+                                      cross_kv_int8=cross_kv_int8)
     _, state = asr_mod.decoder_prefill(params, acfg, prompt, state)
     tok = prompt[:, -1]
     walls = []
@@ -281,6 +289,61 @@ def main() -> None:
     check(rel_ok, f"yin_block_sums outside rtol/atol 2e-4 (max err {err})")
     summary["yin_block_sums"] = row
 
+    from janus_tpu_torch.ops.cross_attn import KERNEL as CROSS
+    from janus_tpu_torch.ops.cross_attn import (cross_attention_int8,
+                                                cross_attention_int8_plain)
+    from janus_tpu_torch.ops.quant import quantize_kv_t
+
+    h = 20
+    for t in CROSS_T:
+        # fp32: the order of the sums is the only difference. bf16: both
+        # versions compute in fp32 and round once, so one bf16 ulp of the
+        # output (at most 2^-7 of |ref|). Both are tighter than the JAX
+        # package's own bar for this kernel (atol = rtol = 2e-3).
+        for dtype, rtol, atol in ((torch.float32, 0.0, 2e-5),
+                                  (torch.bfloat16, 2 ** -7, 1e-5)):
+            q = torch.randn((FLAGSHIP_BATCH, h, 1, dh), generator=gen,
+                            device=dev).to(dtype)
+            k_dense, v_dense = (torch.randn((FLAGSHIP_BATCH, h, t, dh),
+                                            generator=gen, device=dev)
+                                for _ in range(2))
+            kq, vq = quantize_kv_t(k_dense), quantize_kv_t(v_dense)
+            out = cross_attention_int8(q, kq, vq)
+            ref = cross_attention_int8_plain(q, kq, vq)
+            torch.cuda.synchronize()
+            err = max_abs(out, ref)
+            tol_ratio = float(((out.float() - ref.float()).abs()
+                               / (atol + rtol * ref.float().abs())).max())
+            # QK^T and PV (4 T Dh per query row) plus the score scaling,
+            # max, exp, sum and V-scale fold (~6 per score)
+            ops = FLAGSHIP_BATCH * h * (4.0 * t * dh + 6.0 * t)
+            nbytes = (2 * q.numel() * q.element_size() + 2 * kq.q.numel()
+                      + 2 * 4 * kq.scale.numel())
+            b_ms, b_by = bound_ms(ops, PEAK_FP32, nbytes)
+            kd, vd = k_dense.to(torch.bfloat16), v_dense.to(torch.bfloat16)
+            qd = q.to(torch.bfloat16)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row = {"phase": "kernel", "name": "cross_attn_int8",
+                   "batch": FLAGSHIP_BATCH, "heads": h, "tq": 1, "t": t,
+                   "head_dim": dh, "dtype": str(dtype).split(".")[-1],
+                   "rtol": rtol, "atol": atol, "max_err": err,
+                   "tol_ratio": tol_ratio,
+                   "kernel_ms": time_ms(lambda: cross_attention_int8(
+                       q, kq, vq), iters=50),
+                   "plain_ms": time_ms(lambda: cross_attention_int8_plain(
+                       q, kq, vq), iters=50),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   # no single PyTorch call takes int8 K/V with per-position
+                   # scales; SDPA over the dense bf16 K/V is context only
+                   "library_ms": None,
+                   "dense_sdpa_ms": time_ms(lambda: sdpa(qd, kd, vd),
+                                            iters=50)}
+            emit(row)
+            check(tol_ratio <= 1.0, f"cross_attn_int8 t={t} {dtype} err "
+                  f"{err} beyond rtol {rtol} atol {atol}")
+            if t == CROSS_T[0] and dtype == torch.bfloat16:
+                summary["cross_attn_int8"] = row
+
     # -- 3. demo checkpoint: card and CPU give the same packets ------------
     from janus_tpu_torch.audio.synthetic import render_text, voiced_phrase
     from janus_tpu_torch.common.config import ASRConfig, JanusConfig
@@ -291,26 +354,47 @@ def main() -> None:
     demo_params = load_npz_params(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "checkpoints",
         "demo_asr.npz"))
-    gpu_enc = SemanticEncoder(demo_cfg, demo_params, buckets=(96_000,),
-                              device="cuda")
-    cpu_enc = SemanticEncoder(demo_cfg, demo_params, buckets=(96_000,),
-                              device="cpu")
-    transcripts = []
-    for seed, text in enumerate(DEMO_TEXTS):
-        phrase = render_text(text, SR, seed=seed)
-        pg = gpu_enc.encode_packet(phrase, timestamp=DEMO_TIMESTAMP)
-        pc = cpu_enc.encode_packet(phrase, timestamp=DEMO_TIMESTAMP)
-        check((pg is None) == (pc is None), f"demo packet presence '{text}'")
-        if pg is not None:
-            check(pg.serialize() == pc.serialize(),
-                  f"demo packets differ for '{text}': {pg} vs {pc}")
-        transcripts.append({"spoken": text,
-                            "heard": None if pg is None else pg.text,
-                            "prosody": None if pg is None else pg.prosody,
-                            "bytes": None if pg is None else pg.wire_size()})
-    check(any(t["heard"] for t in transcripts), "demo produced no packet")
+
+    def demo_packets(cfg, params) -> list:
+        """The demo phrases through ``SemanticEncoder`` on the card and on
+        the CPU; the packets must be byte-equal."""
+        gpu_enc = SemanticEncoder(cfg, params, buckets=(96_000,),
+                                  device="cuda")
+        cpu_enc = SemanticEncoder(cfg, params, buckets=(96_000,),
+                                  device="cpu")
+        transcripts = []
+        for seed, text in enumerate(DEMO_TEXTS):
+            phrase = render_text(text, SR, seed=seed)
+            pg = gpu_enc.encode_packet(phrase, timestamp=DEMO_TIMESTAMP)
+            pc = cpu_enc.encode_packet(phrase, timestamp=DEMO_TIMESTAMP)
+            check((pg is None) == (pc is None),
+                  f"demo packet presence '{text}'")
+            if pg is not None:
+                check(pg.serialize() == pc.serialize(),
+                      f"demo packets differ for '{text}': {pg} vs {pc}")
+            transcripts.append({
+                "spoken": text, "heard": None if pg is None else pg.text,
+                "prosody": None if pg is None else pg.prosody,
+                "bytes": None if pg is None else pg.wire_size()})
+        check(any(t["heard"] for t in transcripts), "demo produced no packet")
+        return transcripts
+
     emit({"phase": "demo", "packets_byte_equal_cpu": True,
-          "transcripts": transcripts})
+          "transcripts": demo_packets(demo_cfg, demo_params)})
+
+    # the int8 configuration: quantized weights in each mode, int8 cross K/V
+    from janus_tpu_torch.ops.quant import quantize_tree
+
+    int8_cfg = demo_cfg.override(**{"asr.decode_cross_kv_int8": True})
+    for mode in ("weight", "dynamic"):
+        CROSS.launches = 0
+        transcripts = demo_packets(int8_cfg,
+                                   quantize_tree(demo_params, mode=mode))
+        check(CROSS.launches > 0, f"int8 demo ({mode}) never launched K4")
+        emit({"phase": "demo_int8", "mode": mode,
+              "packets_byte_equal_cpu": True,
+              "cross_attn_int8_launches": CROSS.launches,
+              "transcripts": transcripts})
 
     # -- 4. flagship: large-v3 through encode_batch ------------------------
     from janus_tpu_torch.models import asr as asr_mod
@@ -331,7 +415,7 @@ def main() -> None:
                for i in range(FLAGSHIP_BATCH)]
     fenc.encode_batch(phrases)  # warm-up: cuBLAS/cuDNN handles, allocator
 
-    kernels = (MEL, FLASH, YIN)
+    kernels = (MEL, FLASH, YIN, CROSS)
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -389,7 +473,7 @@ def main() -> None:
             fenc.params, acfg, mel.to(torch.bfloat16)))
         prompt = torch.full((FLAGSHIP_BATCH, 1), fenc.tokenizer.sot,
                             dtype=torch.long, device=dev)
-        stage("decode", lambda: asr_mod.greedy_decode(
+        dense_tokens = stage("decode", lambda: asr_mod.greedy_decode(
             fenc.params, acfg, enc, prompt, fenc.tokenizer.eot,
             max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16))
 
@@ -428,9 +512,176 @@ def main() -> None:
           "texts": [r["text"] for r in results][:2],
           "f0": [r["f0"] for r in results]})
 
-    # -- 5. kernels summary ------------------------------------------------
+    # -- 5. flagship int8: dynamic-int8 weights, int8 cross K/V ------------
+    from janus_tpu_torch.models.params import cast_floating, init_asr
+
+    eot = fenc.tokenizer.eot
+    del fenc
+    torch.cuda.empty_cache()
+    qcfg = fcfg.override(**{"asr.decode_cross_kv_int8": True})
+    t0 = time.perf_counter()
+    # the phase-4 weights, cast to bf16 and then quantized (the JAX
+    # package's flagship tool quantizes after its bf16 cast, too)
+    qparams = quantize_tree(cast_floating(init_asr(
+        torch.Generator(device=dev).manual_seed(0), qcfg.asr),
+        torch.bfloat16), mode="dynamic")
+    qenc = SemanticEncoder(qcfg, qparams, buckets=(bucket,), device="cuda")
+    del qparams
+    torch.cuda.synchronize()
+    q_init_s = time.perf_counter() - t0
+    qenc.encode_batch(phrases)  # warm-up
+
+    forwards = [0]
+    decoder_forward = asr_mod._decoder_forward
+
+    def counted_forward(*args, **kwargs):
+        forwards[0] += 1
+        return decoder_forward(*args, **kwargs)
+
+    all_kernels = (MEL, FLASH, YIN, CROSS)
+    for k in all_kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(asr_mod, "_decoder_forward", counted_forward):
+        q_results = qenc.encode_batch(phrases)
+    torch.cuda.synchronize()
+    q_first_ms = 1e3 * (time.perf_counter() - t0)
+    q_launches = {k.name: k.launches for k in all_kernels}
+    q_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(q_launches["mel_fused"] >= 1, f"int8 mel launches {q_launches}")
+    check(q_launches["flash_attn"] == qcfg.asr.encoder_layers,
+          f"int8 flash_attn launches {q_launches}")
+    check(q_launches["yin_block_sums"] >= 1, f"int8 yin {q_launches}")
+    check(forwards[0] >= 1 and q_launches["cross_attn_int8"]
+          == qcfg.asr.decoder_layers * forwards[0],
+          f"cross_attn_int8 launches {q_launches} for {forwards[0]} "
+          f"decoder forwards")
+    check(len(q_results) == FLAGSHIP_BATCH
+          and all(np.isfinite(r["f0"]) and np.isfinite(r["rms"])
+                  for r in q_results), f"int8 flagship results {q_results}")
+
+    q_e2e = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qenc.encode_batch(phrases)
+        torch.cuda.synchronize()
+        q_e2e.append(1e3 * (time.perf_counter() - t0))
+
+    # the two stages the int8 weights and K/V change, once each
+    stage_ms = {}
+    q_enc = stage("encoder", lambda: asr_mod.encode_audio(
+        qenc.params, acfg, mel.to(torch.bfloat16)))
+    q_tokens = stage("decode", lambda: asr_mod.greedy_decode(
+        qenc.params, acfg, q_enc, prompt, eot,
+        max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16,
+        cross_kv_int8=True))
+    q_decode_step = profile_decode_step(torch, asr_mod, qenc.params, acfg,
+                                        q_enc, prompt, cross_kv_int8=True)
+
+    def first_step_logits(cross=None) -> "torch.Tensor":
+        """Prefill and one decode step of the int8 flagship; ``cross``
+        replaces the decoder's cross-attention."""
+        with mock.patch.object(asr_mod, "cross_attention_kv",
+                               cross or asr_mod.cross_attention_kv):
+            state = asr_mod.init_decode_state(
+                qenc.params, acfg, q_enc, max_len=prompt.shape[-1] + 1,
+                dtype=torch.bfloat16, cross_kv_int8=True)
+            _, state = asr_mod.decoder_prefill(qenc.params, acfg, prompt,
+                                               state)
+            logits, _ = asr_mod.decoder_step(qenc.params, acfg,
+                                             prompt[:, -1], state)
+        return logits.float()
+
+    # every K4 call of that step against the plain version on the same
+    # inputs, at the kernel phase's bf16 bar (one bf16 ulp)
+    on_path = {"calls": 0, "elements": 0, "differing": 0, "worst": 0.0}
+
+    def checked_cross(q, k, v):
+        out = cross_attention_int8(q, k, v)
+        ref = cross_attention_int8_plain(q, k, v).float()
+        on_path["calls"] += 1
+        on_path["elements"] += out.numel()
+        on_path["differing"] += int((out.float() != ref).sum())
+        on_path["worst"] = max(on_path["worst"], float(
+            ((out.float() - ref).abs() / (1e-5 + 2 ** -7 * ref.abs())).max()))
+        return out
+
+    def plain_fp64(q, k, v):
+        """The plain version's arithmetic in float64: the control."""
+        s = torch.matmul(q.double(), k.q.double()) * q.shape[-1] ** -0.5
+        p = torch.exp(s * k.scale[..., None, :].double()
+                      - (s * k.scale[..., None, :].double()).amax(
+                          -1, keepdim=True))
+        o = torch.matmul(p * v.scale[..., None, :].double(),
+                         v.q.double().transpose(-1, -2))
+        return (o / p.sum(-1, keepdim=True)).to(q.dtype)
+
+    logits_k = first_step_logits()
+    logits_c = first_step_logits(checked_cross)
+    logits_p = first_step_logits(cross_attention_int8_plain)
+    logits_64 = first_step_logits(plain_fp64)
+    torch.cuda.synchronize()
+
+    def rel(a, b) -> float:
+        return float((a - b).norm() / b.norm())
+
+    check(bool(torch.isfinite(logits_k).all()), "int8 logits not finite")
+    check(bool(torch.equal(logits_k, logits_c)), "K4 is not deterministic")
+    check(on_path["calls"] == 2 * qcfg.asr.decoder_layers
+          and on_path["worst"] <= 1.0,
+          f"K4 on the decode path outside one bf16 ulp of plain {on_path}")
+    # The logits pass 64 decoder layers of bf16 activations, each linear
+    # quantizing its input to int8 per row: a rounding-level difference
+    # flips some of those roundings (a 1/127-of-amax step each), so the
+    # plain version itself sits ~1e-2 from its own float64 evaluation
+    # (plain_vs_fp64). The bar is that of the encoder-vs-plain check.
+    rel_logits = rel(logits_k, logits_p)
+    check(rel_logits <= 5e-2, f"int8 step logits vs plain {rel_logits}")
+    agree = float((q_tokens == dense_tokens).float().mean())
+
+    # the library int8 product of the dynamic linears (``torch._int_mm``)
+    # at the decode step's fc2 shape (8 rows padded to 17) and the
+    # encoder's fc1 shape, with the weight row-major (as the tree stores
+    # it) and column-major
+    int_mm_ms = {}
+    for m, k, n in ((17, 5120, 1280), (FLAGSHIP_BATCH * n16 // 2, 1280,
+                                       5120)):
+        a, w = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8)
+                for shape in ((m, k), (k, n)))
+        w_cols = w.t().contiguous().t()
+        int_mm_ms[f"{m}x{k}x{n}"] = {
+            "row_major": time_ms(lambda: torch._int_mm(a, w), iters=20),
+            "col_major": time_ms(lambda: torch._int_mm(a, w_cols),
+                                 iters=20)}
+    emit({"phase": "flagship_int8",
+          "model": "whisper-large-v3 (random, seed 0)",
+          "weights": "quantize_tree(mode='dynamic') after the bf16 cast",
+          "cross_kv": "int8 (QuantKVT)", "batch": FLAGSHIP_BATCH,
+          "seconds": FLAGSHIP_SECONDS, "max_decode_tokens": 24,
+          "init_s": round(q_init_s, 3), "first_encode_ms": q_first_ms,
+          "e2e_ms": q_e2e, "rtf": min(q_e2e) / 1e3 / audio_s,
+          "stage_ms": {k: min(v) for k, v in stage_ms.items()},
+          "peak_mem_gib": q_peak_gib, "launches": q_launches,
+          "decoder_forwards": forwards[0],
+          "step_logits_vs_plain_rel": rel_logits,
+          "step_logits_vs_plain_max_abs": float(
+              (logits_k - logits_p).abs().max()),
+          "step_logits_kernel_vs_fp64_rel": rel(logits_k, logits_64),
+          "step_logits_plain_vs_fp64_rel": rel(logits_p, logits_64),
+          "step_cross_attn_vs_plain": on_path,
+          "token_agreement_with_dense": agree, "int_mm_ms": int_mm_ms,
+          "decode_step": q_decode_step,
+          "texts": [r["text"] for r in q_results][:2]})
+
+    # -- 6. kernels summary ------------------------------------------------
+    # launches: K1-K3 from the flagship run, K4 from the int8 flagship run
+    launches["cross_attn_int8"] = q_launches["cross_attn_int8"]
     line = []
-    for k in kernels:
+    for k in all_kernels:
         row = summary[k.name]
         line.append({"name": k.name, "route": "cuda",
                      "source": f"janus_tpu_torch/csrc/{k.name}.cu",

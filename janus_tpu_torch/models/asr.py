@@ -3,7 +3,9 @@ cached greedy text decoder with tied-embedding fp32 logits.
 
 Plain functions over the parameter trees of :mod:`.params` (the JAX
 package's layouts). Layer loops are Python loops; the encoder's self-
-attention goes through the fused attention kernel (:mod:`..ops.flash`).
+attention goes through the fused attention kernel (:mod:`..ops.flash`);
+with ``cross_kv_int8`` the decoder's cross-attention runs over int8 K/V
+through the K4 kernel (:mod:`..ops.cross_attn`).
 """
 
 from __future__ import annotations
@@ -15,10 +17,12 @@ import torch.nn.functional as F
 
 from janus_tpu_torch.common.config import ASRConfig
 from janus_tpu_torch.ops.attention import KVCache, attend, merge_heads, split_heads
+from janus_tpu_torch.ops.cross_attn import cross_attention_kv
 from janus_tpu_torch.ops.flash import flash_attention
 from janus_tpu_torch.ops.layers import (conv1d, embedding_lookup, gelu,
                                         layer_norm, linear, sinusoid_positions)
 from janus_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
+from janus_tpu_torch.ops.quant import quantize_kv_t
 
 __all__ = [
     "encode_audio",
@@ -76,10 +80,11 @@ def encode_audio(params: Params, cfg: ASRConfig,
 
 class DecodeState:
     """Per-layer self-attention caches (written in place) plus per-layer
-    cross-attention K/V precomputed from the encoder output."""
+    cross-attention K/V precomputed from the encoder output: dense
+    ``[..., H, T, Dh]`` tensors or int8 :class:`~..ops.quant.QuantKVT`."""
 
-    def __init__(self, self_caches: List[KVCache],
-                 cross_k: List[torch.Tensor], cross_v: List[torch.Tensor]):
+    def __init__(self, self_caches: List[KVCache], cross_k: List,
+                 cross_v: List):
         self.self_caches = self_caches
         self.cross_k = cross_k
         self.cross_v = cross_v
@@ -91,8 +96,11 @@ class DecodeState:
 
 
 def init_decode_state(params: Params, cfg: ASRConfig, enc: torch.Tensor,
-                      max_len: Optional[int] = None,
-                      dtype=torch.float32) -> DecodeState:
+                      max_len: Optional[int] = None, dtype=torch.float32,
+                      cross_kv_int8: bool = False) -> DecodeState:
+    """``cross_kv_int8`` stores each layer's cross K/V int8 with
+    per-position scales in the head-dim-major layout of the K4 kernel
+    (:func:`~..ops.quant.quantize_kv_t`)."""
     batch_shape = tuple(enc.shape[:-2])
     if max_len is None:
         max_len = cfg.max_target_positions
@@ -106,6 +114,9 @@ def init_decode_state(params: Params, cfg: ASRConfig, enc: torch.Tensor,
                               cfg.num_heads))
         vs.append(split_heads(linear(enc, p["v"]["w"], p["v"]["b"]),
                               cfg.num_heads))
+    if cross_kv_int8:
+        ks = [quantize_kv_t(k) for k in ks]
+        vs = [quantize_kv_t(v) for v in vs]
     return DecodeState(caches, ks, vs)
 
 
@@ -124,8 +135,8 @@ def _self_qkv(blk: Params, cfg: ASRConfig, x: torch.Tensor):
 
 
 def _decoder_layer(blk: Params, cfg: ASRConfig, x: torch.Tensor,
-                   cache: KVCache, cross_k: torch.Tensor,
-                   cross_v: torch.Tensor, t_new: int) -> torch.Tensor:
+                   cache: KVCache, cross_k, cross_v,
+                   t_new: int) -> torch.Tensor:
     """Cached self-attn → cross-attn → MLP (the cache is appended to in
     place)."""
     q, k, v = _self_qkv(blk, cfg, x)
@@ -137,7 +148,7 @@ def _decoder_layer(blk: Params, cfg: ASRConfig, x: torch.Tensor,
     h = layer_norm(x, **blk["cross_ln"])
     pc = blk["cross"]
     qc = split_heads(linear(h, pc["q"]["w"], pc["q"]["b"]), cfg.num_heads)
-    x = x + linear(merge_heads(attend(qc, cross_k, cross_v)),
+    x = x + linear(merge_heads(cross_attention_kv(qc, cross_k, cross_v)),
                    pc["out"]["w"], pc["out"]["b"])
     return x + _mlp(blk["mlp"], layer_norm(x, **blk["mlp_ln"]))
 
@@ -179,15 +190,17 @@ def decoder_step(params: Params, cfg: ASRConfig, token: torch.Tensor,
 def greedy_decode(params: Params, cfg: ASRConfig, enc: torch.Tensor,
                   prompt: torch.Tensor, eot_id: int,
                   max_new: Optional[int] = None,
-                  cache_dtype=torch.float32) -> torch.Tensor:
+                  cache_dtype=torch.float32,
+                  cross_kv_int8: bool = False) -> torch.Tensor:
     """Batched greedy search: ``[B, max_new]`` int32 tokens, padded with
     ``eot_id`` after each lane finishes; stops once every lane has
-    emitted eot (one host sync per step reads that flag)."""
+    emitted eot (one host sync per step reads that flag).
+    ``cross_kv_int8`` as in :func:`init_decode_state`."""
     if max_new is None:
         max_new = cfg.max_decode_tokens
     cache_len = prompt.shape[-1] + max_new
     state = init_decode_state(params, cfg, enc, max_len=cache_len,
-                              dtype=cache_dtype)
+                              dtype=cache_dtype, cross_kv_int8=cross_kv_int8)
     first_logits, state = decoder_prefill(params, cfg, prompt, state)
     first_tok = torch.argmax(first_logits, dim=-1).to(torch.int32)
 

@@ -4,7 +4,9 @@ QKV fusion.
 
 Params are nested dicts of tensors with the JAX package's layouts (linear
 ``w[d_in, d_out]``, conv ``w[K, C_in, C_out]``) and per-layer ``blocks``
-lists, so a tree moves between the two packages leaf for leaf.
+lists, so a tree moves between the two packages leaf for leaf. A
+quantized weight (:mod:`janus_tpu_torch.ops.quant`) is a NamedTuple node
+``(q, scale)``: the maps below descend into it and rebuild its type.
 """
 
 from __future__ import annotations
@@ -15,11 +17,13 @@ import numpy as np
 import torch
 
 from janus_tpu_torch.common.config import ASRConfig
+from janus_tpu_torch.ops.quant import DynQuantizedWeight, QuantizedWeight
 
 __all__ = [
     "flatten_with_paths",
     "unflatten_from_paths",
     "map_tree",
+    "map_with_paths",
     "tree_to",
     "cast_floating",
     "load_npz_params",
@@ -66,13 +70,28 @@ def unflatten_from_paths(pairs: Dict[str, Any]) -> Any:
     return listify(root)
 
 
-def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Structure-preserving map over the leaves of dicts and lists."""
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def map_with_paths(fn: Callable[[str, Any], Any], tree: Any,
+                   prefix: str = "") -> Any:
+    """Structure-preserving map over the leaves of dicts, lists and
+    NamedTuples (rebuilt as their own type; other tuples become lists);
+    ``fn`` sees each leaf's slash-joined path and the leaf."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
+        return {k: map_with_paths(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [map_tree(fn, v) for v in tree]
-    return fn(tree)
+        items = [map_with_paths(fn, v, f"{prefix}{i}/")
+                 for i, v in enumerate(tree)]
+        return type(tree)(*items) if _is_namedtuple(tree) else items
+    return fn(prefix[:-1], tree)
+
+
+def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """:func:`map_with_paths` without the paths."""
+    return map_with_paths(lambda _, leaf: fn(leaf), tree)
 
 
 def tree_to(tree: Any, device) -> Any:
@@ -86,7 +105,9 @@ def tree_to(tree: Any, device) -> Any:
 
 
 def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
-    """Cast floating leaves only (integer leaves untouched)."""
+    """Cast floating leaves only (integer leaves untouched). A quantized
+    weight's ``scale`` is cast too, as ``jax.tree.map`` does in the JAX
+    package: under bf16 the fp32 scales are rounded to bf16."""
     return map_tree(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)
 
 
@@ -106,23 +127,44 @@ def _unstack_blocks(tree: Any) -> Any:
         out = {}
         for k, v in tree.items():
             if k == "blocks" and isinstance(v, dict):
-                leaves = list(flatten_with_paths(v))
-                n_layers = int(np.asarray(leaves[0][1]).shape[0])
-                v = [unflatten_from_paths({p: a[i] for p, a in leaves})
+                _, first = next(flatten_with_paths(v))
+                n_layers = int(np.asarray(first).shape[0])
+                v = [map_tree(lambda a, i=i: a[i], v)
                      for i in range(n_layers)]
             out[k] = _unstack_blocks(v)
         return out
+    if _is_namedtuple(tree):
+        return tree
     if isinstance(tree, (list, tuple)):
         return [_unstack_blocks(v) for v in tree]
     return tree
 
 
+# the JAX package's quantized-weight types, by name (the port imports
+# nothing of it), and the port's type of the same name
+_QUANT_TYPES = {"QuantizedWeight": QuantizedWeight,
+                "DynQuantizedWeight": DynQuantizedWeight}
+
+
+def _port_types(tree: Any) -> Any:
+    """JAX ``QuantizedWeight`` / ``DynQuantizedWeight`` nodes → the port's
+    NamedTuples of the same name (numpy leaves)."""
+    if isinstance(tree, dict):
+        return {k: _port_types(v) for k, v in tree.items()}
+    cls = _QUANT_TYPES.get(type(tree).__name__)
+    if cls is not None:
+        return cls(*(np.asarray(a) for a in tree))
+    if isinstance(tree, (list, tuple)):
+        return [_port_types(v) for v in tree]
+    return np.asarray(tree)
+
+
 def params_from_jax(tree: Any, device="cpu") -> Params:
     """The JAX package's parameter tree — numpy arrays in nested dicts and
-    lists, per-layer or layer-stacked — as the port's tree of tensors on
-    ``device`` (stacked blocks become per-layer lists)."""
-    numpy_tree = map_tree(np.asarray, tree)
-    return tree_to(_unstack_blocks(numpy_tree), device)
+    lists, per-layer or layer-stacked, quantized or not — as the port's
+    tree of tensors on ``device`` (stacked blocks become per-layer lists,
+    quantized weights the port's types of the same name)."""
+    return tree_to(_unstack_blocks(_port_types(tree)), device)
 
 
 # --------------------------------------------------------------------------
@@ -194,9 +236,16 @@ def init_asr(generator: torch.Generator, cfg: ASRConfig) -> Params:
 
 def fuse_qkv(attn: Params) -> Params:
     """Self-attention q/k/v → one ``[d, 3d]`` projection ``qkv`` with the
-    bias-less K slot zero-filled: the same output columns, one matmul."""
+    bias-less K slot zero-filled: the same output columns, one matmul.
+    Quantized pairs concatenate ``q`` and ``scale`` along the output-channel
+    axis, which the biases and the per-channel scales share."""
     q, k, v = attn["q"], attn["k"], attn["v"]
-    w = torch.cat([q["w"], k["w"], v["w"]], dim=-1)
+    wq, wk, wv = q["w"], k["w"], v["w"]
+    if isinstance(wq, (QuantizedWeight, DynQuantizedWeight)):
+        w = type(wq)(torch.cat([wq.q, wk.q, wv.q], dim=-1),
+                     torch.cat([wq.scale, wk.scale, wv.scale], dim=-1))
+    else:
+        w = torch.cat([wq, wk, wv], dim=-1)
     b = torch.cat([q["b"], k.get("b", torch.zeros_like(q["b"])), v["b"]],
                   dim=-1)
     return {"qkv": {"w": w, "b": b}, "out": attn["out"]}

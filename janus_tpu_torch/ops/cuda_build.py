@@ -60,6 +60,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("mel_fused", "janus_tpu/ops/mel_pallas.py:68 (_kernel)"),
     Kernel("flash_attn", "janus_tpu/ops/flash.py:41 (_kernel)"),
     Kernel("yin_block_sums", "janus_tpu/ops/yin_pallas.py:42 (_kernel)"),
+    Kernel("cross_attn_int8", "janus_tpu/ops/cross_attn.py:50 (_kernel)"),
 )}
 
 

@@ -9,6 +9,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from janus_tpu_torch.ops.quant import (DynQuantizedWeight, QuantizedWeight,
+                                       dequant, linear_int8_dynamic)
+
 __all__ = [
     "linear",
     "layer_norm",
@@ -19,9 +22,18 @@ __all__ = [
 ]
 
 
-def linear(x: torch.Tensor, w: torch.Tensor,
+def linear(x: torch.Tensor, w,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x[..., d_in] @ w[d_in, d_out] (+ b)``, result in ``x.dtype``."""
+    """``x[..., d_in] @ w[d_in, d_out] (+ b)``, result in ``x.dtype``.
+
+    ``w`` may be a :class:`~janus_tpu_torch.ops.quant.DynQuantizedWeight`
+    (the full int8 path) or a :class:`~janus_tpu_torch.ops.quant.
+    QuantizedWeight` (dequantized to ``x.dtype``, then the plain product),
+    as the JAX package's ``linear`` dispatches them."""
+    if isinstance(w, DynQuantizedWeight):
+        return linear_int8_dynamic(x, w, b)
+    if isinstance(w, QuantizedWeight):
+        w = dequant(w, x.dtype)
     if b is None:
         return torch.matmul(x, w)
     # Cast-back point: the JAX package keeps the product in fp32, adds the

@@ -1,0 +1,195 @@
+"""Int8 quantization for inference: int8 recognizer weights and int8
+cross-attention K/V.
+
+The port of ``janus_tpu/ops/quant.py``. The reference application ran its
+recognizer int8 through CTranslate2 (``compute_type='int8'``); the same
+deployment here is :func:`quantize_tree` over the recognizer's tree plus
+``asr.decode_cross_kv_int8`` for the decode loop's cross K/V.
+
+- :class:`QuantizedWeight`: per-output-channel symmetric int8 weights and
+  fp32 scales; :func:`janus_tpu_torch.ops.layers.linear` dequantizes them
+  and runs the ordinary product (weight-only mode).
+- :class:`DynQuantizedWeight`: the same storage, routed by ``linear`` to
+  :func:`linear_int8_dynamic` (per-row dynamic activation scales, int8 x
+  int8 -> int32, fp32 rescale). The type is the dispatch tag.
+- :class:`QuantKV` / :class:`QuantKVT`: int8 K or V with per-position
+  scales, token-major or head-dim-major (the layout of the K4 kernel,
+  :mod:`janus_tpu_torch.ops.cross_attn`).
+
+Every quantizer computes in its input's dtype, as the JAX package does: a
+bf16 weight takes its ``amax``, ``scale`` and ``w / scale`` in bf16 and
+only then casts ``scale`` to fp32, so quantizing before or after a bf16
+cast gives different int8 values. ``torch.round`` and ``jnp.round`` both
+round half to even.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+__all__ = [
+    "QuantizedWeight",
+    "DynQuantizedWeight",
+    "QuantKV",
+    "QuantKVT",
+    "quantize_weight",
+    "quantize_kv",
+    "quantize_kv_t",
+    "dequant",
+    "dequant_kv",
+    "linear_int8_dynamic",
+    "quantize_tree",
+]
+
+
+class QuantizedWeight(NamedTuple):
+    """``q[d_in, d_out]`` int8 with per-output-channel ``scale[d_out]``;
+    weight-only mode (dequantized inside ``linear``)."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+class DynQuantizedWeight(NamedTuple):
+    """Storage of :class:`QuantizedWeight`, tagged for the full int8 path
+    (:func:`linear_int8_dynamic`)."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+class QuantKV(NamedTuple):
+    """int8 K or V ``q[..., T, Dh]`` with per-position fp32
+    ``scale[..., T, 1]``."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+class QuantKVT(NamedTuple):
+    """int8 K or V stored head-dim-major, ``q[..., Dh, T]``, with
+    per-position fp32 ``scale[..., T]``: the K4 kernel's layout, built once
+    at decode-state init."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def _round_int8(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x), -127, 127).to(torch.int8)
+
+
+_DIVISORS: dict = {}
+
+
+def _scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-8) / 127`` in ``amax``'s dtype, rounded as an IEEE
+    division on every device: CUDA divides by a Python scalar as a product
+    with its reciprocal, which can miss by an ulp, so the divisor is a
+    tensor on ``amax``'s device."""
+    key = (amax.dtype, amax.device)
+    div = _DIVISORS.get(key)
+    if div is None:
+        div = _DIVISORS[key] = torch.full((), 127.0, dtype=amax.dtype,
+                                          device=amax.device)
+    return torch.clamp_min(amax, 1e-8) / div
+
+
+def quantize_kv(x: torch.Tensor) -> QuantKV:
+    """Symmetric per-position int8 quantization over the head dim."""
+    xf = x.float()
+    scale = _scale_of(xf.abs().amax(dim=-1, keepdim=True))
+    return QuantKV(q=_round_int8(xf / scale), scale=scale)
+
+
+def quantize_kv_t(x: torch.Tensor) -> QuantKVT:
+    """Per-position int8 quantization of ``[..., T, Dh]`` into the
+    head-dim-major layout ``q[..., Dh, T]``, ``scale[..., T]``."""
+    xf = x.float()
+    scale = _scale_of(xf.abs().amax(dim=-1))
+    q = _round_int8(xf / scale[..., None])
+    return QuantKVT(q=q.transpose(-1, -2).contiguous(), scale=scale)
+
+
+def dequant_kv(x, dtype=torch.bfloat16):
+    """QuantKV / QuantKVT -> dense ``[..., T, Dh]`` in ``dtype``; a dense
+    tensor passes through unchanged."""
+    if isinstance(x, QuantKV):
+        return (x.q.float() * x.scale).to(dtype)
+    if isinstance(x, QuantKVT):
+        dense = x.q.float() * x.scale[..., None, :]
+        return dense.transpose(-1, -2).to(dtype)
+    return x
+
+
+def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
+    """Symmetric per-output-channel int8 quantization of ``[d_in, d_out]``,
+    computed in ``w``'s dtype."""
+    scale = _scale_of(w.abs().amax(dim=0))
+    return QuantizedWeight(q=_round_int8(w / scale), scale=scale.float())
+
+
+def dequant(qw, dtype=torch.float32) -> torch.Tensor:
+    return (qw.q.float() * qw.scale).to(dtype)
+
+
+# cuBLASLt's int8 product (``torch._int_mm`` on CUDA) takes more than 16
+# rows and K, N in multiples of 8; fewer rows are zero-padded
+_INT_MM_MIN_ROWS = 17
+
+
+def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """``xq[M, K] int8 @ wq[K, N] int8 -> int32 [M, N]``, exact."""
+    if xq.device.type == "cpu":
+        return torch._int_mm(xq, wq)
+    m, k = xq.shape
+    n = wq.shape[1]
+    if k % 8 or n % 8:
+        raise ValueError(f"int8 product on {xq.device} needs K and N in "
+                         f"multiples of 8, got K {k}, N {n}")
+    if m < _INT_MM_MIN_ROWS:
+        pad = torch.zeros((_INT_MM_MIN_ROWS - m, k), dtype=xq.dtype,
+                          device=xq.device)
+        return torch._int_mm(torch.cat([xq, pad]), wq)[:m]
+    return torch._int_mm(xq, wq)
+
+
+def linear_int8_dynamic(x: torch.Tensor, qw,
+                        b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full int8 path: per-row dynamic activation quantization, int8 x
+    int8 -> int32 (exact), then ``acc * x_scale * w_scale`` and the bias
+    in fp32 and one cast to ``x.dtype``, in the JAX package's order. ``qw``
+    is any ``(q, scale)`` pair."""
+    xf = x.float()
+    x_scale = _scale_of(xf.abs().amax(dim=-1, keepdim=True))
+    xq = _round_int8(xf / x_scale)
+    acc = _int8_matmul(xq.reshape(-1, x.shape[-1]), qw.q)
+    acc = acc.reshape(tuple(x.shape[:-1]) + (qw.q.shape[-1],))
+    y = acc.float() * x_scale * qw.scale
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def quantize_tree(params: Any, min_size: int = 4096,
+                  mode: str = "weight") -> Any:
+    """Replace every 2-D floating weight leaf named ``.../w`` with at least
+    ``min_size`` elements by a quantized pair (embeddings, norms, biases
+    and convs untouched). ``mode='weight'`` gives :class:`QuantizedWeight`,
+    ``mode='dynamic'`` :class:`DynQuantizedWeight`."""
+    from janus_tpu_torch.models.params import map_with_paths
+
+    if mode not in ("weight", "dynamic"):
+        raise ValueError(f"unknown quantization mode: {mode!r}")
+    cls = QuantizedWeight if mode == "weight" else DynQuantizedWeight
+
+    def maybe_quant(path: str, leaf):
+        if (path.endswith("/w") and isinstance(leaf, torch.Tensor)
+                and leaf.ndim == 2 and leaf.is_floating_point()
+                and leaf.numel() >= min_size):
+            return cls(*quantize_weight(leaf))
+        return leaf
+
+    return map_with_paths(maybe_quant, params)

@@ -1,12 +1,14 @@
 """The semantic encoder: phrase audio → JanusPacket, on the card.
 
 The send path of ``janus_tpu.runtime.codec.SemanticEncoder`` in PyTorch:
-int16 wire decode, masked RMS energy, anti-aliased decimation to 16 kHz,
-YIN pitch at the 16 kHz serving geometry (block-sum kernel), log-mel
-(fused mel kernel), the Whisper encoder (fused attention kernel), a
-fused-QKV KV-cached greedy decode, then host-side token decode and the
-MessagePack packet. Phrases are padded into duration buckets and the
-batch to the next power of two, as in the JAX package.
+int16 (or μ-law) wire decode, masked RMS energy, anti-aliased decimation
+to 16 kHz, YIN pitch at the 16 kHz serving geometry or at 48 kHz
+(block-sum kernel), log-mel (fused mel kernel), the Whisper encoder
+(fused attention kernel), a fused-QKV KV-cached greedy decode (int8
+cross K/V through the K4 kernel under ``asr.decode_cross_kv_int8``),
+then host-side token decode and the MessagePack packet. Phrases are
+padded into duration buckets and the batch to the next power of two, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from janus_tpu_torch.audio.ulaw import ulaw_decode, ulaw_encode
 from janus_tpu_torch.common.config import JanusConfig
 from janus_tpu_torch.common.device import resolve_device
 from janus_tpu_torch.common.protocol import JanusMode, JanusPacket
@@ -88,7 +91,8 @@ def duration_bucket(n_samples: int,
 class SemanticEncoder:
     """Batched phrase → (text, prosody) encoder with a host-side packet
     assembler. ``asr_params`` is a tree of tensors or arrays in the
-    package's layout (see :mod:`janus_tpu_torch.models.params`); without
+    package's layout (see :mod:`janus_tpu_torch.models.params`), possibly
+    quantized by :func:`janus_tpu_torch.ops.quant.quantize_tree`; without
     one the recognizer is initialized from seed 0."""
 
     def __init__(self, cfg: Optional[JanusConfig] = None, asr_params=None,
@@ -124,6 +128,8 @@ class SemanticEncoder:
             # int16 -> float32 / 32768 conversion; divide (not multiply by
             # 1/32768) to round like the reference
             audio_48k = audio_48k.float() / 32768.0
+        elif audio_48k.dtype == torch.uint8:
+            audio_48k = ulaw_decode(audio_48k)
 
         t48 = audio_48k.shape[-1]
         sample_mask = (torch.arange(t48, device=audio_48k.device)[None, :]
@@ -132,14 +138,19 @@ class SemanticEncoder:
         energy_code = classify_energy(rms, pcfg.energy_quiet, pcfg.energy_loud)
 
         audio_16k = decimate_48k_to_16k(audio_48k)
-        if pcfg.yin_rate != 16_000:
-            raise NotImplementedError(
-                "only the 16 kHz YIN serving geometry is ported")
-        track = yin_track(audio_16k, 16_000, pcfg.yin_window_16k,
-                          pcfg.yin_hop_16k, pcfg.yin_tolerance,
-                          fmin=pcfg.fmin_hz, fmax=pcfg.fmax_hz)
-        n16 = -(-n_valid // 3)
-        n_hops = -(-n16 // pcfg.yin_hop_16k)
+        if pcfg.yin_rate == 16_000:
+            track = yin_track(audio_16k, 16_000, pcfg.yin_window_16k,
+                              pcfg.yin_hop_16k, pcfg.yin_tolerance,
+                              fmin=pcfg.fmin_hz, fmax=pcfg.fmax_hz)
+            # ceil for both: the decimator emits ceil(n / 3) samples
+            n16 = -(-n_valid // 3)
+            n_hops = -(-n16 // pcfg.yin_hop_16k)
+        else:
+            # the native capture rate (aubio's 4096/512 geometry)
+            track = yin_track(audio_48k, self.cfg.audio.sample_rate,
+                              pcfg.yin_window, pcfg.hop, pcfg.yin_tolerance,
+                              fmin=pcfg.fmin_hz, fmax=pcfg.fmax_hz)
+            n_hops = -(-n_valid // pcfg.hop)
         f0 = mean_voiced_pitch(track, n_valid=n_hops)
         pitch_code = classify_pitch(f0, pcfg.pitch_deep_hz, pcfg.pitch_high_hz)
 
@@ -152,7 +163,8 @@ class SemanticEncoder:
                                                         len(sot))
         tokens = asr_mod.greedy_decode(
             self.params, acfg, enc, prompt, self.tokenizer.eot,
-            max_new=acfg.max_decode_tokens, cache_dtype=self._compute_dtype)
+            max_new=acfg.max_decode_tokens, cache_dtype=self._compute_dtype,
+            cross_kv_int8=acfg.decode_cross_kv_int8)
         return tokens, energy_code, pitch_code, f0, rms
 
     # -- host path ---------------------------------------------------------
@@ -182,8 +194,8 @@ class SemanticEncoder:
             batch[i, :len(p)] = p
             n_valid[i] = len(p)
         if self.cfg.runtime.encode_transfer_ulaw:
-            raise NotImplementedError("the mu-law wire is not ported")
-        if self.cfg.runtime.encode_transfer_int16:
+            batch = ulaw_encode(batch)
+        elif self.cfg.runtime.encode_transfer_int16:
             batch = np.clip(np.round(batch * 32768.0),
                             -32768, 32767).astype(np.int16)
         audio = torch.from_numpy(batch).to(self.device)

@@ -59,3 +59,46 @@ def test_yin_kernel_matches_plain(dev):
     out = block_sums(padded, n_hops + 3, 170, 402)
     ref = block_sums_plain(padded, n_hops + 3, 170, 402)
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-4)
+
+
+# bf16: both versions compute in fp32 and round once to bf16, so they may
+# differ by one bf16 ulp of the output (at most 2^-7 of |ref|); fp32 by
+# the order of the sums only
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 0, 2e-5),
+                                             (torch.bfloat16, 2 ** -7, 1e-5)])
+@pytest.mark.parametrize("tq", [1, 3])
+def test_cross_attn_int8_kernel_matches_plain(dev, dtype, rtol, atol, tq):
+    from janus_tpu_torch.ops.cross_attn import (KERNEL, cross_attention_kv,
+                                                cross_attention_int8_plain)
+    from janus_tpu_torch.ops.quant import quantize_kv_t
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, 5, tq, 64), generator=g, device=dev).to(dtype)
+    k, v = (quantize_kv_t(torch.randn((2, 5, 77, 64), generator=g,
+                                      device=dev)) for _ in range(2))
+    before = KERNEL.launches
+    out = cross_attention_kv(q, k, v)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    ref = cross_attention_int8_plain(q, k, v)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+def test_linear_int8_dynamic_on_the_card_equals_cpu(dev):
+    from janus_tpu_torch.ops.quant import (DynQuantizedWeight,
+                                           linear_int8_dynamic,
+                                           quantize_weight)
+
+    rng = np.random.default_rng(2)
+    # 8 rows: fewer than the card's int8 product takes, so the rows are
+    # padded; the int32 sums are exact and the rescale is elementwise fp32
+    x = torch.from_numpy(rng.standard_normal((8, 1, 1280)).astype(np.float32))
+    w = torch.from_numpy((0.02 * rng.standard_normal((1280, 3840))
+                          ).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((3840,)).astype(np.float32))
+    qw = DynQuantizedWeight(*quantize_weight(w))
+    ref = linear_int8_dynamic(x, qw, b)
+    out = linear_int8_dynamic(x.to(dev), DynQuantizedWeight(
+        qw.q.to(dev), qw.scale.to(dev)), b.to(dev))
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
