@@ -11,7 +11,12 @@ printing one JSON line per result:
 1. device  — the card, its power limit, the kernel build time;
 2. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes, with times, the card's bound and, where one
-   PyTorch call computes the same function, that call's time;
+   PyTorch call computes the same function, that call's time. K2 and K4
+   are timed as device time (``kernel_ms``: launches replayed from a CUDA
+   graph) and as an eager loop (``eager_ms``, which the host bounds when
+   the kernel is shorter than its wrapper call); K2 also through its SIMT
+   kernel on the same inputs (``simt_ms``), K4 with the wrapper's host
+   time (``host_us``);
 3. demo    — the committed demo recognizer through ``SemanticEncoder`` on
    the card and on the CPU: the packets must be byte-equal; then the same
    under the int8 configuration (``quantize_tree`` weights in each mode,
@@ -155,8 +160,34 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
+    def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+        """Device time of one ``fn()``: ``iters`` calls captured in a CUDA
+        graph and replayed, so that no host time lies between launches."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (iters * replays)
+
     def max_abs(a, b) -> float:
         return float((a.float() - b.float()).abs().max())
+
+    def worst_ratio(out, ref, rtol: float, atol: float) -> float:
+        """Worst |out - ref| / (atol + rtol |ref|): a check is <= 1."""
+        ref = ref.float()
+        return float(((out.float() - ref).abs()
+                      / (atol + rtol * ref.abs())).max())
 
     # -- 1. device ---------------------------------------------------------
     smi = nvidia_smi_line()
@@ -206,47 +237,78 @@ def main() -> None:
                 summary["mel_fused"] = row
 
     from janus_tpu_torch.ops.flash import KERNEL as FLASH
-    from janus_tpu_torch.ops.flash import attend_bh, flash_forward
+    from janus_tpu_torch.ops.flash import (attend_bh, flash_forward,
+                                           flash_route)
 
     bh, dh = FLAGSHIP_BATCH * 20, 64
-    for t in FLASH_T:
-        # bf16: the output is rounded to bf16 (rtol: two bf16 ulps of |ref|,
-        # an ulp being at most 2^-7 of the value), and each version rounds p
-        # to bf16 before PV, the kernel against the running row max (atol:
-        # it shows where outputs cancel to near zero; 3.9e-3 at most on the
-        # H100)
-        for dtype, rtol, atol, peak in (
-                (torch.float32, 0.0, 2e-5, PEAK_FP32),
-                (torch.bfloat16, 2 ** -6, 5e-3, PEAK_BF16)):
-            q, k, v = (torch.randn((bh, t, dh), generator=gen,
-                                   device=dev).to(dtype) for _ in range(3))
-            out = flash_forward(q, k, v)
-            ref = attend_bh(q, k, v, False)
-            torch.cuda.synchronize()
-            err = max_abs(out, ref)
-            # worst |out - ref| / (atol + rtol |ref|): the check is <= 1
-            tol_ratio = float(((out.float() - ref.float()).abs()
-                               / (atol + rtol * ref.float().abs())).max())
-            ops = 4.0 * bh * t * t * dh
-            nbytes = 4 * q.numel() * q.element_size()
-            b_ms, b_by = bound_ms(ops, peak, nbytes)
-            # the library yardstick on [B, H, T, Dh], the layout its fused
-            # backends take
-            q4, k4, v4 = (x.view(FLAGSHIP_BATCH, 20, t, dh) for x in (q, k, v))
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            row = {"phase": "kernel", "name": "flash_attn", "bh": bh, "t": t,
-                   "head_dim": dh, "dtype": str(dtype).split(".")[-1],
-                   "rtol": rtol, "atol": atol, "max_err": err,
-                   "tol_ratio": tol_ratio,
-                   "kernel_ms": time_ms(lambda: flash_forward(q, k, v)),
-                   "plain_ms": time_ms(lambda: attend_bh(q, k, v, False)),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": time_ms(lambda: sdpa(q4, k4, v4))}
-            emit(row)
-            check(tol_ratio <= 1.0, f"flash_attn t={t} {dtype} err {err} "
-                  f"beyond rtol {rtol} atol {atol}")
-            if t == FLASH_T[0] and dtype == torch.bfloat16:
-                summary["flash_attn"] = row
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # bf16: the output is rounded to bf16 (rtol: two bf16 ulps of |ref|, an
+    # ulp being at most 2^-7 of the value), and each version rounds p to
+    # bf16 before PV, the kernel against the running row max (atol: it
+    # shows where outputs cancel to near zero; 3.9e-3 at most on the H100
+    # without a mask, 1.6e-2 causal, where early rows see few keys)
+    flash_bars = {torch.float32: (0.0, 2e-5, PEAK_FP32),
+                  torch.bfloat16: (2 ** -6, 5e-3, PEAK_BF16)}
+    flash_rows = [(t, dtype, False) for t in FLASH_T
+                  for dtype in (torch.float32, torch.bfloat16)]
+    flash_rows.append((FLASH_T[0], torch.bfloat16, True))
+    for t, dtype, causal in flash_rows:
+        rtol, atol, peak = flash_bars[dtype]
+        q, k, v = (torch.randn((bh, t, dh), generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
+        out = flash_forward(q, k, v, causal)
+        ref = attend_bh(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = max_abs(out, ref)
+        tol_ratio = worst_ratio(out, ref, rtol, atol)
+        # causal: the lower triangle (with its diagonal) of the products
+        ops = 4.0 * bh * dh * (t * (t + 1) / 2 if causal else t * t)
+        nbytes = 4 * q.numel() * q.element_size()
+        b_ms, b_by = bound_ms(ops, peak, nbytes)
+        # the library yardstick on [B, H, T, Dh], the layout its fused
+        # backends take
+        q4, k4, v4 = (x.view(FLAGSHIP_BATCH, 20, t, dh) for x in (q, k, v))
+        route = flash_route(dtype, dh)
+        row = {"phase": "kernel", "name": "flash_attn", "bh": bh, "t": t,
+               "head_dim": dh, "dtype": str(dtype).split(".")[-1],
+               "causal": causal, "route": route,
+               "rtol": rtol, "atol": atol, "max_err": err,
+               "tol_ratio": tol_ratio,
+               "kernel_ms": graph_ms(lambda: flash_forward(q, k, v, causal)),
+               "eager_ms": time_ms(lambda: flash_forward(q, k, v, causal)),
+               "simt_ms": graph_ms(lambda: flash_forward(
+                   q, k, v, causal, route="simt"), iters=5),
+               "plain_ms": graph_ms(lambda: attend_bh(q, k, v, causal),
+                                    iters=5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": graph_ms(lambda: sdpa(q4, k4, v4,
+                                                   is_causal=causal))}
+        emit(row)
+        check(tol_ratio <= 1.0, f"flash_attn t={t} {dtype} causal={causal} "
+              f"err {err} beyond rtol {rtol} atol {atol}")
+        if route == "wgmma":
+            check(row["kernel_ms"] < row["simt_ms"],
+                  f"flash_attn t={t}: the tensor-core kernel "
+                  f"({row['kernel_ms']} ms) is no faster than the SIMT one "
+                  f"({row['simt_ms']} ms)")
+        if t == FLASH_T[0] and dtype == torch.bfloat16 and not causal:
+            summary["flash_attn"] = row
+
+    # key length != query length, a ragged last tile, one query row
+    rtol, atol, _ = flash_bars[torch.bfloat16]
+    for fbh, tq_, tk_ in ((2, 130, 500), (2, 1, 65), (3, 64, 52)):
+        q = torch.randn((fbh, tq_, dh), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((fbh, tk_, dh), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        tol_ratio = worst_ratio(flash_forward(q, k, v), attend_bh(
+            q, k, v, False), rtol, atol)
+        emit({"phase": "kernel", "name": "flash_attn", "bh": fbh, "tq": tq_,
+              "tk": tk_, "head_dim": dh, "dtype": "bfloat16",
+              "route": flash_route(torch.bfloat16, dh),
+              "tol_ratio": tol_ratio})
+        check(tol_ratio <= 1.0, f"flash_attn tq={tq_} tk={tk_} beyond rtol "
+              f"{rtol} atol {atol}")
 
     from janus_tpu_torch.ops.yin import _pad_stream
     from janus_tpu_torch.ops.yin_blocksums import KERNEL as YIN
@@ -290,18 +352,25 @@ def main() -> None:
     summary["yin_block_sums"] = row
 
     from janus_tpu_torch.ops.cross_attn import KERNEL as CROSS
-    from janus_tpu_torch.ops.cross_attn import (cross_attention_int8,
-                                                cross_attention_int8_plain)
-    from janus_tpu_torch.ops.quant import quantize_kv_t
+    from janus_tpu_torch.ops.cross_attn import (_rows,
+                                                cross_attention_int8,
+                                                cross_attention_int8_plain,
+                                                load_bytes, plan_splits)
+    from janus_tpu_torch.ops.quant import QuantKVT, quantize_kv_t
+
+    def k4_load_bytes(kq, vq) -> int:
+        """Bytes per load the wrapper picks for these K/V."""
+        (kr, k_row), (vr, v_row) = _rows(kq.q), _rows(vq.q)
+        return load_bytes(kr.data_ptr(), vr.data_ptr(), k_row, v_row)
 
     h = 20
+    # fp32: the order of the sums is the only difference. bf16: both
+    # versions compute in fp32 and round once, so one bf16 ulp of the
+    # output (at most 2^-7 of |ref|). Both are tighter than the JAX
+    # package's own bar for this kernel (atol = rtol = 2e-3).
+    cross_bars = ((torch.float32, 0.0, 2e-5), (torch.bfloat16, 2 ** -7, 1e-5))
     for t in CROSS_T:
-        # fp32: the order of the sums is the only difference. bf16: both
-        # versions compute in fp32 and round once, so one bf16 ulp of the
-        # output (at most 2^-7 of |ref|). Both are tighter than the JAX
-        # package's own bar for this kernel (atol = rtol = 2e-3).
-        for dtype, rtol, atol in ((torch.float32, 0.0, 2e-5),
-                                  (torch.bfloat16, 2 ** -7, 1e-5)):
+        for dtype, rtol, atol in cross_bars:
             q = torch.randn((FLAGSHIP_BATCH, h, 1, dh), generator=gen,
                             device=dev).to(dtype)
             k_dense, v_dense = (torch.randn((FLAGSHIP_BATCH, h, t, dh),
@@ -312,8 +381,7 @@ def main() -> None:
             ref = cross_attention_int8_plain(q, kq, vq)
             torch.cuda.synchronize()
             err = max_abs(out, ref)
-            tol_ratio = float(((out.float() - ref.float()).abs()
-                               / (atol + rtol * ref.float().abs())).max())
+            tol_ratio = worst_ratio(out, ref, rtol, atol)
             # QK^T and PV (4 T Dh per query row) plus the score scaling,
             # max, exp, sum and V-scale fold (~6 per score)
             ops = FLAGSHIP_BATCH * h * (4.0 * t * dh + 6.0 * t)
@@ -322,27 +390,66 @@ def main() -> None:
             b_ms, b_by = bound_ms(ops, PEAK_FP32, nbytes)
             kd, vd = k_dense.to(torch.bfloat16), v_dense.to(torch.bfloat16)
             qd = q.to(torch.bfloat16)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
+            # the wrapper alone: 1000 calls with no synchronise between them
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                cross_attention_int8(q, kq, vq)
+            host_us = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
             row = {"phase": "kernel", "name": "cross_attn_int8",
                    "batch": FLAGSHIP_BATCH, "heads": h, "tq": 1, "t": t,
                    "head_dim": dh, "dtype": str(dtype).split(".")[-1],
+                   "splits": plan_splits(t),
+                   "load_bytes": k4_load_bytes(kq, vq),
                    "rtol": rtol, "atol": atol, "max_err": err,
                    "tol_ratio": tol_ratio,
-                   "kernel_ms": time_ms(lambda: cross_attention_int8(
+                   "kernel_ms": graph_ms(lambda: cross_attention_int8(
                        q, kq, vq), iters=50),
-                   "plain_ms": time_ms(lambda: cross_attention_int8_plain(
+                   "eager_ms": time_ms(lambda: cross_attention_int8(
+                       q, kq, vq), iters=50),
+                   "host_us": host_us,
+                   "plain_ms": graph_ms(lambda: cross_attention_int8_plain(
                        q, kq, vq), iters=50),
                    "bound_ms": b_ms, "bound_by": b_by,
                    # no single PyTorch call takes int8 K/V with per-position
                    # scales; SDPA over the dense bf16 K/V is context only
                    "library_ms": None,
-                   "dense_sdpa_ms": time_ms(lambda: sdpa(qd, kd, vd),
-                                            iters=50)}
+                   "dense_sdpa_ms": graph_ms(lambda: sdpa(qd, kd, vd),
+                                             iters=50)}
             emit(row)
             check(tol_ratio <= 1.0, f"cross_attn_int8 t={t} {dtype} err "
                   f"{err} beyond rtol {rtol} atol {atol}")
+            check(torch.equal(out, cross_attention_int8(q, kq, vq)),
+                  f"cross_attn_int8 t={t} {dtype}: two launches differ")
             if t == CROSS_T[0] and dtype == torch.bfloat16:
                 summary["cross_attn_int8"] = row
+
+    # other shapes and layouts: a T that is no multiple of 4 or 16, a prompt
+    # of several rows, two blocks and one block per (batch, head), rows
+    # packed densely (4-byte and 1-byte loads)
+    for t, tq_ in ((499, 1), (499, 3), (500, 5), (200, 1), (77, 1)):
+        for dtype, rtol, atol in cross_bars:
+            q = torch.randn((2, 5, tq_, dh), generator=gen,
+                            device=dev).to(dtype)
+            kq, vq = (quantize_kv_t(torch.randn((2, 5, t, dh), generator=gen,
+                                                device=dev))
+                      for _ in range(2))
+            ref = cross_attention_int8_plain(q, kq, vq)
+            packed = tuple(QuantKVT(x.q.contiguous(), x.scale)
+                           for x in (kq, vq))
+            for layout, (kk, vv) in (("padded", (kq, vq)),
+                                     ("packed", packed)):
+                tol_ratio = worst_ratio(cross_attention_int8(q, kk, vv), ref,
+                                        rtol, atol)
+                emit({"phase": "kernel", "name": "cross_attn_int8",
+                      "batch": 2, "heads": 5, "tq": tq_, "t": t,
+                      "head_dim": dh, "dtype": str(dtype).split(".")[-1],
+                      "layout": layout, "splits": plan_splits(t),
+                      "load_bytes": k4_load_bytes(kk, vv),
+                      "tol_ratio": tol_ratio})
+                check(tol_ratio <= 1.0, f"cross_attn_int8 t={t} tq={tq_} "
+                      f"{dtype} {layout} beyond rtol {rtol} atol {atol}")
 
     # -- 3. demo checkpoint: card and CPU give the same packets ------------
     from janus_tpu_torch.audio.synthetic import render_text, voiced_phrase

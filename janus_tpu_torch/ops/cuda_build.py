@@ -6,7 +6,9 @@ with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 library is loaded with ``ctypes``. A library is rebuilt when its source
 is newer. Nothing here runs at import time: :func:`library` builds at a
 kernel's first launch, :func:`build_all` builds every kernel with one
-``nvcc`` process per source, all started together.
+``nvcc`` process per source, all started together. :func:`entry` hands a
+wrapper its C function with the ``ctypes`` signature set once, when the
+function is first asked for, not at every launch.
 """
 
 from __future__ import annotations
@@ -17,10 +19,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
-__all__ = ["Kernel", "KERNELS", "library", "build_all", "check_launch",
-           "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["Kernel", "KERNELS", "library", "entry", "build_all",
+           "check_launch", "BUILD_DIR", "CSRC_DIR"]
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -40,6 +42,7 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
+        self._entries: Dict[str, Callable] = {}
 
     @property
     def source(self) -> Path:
@@ -121,6 +124,19 @@ def library(k: Kernel) -> ctypes.CDLL:
         lib.jt_error_string.restype = ctypes.c_char_p
         k._lib = lib
     return k._lib
+
+
+def entry(k: Kernel, name: str, argtypes: Sequence) -> Callable:
+    """The C launcher ``name`` of the kernel's library (every launcher
+    returns a CUDA error code as ``int``), its signature set at the first
+    request and the function kept for the later ones."""
+    fn = k._entries.get(name)
+    if fn is None:
+        fn = getattr(library(k), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        k._entries[name] = fn
+    return fn
 
 
 def check_launch(k: Kernel, code: int) -> None:

@@ -34,6 +34,11 @@ __all__ = ["log_mel_spectrogram_fused", "mel_log10", "KERNEL"]
 KERNEL = cuda_build.KERNELS["mel_fused"]
 
 _MAX_MELS = 128
+# mel_log10(x, n_signals, lp, n_frames, hop, n_fft, cos, sin, n_freq_pad,
+#           fbt, n_mels, out, stream)
+_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+             + [ctypes.c_void_p] * 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,13 +85,7 @@ def mel_log10(audio: torch.Tensor, sample_rate: int = 16_000,
     cos, sin, fbt = _banks(n_fft, sample_rate, n_mels, audio.device)
     out = torch.empty((n_signals * n_frames, n_mels), dtype=torch.float32,
                       device=audio.device)
-    lib = cuda_build.library(KERNEL)
-    fn = lib.mel_log10
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry(KERNEL, "mel_log10", _ARGTYPES)
     KERNEL.launches += 1
     code = fn(x.data_ptr(), n_signals, lp, n_frames, hop, n_fft,
               cos.data_ptr(), sin.data_ptr(), cos.shape[1], fbt.data_ptr(),

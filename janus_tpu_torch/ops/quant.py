@@ -71,7 +71,10 @@ class QuantKV(NamedTuple):
 class QuantKVT(NamedTuple):
     """int8 K or V stored head-dim-major, ``q[..., Dh, T]``, with
     per-position fp32 ``scale[..., T]``: the K4 kernel's layout, built once
-    at decode-state init."""
+    at decode-state init. :func:`quantize_kv_t` gives ``q`` as the first
+    ``T`` columns of rows padded to a multiple of 16 bytes, so that every
+    row starts 16-byte aligned for the kernel's vector loads; shapes and
+    values are those of the dense layout."""
 
     q: torch.Tensor
     scale: torch.Tensor
@@ -104,13 +107,22 @@ def quantize_kv(x: torch.Tensor) -> QuantKV:
     return QuantKV(q=_round_int8(xf / scale), scale=scale)
 
 
+_ROW_ALIGN = 16  # bytes: the K4 kernel's widest load
+
+
 def quantize_kv_t(x: torch.Tensor) -> QuantKVT:
     """Per-position int8 quantization of ``[..., T, Dh]`` into the
-    head-dim-major layout ``q[..., Dh, T]``, ``scale[..., T]``."""
+    head-dim-major layout ``q[..., Dh, T]``, ``scale[..., T]``; the
+    rows of ``q`` are stored ``_ROW_ALIGN``-byte aligned (zero padding past
+    ``T``, outside the view)."""
     xf = x.float()
     scale = _scale_of(xf.abs().amax(dim=-1))
     q = _round_int8(xf / scale[..., None])
-    return QuantKVT(q=q.transpose(-1, -2).contiguous(), scale=scale)
+    t, dh = q.shape[-2:]
+    rows = torch.zeros(q.shape[:-2] + (dh, -(-t // _ROW_ALIGN) * _ROW_ALIGN),
+                       dtype=torch.int8, device=q.device)
+    rows[..., :t] = q.transpose(-1, -2)
+    return QuantKVT(q=rows[..., :t], scale=scale)
 
 
 def dequant_kv(x, dtype=torch.bfloat16):

@@ -27,6 +27,8 @@ __all__ = ["block_sums", "block_sums_plain", "KERNEL"]
 KERNEL = cuda_build.KERNELS["yin_block_sums"]
 
 _TAU_CHUNK = 64  # lags per broadcast product in the plain version
+# yin_block_sums(x, n_signals, t_len, nblk, hop, n_lags_out, out, stream)
+_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
 
 
 def _rows_view(x: torch.Tensor, nblk: int, hop: int, n_lags_out: int):
@@ -71,11 +73,7 @@ def block_sums(padded: torch.Tensor, nblk: int, hop: int,
     n_signals, t_len = x.shape
     out = torch.empty((n_signals, nblk, n_lags_out), dtype=torch.float32,
                       device=x.device)
-    fn = cuda_build.library(KERNEL).yin_block_sums
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry(KERNEL, "yin_block_sums", _ARGTYPES)
     KERNEL.launches += 1
     code = fn(x.data_ptr(), n_signals, t_len, nblk, hop, n_lags_out,
               out.data_ptr(),
