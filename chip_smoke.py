@@ -11,12 +11,12 @@ printing one JSON line per result:
 1. device  — the card, its power limit, the kernel build time;
 2. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes, with times, the card's bound and, where one
-   PyTorch call computes the same function, that call's time. K2 and K4
-   are timed as device time (``kernel_ms``: launches replayed from a CUDA
-   graph) and as an eager loop (``eager_ms``, which the host bounds when
-   the kernel is shorter than its wrapper call); K2 also through its SIMT
-   kernel on the same inputs (``simt_ms``), K4 with the wrapper's host
-   time (``host_us``);
+   PyTorch call computes the same function, that call's time. Every
+   kernel is timed as device time (``kernel_ms``: launches replayed from a
+   CUDA graph) and as an eager loop (``eager_ms``, which the host bounds
+   when the kernel is shorter than its wrapper call, ``host_us``); K1, K2
+   and K3 also through their earlier kernel on the same inputs
+   (``dense_ms``, ``simt_ms``, ``simple_ms``);
 3. demo    — the committed demo recognizer through ``SemanticEncoder`` on
    the card and on the CPU: the packets must be byte-equal; then the same
    under the int8 configuration (``quantize_tree`` weights in each mode,
@@ -180,6 +180,26 @@ def main() -> None:
         end.synchronize()
         return start.elapsed_time(end) / (iters * replays)
 
+    def yardstick_ms(fn, iters: int = 20):
+        """(ms, how) of a plain version or a library call: device time from
+        a graph replay where the call can be captured, else an eager loop."""
+        try:
+            return graph_ms(fn, iters=iters), "graph"
+        except RuntimeError:
+            torch.cuda.synchronize()
+            return time_ms(fn, iters=iters), "eager"
+
+    def wrapper_us(fn, calls: int = 500) -> float:
+        """Host time of one wrapper call: ``calls`` of them with no
+        synchronise between."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = 1e6 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        return us
+
     def max_abs(a, b) -> float:
         return float((a.float() - b.float()).abs().max())
 
@@ -201,9 +221,14 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     # -- 2. kernels against their plain versions --------------------------
-    from janus_tpu_torch.ops.mel import log_mel_spectrogram, mel_filterbank
+    from janus_tpu_torch.ops.mel import (_floor_and_scale,
+                                         log_mel_spectrogram, mel_filterbank)
     from janus_tpu_torch.ops.mel_fused import KERNEL as MEL
-    from janus_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
+    from janus_tpu_torch.ops.mel_fused import (log_mel_spectrogram_fused,
+                                               mel_log10, mel_route)
+
+    def mel_features(audio, n_mels, route):
+        return _floor_and_scale(mel_log10(audio, n_mels=n_mels, route=route))
 
     for seconds in MEL_SECONDS:
         for n_mels in (128, 80):
@@ -211,8 +236,9 @@ def main() -> None:
                                       generator=gen, device=dev)
             out = log_mel_spectrogram_fused(audio, n_mels=n_mels)
             ref = log_mel_spectrogram(audio, n_mels=n_mels)
+            dense = mel_features(audio, n_mels, "dense")
             torch.cuda.synchronize()
-            err = max_abs(out, ref)
+            err, dense_err = max_abs(out, ref), max_abs(dense, ref)
             # the least work log-mel needs, not the matmul-DFT's: a real FFT
             # per frame (2.5 n log2 n), |X|^2, the filterbank's nonzero
             # taps and one log per mel
@@ -222,19 +248,59 @@ def main() -> None:
                               + 2 * fb_nnz + n_mels)
             nbytes = 4 * (audio.numel() + out.numel())
             b_ms, b_by = bound_ms(ops, PEAK_FP32, nbytes)
+            plain_ms, plain_how = yardstick_ms(
+                lambda: log_mel_spectrogram(audio, n_mels=n_mels))
+            # kernel_ms, dense_ms: the launch alone (mel_log10), device time;
+            # fused_ms: with the floor and the scale, as the path calls it
             row = {"phase": "kernel", "name": "mel_fused",
                    "batch": FLAGSHIP_BATCH,
-                   "seconds": seconds, "n_mels": n_mels, "atol": 5e-5,
-                   "max_err": err,
-                   "kernel_ms": time_ms(lambda: log_mel_spectrogram_fused(
+                   "seconds": seconds, "n_mels": n_mels,
+                   "route": mel_route(400), "atol": 5e-5,
+                   "max_err": err, "dense_max_err": dense_err,
+                   "kernel_ms": graph_ms(lambda: mel_log10(
                        audio, n_mels=n_mels)),
-                   "plain_ms": time_ms(lambda: log_mel_spectrogram(
+                   "eager_ms": time_ms(lambda: mel_log10(
                        audio, n_mels=n_mels)),
+                   "host_us": wrapper_us(lambda: mel_log10(
+                       audio, n_mels=n_mels)),
+                   "dense_ms": graph_ms(lambda: mel_log10(
+                       audio, n_mels=n_mels, route="dense"), iters=5),
+                   "fused_ms": graph_ms(lambda: log_mel_spectrogram_fused(
+                       audio, n_mels=n_mels)),
+                   "plain_ms": plain_ms, "plain_timing": plain_how,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
             emit(row)
             check(err <= 5e-5, f"mel_fused {seconds}s/{n_mels} err {err}")
+            check(dense_err <= 5e-5, f"mel_fused dense route {seconds}s/"
+                  f"{n_mels} err {dense_err}")
+            check(torch.equal(out, log_mel_spectrogram_fused(
+                audio, n_mels=n_mels)) and torch.equal(dense, mel_features(
+                    audio, n_mels, "dense")),
+                f"mel_fused {seconds}s/{n_mels}: two launches differ")
+            check(row["kernel_ms"] < row["dense_ms"],
+                  f"mel_fused {seconds}s/{n_mels}: the FFT kernel "
+                  f"({row['kernel_ms']} ms) is no faster than the dense one "
+                  f"({row['dense_ms']} ms)")
             if seconds == MEL_SECONDS[0] and n_mels == 128:
                 summary["mel_fused"] = row
+
+    # an odd signal length, a batch of 1, an odd frame count (the last pair
+    # of frames is half empty), 1 and 77 mels, rows that are not contiguous
+    for shape, n_mels, sliced in (((3, 16_123), 77, False),
+                                  ((1, 16_000), 1, False),
+                                  ((2, 8_160), 128, False),
+                                  ((4, 20_000), 80, True)):
+        audio = 0.1 * torch.randn(shape, generator=gen, device=dev)
+        if sliced:
+            audio = audio[:, 3:16_003]
+        ref = log_mel_spectrogram(audio, n_mels=n_mels)
+        errs = {route: max_abs(mel_features(audio, n_mels, route), ref)
+                for route in ("fft", "dense")}
+        emit({"phase": "kernel", "name": "mel_fused", "shape": list(shape),
+              "n_mels": n_mels, "frames": ref.shape[-2], "sliced": sliced,
+              "atol": 5e-5, "max_err": errs})
+        check(max(errs.values()) <= 5e-5,
+              f"mel_fused {shape}/{n_mels} err {errs}")
 
     from janus_tpu_torch.ops.flash import KERNEL as FLASH
     from janus_tpu_torch.ops.flash import (attend_bh, flash_forward,
@@ -310,10 +376,11 @@ def main() -> None:
         check(tol_ratio <= 1.0, f"flash_attn tq={tq_} tk={tk_} beyond rtol "
               f"{rtol} atol {atol}")
 
-    from janus_tpu_torch.ops.yin import _pad_stream
+    from janus_tpu_torch.ops.yin import _pad_stream, _search_bounds
     from janus_tpu_torch.ops.yin_blocksums import KERNEL as YIN
     from janus_tpu_torch.ops.yin_blocksums import (_rows_view, block_sums,
-                                                   block_sums_plain)
+                                                   block_sums_plain,
+                                                   plan_rows)
 
     audio16 = 0.1 * torch.randn((FLAGSHIP_BATCH,
                                  int(FLAGSHIP_SECONDS * 16_000)),
@@ -321,6 +388,7 @@ def main() -> None:
     padded, n_hops = _pad_stream(audio16, 1360, 170)
     nblk, hop, n_lags = n_hops + 3, 170, 402
     out = block_sums(padded, nblk, hop, n_lags)
+    simple = block_sums(padded, nblk, hop, n_lags, route="simple")
     ref = block_sums_plain(padded, nblk, hop, n_lags)
     first, rows = _rows_view(padded, nblk, hop, n_lags)
     groups = FLAGSHIP_BATCH * nblk
@@ -337,19 +405,61 @@ def main() -> None:
     ops = 2.0 * FLAGSHIP_BATCH * nblk * n_lags * hop
     nbytes = 4 * (padded.numel() + out.numel())
     b_ms, b_by = bound_ms(ops, PEAK_FP32, nbytes)
+    plain_ms, plain_how = yardstick_ms(
+        lambda: block_sums_plain(padded, nblk, hop, n_lags), iters=3)
+    library_ms, library_how = yardstick_ms(grouped_conv, iters=3)
     row = {"phase": "kernel", "name": "yin_block_sums",
-           "batch": FLAGSHIP_BATCH, "seconds": FLAGSHIP_SECONDS, "nblk": nblk, "hop": hop, "n_lags": n_lags,
+           "batch": FLAGSHIP_BATCH, "seconds": FLAGSHIP_SECONDS,
+           "nblk": nblk, "hop": hop, "n_lags": n_lags, "route": "tiled",
+           "rows_per_block": plan_rows(hop, n_lags).rows,
            "rtol": 2e-4, "atol": 2e-4, "max_err": err,
+           "equals_simple": bool(torch.equal(out, simple)),
            "library_max_err": max_abs(lib_out, ref),
-           "kernel_ms": time_ms(lambda: block_sums(padded, nblk, hop,
-                                                   n_lags)),
-           "plain_ms": time_ms(lambda: block_sums_plain(padded, nblk, hop,
-                                                        n_lags), iters=3),
+           "kernel_ms": graph_ms(lambda: block_sums(padded, nblk, hop,
+                                                    n_lags)),
+           "eager_ms": time_ms(lambda: block_sums(padded, nblk, hop,
+                                                  n_lags)),
+           "host_us": wrapper_us(lambda: block_sums(padded, nblk, hop,
+                                                    n_lags)),
+           "simple_ms": graph_ms(lambda: block_sums(
+               padded, nblk, hop, n_lags, route="simple")),
+           "plain_ms": plain_ms, "plain_timing": plain_how,
            "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": time_ms(grouped_conv, iters=3)}
+           "library_ms": library_ms, "library_timing": library_how}
     emit(row)
     check(rel_ok, f"yin_block_sums outside rtol/atol 2e-4 (max err {err})")
+    check(row["equals_simple"], "yin_block_sums: the tiled and the simple "
+          "kernel differ on the same input")
+    check(torch.equal(out, block_sums(padded, nblk, hop, n_lags)),
+          "yin_block_sums: two launches differ")
+    check(row["kernel_ms"] < row["simple_ms"],
+          f"yin_block_sums: the tiled kernel ({row['kernel_ms']} ms) is no "
+          f"faster than the simple one ({row['simple_ms']} ms)")
     summary["yin_block_sums"] = row
+
+    # the 48 kHz geometry with its own lag count; a lag count that leaves 3
+    # of a thread's 8 lags; row counts that are no multiple of the plan's;
+    # a signal shorter than one row's span
+    lags48 = _search_bounds(4096, 48_000, 40.0, 1000.0)[2]
+    for buf, hop_, lags_, shape in ((4096, 512, lags48, (2, 96_000)),
+                                    (4096, 512, 2048, (1, 20_000)),
+                                    (1360, 170, 403, (3, 3_000)),
+                                    (1360, 170, 17, (2, 5_000)),
+                                    (1360, 170, 402, (1, 300))):
+        audio = 0.1 * torch.randn(shape, generator=gen, device=dev)
+        padded_, hops_ = _pad_stream(audio, buf, hop_)
+        nblk_ = hops_ + (buf // 2) // hop_ - 1
+        ref = block_sums_plain(padded_, nblk_, hop_, lags_)
+        tiled = block_sums(padded_, nblk_, hop_, lags_)
+        equal = bool(torch.equal(tiled, block_sums(padded_, nblk_, hop_,
+                                                   lags_, route="simple")))
+        tol_ratio = worst_ratio(tiled, ref, 2e-4, 2e-4)
+        emit({"phase": "kernel", "name": "yin_block_sums", "buf": buf,
+              "hop": hop_, "n_lags": lags_, "shape": list(shape),
+              "nblk": nblk_, "rows_per_block": plan_rows(hop_, lags_).rows,
+              "tol_ratio": tol_ratio, "equals_simple": equal})
+        check(tol_ratio <= 1.0 and equal, f"yin_block_sums {buf}/{hop_}/"
+              f"{lags_} {shape}: tol_ratio {tol_ratio}, equal {equal}")
 
     from janus_tpu_torch.ops.cross_attn import KERNEL as CROSS
     from janus_tpu_torch.ops.cross_attn import (_rows,
@@ -390,13 +500,6 @@ def main() -> None:
             b_ms, b_by = bound_ms(ops, PEAK_FP32, nbytes)
             kd, vd = k_dense.to(torch.bfloat16), v_dense.to(torch.bfloat16)
             qd = q.to(torch.bfloat16)
-            # the wrapper alone: 1000 calls with no synchronise between them
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(1000):
-                cross_attention_int8(q, kq, vq)
-            host_us = 1e3 * (time.perf_counter() - t0)
-            torch.cuda.synchronize()
             row = {"phase": "kernel", "name": "cross_attn_int8",
                    "batch": FLAGSHIP_BATCH, "heads": h, "tq": 1, "t": t,
                    "head_dim": dh, "dtype": str(dtype).split(".")[-1],
@@ -408,7 +511,8 @@ def main() -> None:
                        q, kq, vq), iters=50),
                    "eager_ms": time_ms(lambda: cross_attention_int8(
                        q, kq, vq), iters=50),
-                   "host_us": host_us,
+                   "host_us": wrapper_us(lambda: cross_attention_int8(
+                       q, kq, vq), calls=1000),
                    "plain_ms": graph_ms(lambda: cross_attention_int8_plain(
                        q, kq, vq), iters=50),
                    "bound_ms": b_ms, "bound_by": b_by,

@@ -32,6 +32,60 @@ def test_mel_kernel_matches_plain(dev):
         torch.testing.assert_close(out, ref, rtol=0, atol=5e-5)
 
 
+# an odd signal length, a batch of 1, an odd frame count (51: the last pair
+# of frames is half empty), the shortest signal the reflect edge allows,
+# 1 and 77 mels; atol 5e-5 as the JAX package holds its fused kernel to
+@pytest.mark.parametrize("route", ["fft", "dense"])
+@pytest.mark.parametrize("shape,n_mels", [
+    ((3, 16_123), 77), ((1, 16_000), 1), ((2, 8_160), 128), ((2, 8_160), 80),
+    ((5, 330), 80), ((2, 3, 4_000), 128)])
+def test_mel_routes_match_plain(dev, route, shape, n_mels):
+    from janus_tpu_torch.ops.mel import _floor_and_scale, log_mel_spectrogram
+    from janus_tpu_torch.ops.mel_fused import KERNEL, mel_log10
+
+    audio = torch.from_numpy((0.3 * np.random.default_rng(5).standard_normal(
+        shape)).astype(np.float32)).to(dev)
+    before = KERNEL.launches
+    out = _floor_and_scale(mel_log10(audio, n_mels=n_mels, route=route))
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    ref = log_mel_spectrogram(audio, n_mels=n_mels)
+    assert out.shape == ref.shape == shape[:-1] + (shape[-1] // 160, n_mels)
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-5)
+
+
+def test_mel_fft_route_reads_rows_in_place(dev):
+    """Rows that are a slice of a longer buffer (as ``prepare_mel`` trims
+    them) and a misaligned first sample give the contiguous copy's result,
+    bit for bit."""
+    from janus_tpu_torch.ops.mel_fused import mel_log10
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    buf = torch.randn((4, 20_001), generator=g, device=dev)
+    for start in (0, 1, 2, 3):
+        rows = buf[:, start:start + 16_000]
+        assert not rows.is_contiguous()
+        assert torch.equal(mel_log10(rows), mel_log10(rows.contiguous()))
+
+
+def test_mel_routes_reject(dev):
+    from janus_tpu_torch.ops.mel_fused import mel_log10
+
+    audio = torch.zeros((2, 4_000), device=dev)
+    with pytest.raises(ValueError):
+        mel_log10(audio, n_fft=512, route="fft")
+    with pytest.raises(ValueError):
+        mel_log10(audio, route="cufft")
+    with pytest.raises(ValueError):
+        mel_log10(audio[:, :200])
+    # another frame length takes the dense kernel by itself
+    from janus_tpu_torch.ops.mel import _floor_and_scale, log_mel_spectrogram
+    torch.testing.assert_close(
+        _floor_and_scale(mel_log10(audio + 0.1, n_fft=512, hop=128)),
+        log_mel_spectrogram(audio + 0.1, n_fft=512, hop=128), rtol=0,
+        atol=5e-5)
+
+
 # bf16: two bf16 ulps of the output for its rounding (rtol), plus 5e-3 for
 # p rounded to bf16 before PV in each version, which shows where outputs
 # cancel to near zero (atol). Dh 64 in bf16 takes the tensor-core kernel,
@@ -87,6 +141,41 @@ def test_yin_kernel_matches_plain(dev):
     out = block_sums(padded, n_hops + 3, 170, 402)
     ref = block_sums_plain(padded, n_hops + 3, 170, 402)
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-4)
+
+
+# the 48 kHz geometry with its lag count and with every lag; lag counts
+# that leave 3 and 1 of a thread's 8 lags; row counts that are no multiple
+# of the plan's rows per block; a signal shorter than one row's span
+@pytest.mark.parametrize("buf,hop,n_lags,shape", [
+    (4096, 512, 1202, (2, 96_000)), (4096, 512, 2048, (1, 20_000)),
+    (1360, 170, 403, (3, 3_000)), (1360, 170, 17, (2, 5_000)),
+    (1360, 170, 402, (1, 300)), (1360, 170, 402, (2, 3, 4_000))])
+def test_yin_routes_match_plain_and_each_other(dev, buf, hop, n_lags, shape):
+    from janus_tpu_torch.ops.yin import _pad_stream
+    from janus_tpu_torch.ops.yin_blocksums import (KERNEL, block_sums,
+                                                   block_sums_plain)
+
+    audio = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        shape).astype(np.float32)).to(dev)
+    padded, n_hops = _pad_stream(audio, buf, hop)
+    nblk = n_hops + (buf // 2) // hop - 1
+    ref = block_sums_plain(padded, nblk, hop, n_lags)
+    before = KERNEL.launches
+    tiled = block_sums(padded, nblk, hop, n_lags)
+    simple = block_sums(padded, nblk, hop, n_lags, route="simple")
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 2
+    assert tiled.shape == ref.shape == shape[:-1] + (nblk, n_lags)
+    torch.testing.assert_close(tiled, ref, rtol=2e-4, atol=2e-4)
+    # one fmaf chain per output over i in index order, in both kernels
+    assert torch.equal(tiled, simple)
+
+
+def test_yin_rows_too_large_for_shared_memory_raise(dev):
+    from janus_tpu_torch.ops.yin_blocksums import block_sums
+
+    with pytest.raises(ValueError):
+        block_sums(torch.zeros((1, 100_000), device=dev), 2, 8192, 30_000)
 
 
 # bf16: both versions compute in fp32 and round once to bf16, so they may
@@ -158,6 +247,17 @@ def test_kernels_repeat_bit_for_bit(dev, dtype):
     fq, fk, fv = (torch.randn((20, 500, 64), generator=g,
                               device=dev).to(dtype) for _ in range(3))
     assert torch.equal(flash_forward(fq, fk, fv), flash_forward(fq, fk, fv))
+    if dtype == torch.float32:
+        from janus_tpu_torch.ops.mel_fused import mel_log10
+        from janus_tpu_torch.ops.yin_blocksums import block_sums
+
+        audio = torch.randn((4, 16_000), generator=g, device=dev)
+        for route in ("fft", "dense"):
+            assert torch.equal(mel_log10(audio, n_mels=128, route=route),
+                               mel_log10(audio, n_mels=128, route=route))
+        for route in ("tiled", "simple"):
+            assert torch.equal(block_sums(audio, 90, 170, 402, route=route),
+                               block_sums(audio, 90, 170, 402, route=route))
 
 
 def test_linear_int8_dynamic_on_the_card_equals_cpu(dev):
