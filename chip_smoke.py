@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's send and receive paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -29,7 +29,20 @@ printing one JSON line per result:
    cross K/V (the analogue of CTranslate2 ``compute_type='int8'``): times,
    launches (K4 once per decoder layer and forward), one decode step's
    logits against the plain cross-attention, token agreement with phase 4;
-6. the ``kernels`` summary line.
+6. receive_demo — the committed demo TTS, vocoder and speaker encoder
+   through ``Synthesizer`` on the card and on the CPU (Morse bytes equal;
+   TTS modes: the same sample count and the PCM within a stated bar),
+   ``synthesize_streaming`` against ``synthesize`` on the card, and the
+   round trip phrase → packet → speech → packet, card against CPU;
+7. receive_flagship — ``TTSConfig.flagship()`` (d 1280, 30 layers, random
+   bf16 weights from seed 0) with the default vocoder: generate + vocode +
+   resample over the full budget of 256 groups at b = 8 and b = 1, stage
+   times, one traced AR step, and prefill + 4 groups against the CPU;
+8. receive_stream — ``StreamingSynthesizer`` at that width: seconds to
+   first audio and in all, and the stream against the fused path;
+9. the ``kernels`` summary line. The receive side runs no hand-written
+   kernel (the JAX package's has no Pallas kernel either), so its phases
+   add no row there.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -42,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -64,6 +78,9 @@ FLASH_T = (500, 1500)            # K2 at the 10 s bucket and the 30 s window
 CROSS_T = (500, 1500)            # K4 at the 10 s bucket and the 30 s window
 DEMO_TEXTS = ("alpha bravo", "fox golf hotel", "kilo lima")
 DEMO_TIMESTAMP = 1_700_000_000.25
+RECEIVE_BATCHES = (8, 1)
+RECEIVE_GROUPS = 256             # the flagship TTS's full budget: 1024 frames
+RECEIVE_STREAM_FRAMES = 512      # the streaming run's mel budget
 
 
 def emit(obj) -> None:
@@ -89,33 +106,26 @@ def bound_ms(ops: float, op_peak: float, nbytes: float):
                                        else "bytes")
 
 
-def profile_decode_step(torch, asr_mod, params, acfg, enc, prompt,
-                        steps: int = 3, cross_kv_int8: bool = False) -> dict:
-    """One greedy decode step, timed bare (median of ``steps``) and then
-    traced once under ``torch.profiler``: the kernels the device ran, the
-    host's kernel-launch calls, the device's busy time, and its idle share
-    of the bare step's wall time. The trace is a reading, not a check:
-    without device events it reports nulls."""
+def profile_step(torch, step, steps: int = 3) -> dict:
+    """``step()``, timed bare (median of ``steps``) and then traced once
+    under ``torch.profiler``: the kernels the device ran, the host's
+    kernel-launch calls, the device's busy time, and its idle share of the
+    bare step's wall time. The trace is a reading, not a check: without
+    device events it reports nulls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    state = asr_mod.init_decode_state(params, acfg, enc,
-                                      max_len=prompt.shape[-1] + steps + 1,
-                                      dtype=torch.bfloat16,
-                                      cross_kv_int8=cross_kv_int8)
-    _, state = asr_mod.decoder_prefill(params, acfg, prompt, state)
-    tok = prompt[:, -1]
     walls = []
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        asr_mod.decoder_step(params, acfg, tok, state)
+        step()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     wall_ms = float(np.median(walls))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        asr_mod.decoder_step(params, acfg, tok, state)
+        step()
         torch.cuda.synchronize()
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -127,6 +137,328 @@ def profile_decode_step(torch, asr_mod, params, acfg, enc, prompt,
             "device_busy_ms": busy_ms if device else None,
             "device_idle_share": (max(0.0, 1.0 - busy_ms / wall_ms)
                                   if device else None)}
+
+
+def profile_decode_step(torch, asr_mod, params, acfg, enc, prompt,
+                        steps: int = 3, cross_kv_int8: bool = False) -> dict:
+    """One greedy decode step of the recognizer through
+    :func:`profile_step`."""
+    state = asr_mod.init_decode_state(params, acfg, enc,
+                                      max_len=prompt.shape[-1] + steps + 1,
+                                      dtype=torch.bfloat16,
+                                      cross_kv_int8=cross_kv_int8)
+    _, state = asr_mod.decoder_prefill(params, acfg, prompt, state)
+    tok = prompt[:, -1]
+    return profile_step(
+        torch, lambda: asr_mod.decoder_step(params, acfg, tok, state), steps)
+
+
+def synced_ms(torch, fn):
+    """``(fn(), ms)`` with the device synchronised around the call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def pcm_float(data: bytes) -> np.ndarray:
+    return np.frombuffer(data, dtype=np.int16).astype(np.float32) / 32767.0
+
+
+class ErrorRecords(logging.Handler):
+    """Keeps every record at ERROR or above: the synthesizer's ladder
+    logs a failure and degrades, which must not pass for success here."""
+
+    def __init__(self):
+        super().__init__(level=logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def receive_demo(torch, dev) -> None:
+    """The demo checkpoints through ``Synthesizer`` on the card and on the
+    CPU, streaming against fused on the card, and the round trip."""
+    from janus_tpu_torch.audio.synthetic import render_text
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.common.protocol import JanusMode, JanusPacket
+    from janus_tpu_torch.models.zoo import load_demo
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
+
+    bundle = load_demo(base=JanusConfig())
+    synths = {d: Synthesizer(
+        bundle.config, tts_params=bundle.tts_params,
+        vocoder_params=bundle.vocoder_params,
+        speaker_params=bundle.speaker_params,
+        default_speaker_vec=bundle.default_speaker_vec, device=d)
+        for d in ("cuda", "cpu")}
+    packets = [
+        JanusPacket(text="SOS", mode=JanusMode.MORSE_CODE),
+        JanusPacket(text=DEMO_TEXTS[2], mode=JanusMode.TEXT_ONLY),
+        JanusPacket(text=DEMO_TEXTS[0], mode=JanusMode.SEMANTIC_VOICE,
+                    prosody={"pitch": "High", "energy": "Loud"})]
+    # fp32 weights, bf16 generation caches: a cached value may round to the
+    # neighbouring bf16 on one side, which the later steps carry
+    bar = 1e-2
+    rows = []
+    for pkt in packets:
+        got, ref = (synths[d].synthesize(pkt) for d in ("cuda", "cpu"))
+        check(len(got) > 0 and len(got) == len(ref),
+              f"receive_demo '{pkt.text}': {len(got)} bytes on the card, "
+              f"{len(ref)} on the CPU")
+        if pkt.mode == JanusMode.MORSE_CODE:
+            check(got == ref, "receive_demo: Morse bytes differ")
+            err = 0.0
+        else:
+            err = float(np.abs(pcm_float(got) - pcm_float(ref)).max())
+            check(err <= bar, f"receive_demo '{pkt.text}': PCM differs by "
+                  f"{err} of full scale (bar {bar})")
+        rows.append({"mode": pkt.mode.name, "text": pkt.text,
+                     "samples": len(got) // 2, "max_abs_err": err,
+                     "peak": float(np.abs(pcm_float(got)).max())})
+
+    # streaming against fused on the card: the float streams agree to
+    # rounding (bar 1e-4 of full scale), and int16 truncation can turn
+    # any difference into one step
+    stream_bar = 1e-4 + 1.0 / 32767.0
+    pkt = packets[2]
+    whole = synths["cuda"].synthesize(pkt)
+    chunks = list(synths["cuda"].synthesize_streaming(pkt))
+    joined = b"".join(chunks)
+    check(len(chunks) > 1 and all(chunks), f"receive_demo: streamed "
+          f"{len(chunks)} chunks")
+    check(len(joined) == len(whole), f"receive_demo: streamed "
+          f"{len(joined)} bytes, fused {len(whole)}")
+    stream_err = float(np.abs(pcm_float(joined) - pcm_float(whole)).max())
+    check(stream_err <= stream_bar, f"receive_demo: stream differs from "
+          f"fused by {stream_err} (bar {stream_bar})")
+
+    # phrase -> packet -> speech -> packet again, card against CPU
+    encoders = {d: SemanticEncoder(bundle.config, bundle.asr_params,
+                                   buckets=(96_000,), device=d)
+                for d in ("cuda", "cpu")}
+    trips = []
+    for seed, text in enumerate(DEMO_TEXTS):
+        phrase = render_text(text, SR, seed=seed)
+        heard = {}
+        for d in ("cuda", "cpu"):
+            first = encoders[d].encode_packet(phrase,
+                                              timestamp=DEMO_TIMESTAMP)
+            check(first is not None, f"receive_demo: no packet for '{text}'")
+            pcm = synths[d].synthesize(first)
+            check(len(pcm) > 0, f"receive_demo: empty speech for '{text}'")
+            second = encoders[d].encode_packet(pcm_float(pcm),
+                                               timestamp=DEMO_TIMESTAMP)
+            heard[d] = (first.text, None if second is None else second.text)
+        check(heard["cuda"] == heard["cpu"], f"receive_demo: round trip of "
+              f"'{text}' gives {heard['cuda']} on the card, {heard['cpu']} "
+              f"on the CPU")
+        trips.append({"spoken": text, "first": heard["cuda"][0],
+                      "second": heard["cuda"][1],
+                      "second_cpu": heard["cpu"][1]})
+    emit({"phase": "receive_demo", "bar": bar, "packets": rows,
+          "stream_chunks": len(chunks), "stream_vs_fused_max_abs": stream_err,
+          "stream_bar": stream_bar, "round_trip": trips})
+
+
+def receive_flagship(torch, dev):
+    """Flagship TTS + default vocoder, random bf16 weights: generate +
+    vocode + resample over the full budget at b = 8 and b = 1. Returns
+    what :func:`receive_stream` reuses."""
+    from janus_tpu_torch.common.config import TTSConfig, VocoderConfig
+    from janus_tpu_torch.models import tts as tts_mod
+    from janus_tpu_torch.models import vocoder as voc_mod
+    from janus_tpu_torch.models.params import (cast_floating,
+                                               flatten_with_paths, tree_to)
+    from janus_tpu_torch.models.tokenizer import ByteTokenizer
+    from janus_tpu_torch.ops.resample import resample_poly
+
+    tok = ByteTokenizer()
+    tcfg, vcfg = TTSConfig.flagship(), VocoderConfig()
+    up = 48_000 // vcfg.sample_rate
+    t0 = time.perf_counter()
+    tts_params = cast_floating(tts_mod.init_tts(
+        torch.Generator(device=dev).manual_seed(0), tcfg,
+        text_vocab=tok.vocab_size), torch.bfloat16)
+    voc_params = cast_floating(voc_mod.init_vocoder(
+        torch.Generator(device=dev).manual_seed(1), vcfg,
+        n_mels=tcfg.n_mels), torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in flatten_with_paths(tts_params))
+    max_groups = RECEIVE_GROUPS
+    n_frames = max_groups * tcfg.reduction
+    lane_seconds = n_frames * vcfg.hop_length / vcfg.sample_rate
+
+    def generate(text, emo):
+        return tts_mod.tts_generate(
+            tts_params, tcfg, text, emo, max_groups=max_groups,
+            text_vocab=tok.vocab_size, stop_threshold=2.0)  # full budget
+
+    def vocode(mel):
+        wav = voc_mod.vocoder_waveform(voc_params, vcfg, mel)
+        return resample_poly(wav, up=up, down=1)
+
+    out = {"phase": "receive_flagship",
+           "model": "TTSConfig.flagship() + VocoderConfig() (random, seeds "
+                    "0 and 1)", "dtype": "bfloat16 weights, bfloat16 caches, "
+           "float32 step activations", "tts_params_m": n_params / 1e6,
+           "max_groups": max_groups, "lane_seconds": lane_seconds,
+           "init_s": round(init_s, 3), "batches": {}}
+    with torch.no_grad():
+        for b in RECEIVE_BATCHES:
+            text = torch.zeros((b, 32), dtype=torch.long, device=dev)
+            emo = torch.zeros((b,), dtype=torch.long, device=dev)
+            vocode(generate(text, emo)[0])  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            e2e = []
+            for _ in range(3):
+                wav, ms = synced_ms(torch, lambda: vocode(
+                    generate(text, emo)[0]))
+                e2e.append(ms)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            check(tuple(wav.shape) == (b, n_frames * vcfg.hop_length * up)
+                  and bool(torch.isfinite(wav).all()),
+                  f"receive_flagship b={b}: waveform {tuple(wav.shape)}")
+            # the same stages, one at a time, synchronised around each
+            _, prefill_ms = synced_ms(torch, lambda: tts_mod.tts_prefill(
+                tts_params, tcfg, text, emo, max_groups=max_groups,
+                text_vocab=tok.vocab_size, stop_threshold=2.0))
+            (mel, frames), gen_ms = synced_ms(torch,
+                                              lambda: generate(text, emo))
+            check(frames.tolist() == [n_frames] * b,
+                  f"receive_flagship b={b}: n_frames {frames.tolist()}")
+            spec, spectra_ms = synced_ms(torch, lambda: voc_mod.
+                                         vocoder_spectra(voc_params, vcfg,
+                                                         mel))
+            wav24, istft_ms = synced_ms(torch, lambda: voc_mod.
+                                        spectra_to_waveform(vcfg, spec))
+            _, resample_ms = synced_ms(torch, lambda: resample_poly(
+                wav24, up=up, down=1))
+            # one AR step, traced
+            first, done, state = tts_mod.tts_prefill(
+                tts_params, tcfg, text, emo, max_groups=8,
+                text_vocab=tok.vocab_size, stop_threshold=2.0)
+            at = [0]
+
+            def ar_step():
+                tts_mod.tts_decode_chunk(tts_params, tcfg, state, first, done,
+                                         at[0], n_steps=1, stop_threshold=2.0)
+                at[0] += 1
+
+            ar_trace = profile_step(torch, ar_step)
+            best = min(e2e)
+            out["batches"][str(b)] = {
+                "e2e_ms": e2e, "rtf_per_lane_second": best / 1e3
+                / (b * lane_seconds), "peak_mem_gib": peak_gib,
+                "stage_ms": {"prefill": prefill_ms, "generate": gen_ms,
+                             "ar_loop": gen_ms - prefill_ms,
+                             "ar_step": (gen_ms - prefill_ms)
+                             / (max_groups - 1),
+                             "vocoder_spectra": spectra_ms,
+                             "istft": istft_ms, "resample_24k_48k":
+                             resample_ms},
+                "ar_step_trace": ar_trace,
+                "wav_peak": float(wav.abs().max())}
+
+        # prefill + 4 groups at b = 1, the card against the CPU, bf16
+        # weights on both: 5e-2 relative, the bar of the recognizer's
+        # encoder-vs-plain check (bf16 roundings through 30 layers)
+        def first_groups(params, device):
+            text = torch.zeros((1, 32), dtype=torch.long, device=device)
+            emo = torch.zeros((1,), dtype=torch.long, device=device)
+            first, done, state = tts_mod.tts_prefill(
+                params, tcfg, text, emo, max_groups=8,
+                text_vocab=tok.vocab_size, stop_threshold=2.0)
+            groups, *_ = tts_mod.tts_decode_chunk(
+                params, tcfg, state, first, done, 0, n_steps=4,
+                stop_threshold=2.0)
+            return torch.cat([first.float()[:, None], groups], dim=1).cpu()
+
+        (on_card, card_ms) = synced_ms(torch, lambda: first_groups(
+            tts_params, dev))
+        t0 = time.perf_counter()
+        on_cpu = first_groups(tree_to(tts_params, "cpu"), "cpu")
+        cpu_s = time.perf_counter() - t0
+    rel = float((on_card - on_cpu).norm() / on_cpu.norm())
+    check(bool(torch.isfinite(on_card).all()) and rel <= 5e-2,
+          f"receive_flagship: prefill + 4 groups differ from the CPU by "
+          f"{rel} relative")
+    out["first_groups_vs_cpu"] = {
+        "bar_rel": 5e-2, "rel": rel,
+        "max_abs": float((on_card - on_cpu).abs().max()),
+        "ref_peak": float(on_cpu.abs().max()), "cpu_s": round(cpu_s, 2)}
+    emit(out)
+    return tcfg, vcfg, tts_params, voc_params
+
+
+def receive_stream(torch, dev, tcfg, vcfg, tts_params, voc_params) -> None:
+    """``StreamingSynthesizer`` at flagship width: first audio, total, and
+    the stream against the fused path."""
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.models import tts as tts_mod
+    from janus_tpu_torch.models import vocoder as voc_mod
+    from janus_tpu_torch.ops.resample import resample_poly
+    from janus_tpu_torch.runtime.streaming_tts import StreamingSynthesizer
+
+    scfg = dataclasses.replace(
+        JanusConfig(), vocoder=vcfg,
+        tts=dataclasses.replace(tcfg, max_mel_frames=RECEIVE_STREAM_FRAMES))
+    # random-weight stop logits sit near 0; a hard negative bias makes the
+    # stream run to the duration cap every time
+    stop = tts_params["stop_head"]
+    params = {**tts_params, "stop_head": {
+        **stop, "b": torch.full_like(stop["b"], -5.0)}}
+    streamer = StreamingSynthesizer(scfg, tts_params=params,
+                                    vocoder_params=voc_params,
+                                    chunk_groups=16, device="cuda")
+    text = "status report follows all clear"
+    chunks = list(streamer.stream(text))  # warm-up, and the comparison
+    got = np.concatenate(chunks)
+    torch.cuda.synchronize()
+    turns = [streamer.turnaround(text) for _ in range(2)]
+    first_s, total_s, n48 = min(turns, key=lambda t: t[0])
+
+    # the fused path on the same prompt, as Synthesizer._run_tts runs it
+    tok = streamer.tokenizer
+    ids = tok.encode(text)[: scfg.tts.max_text_tokens]
+    padded = np.full((1, tts_mod.text_bucket(
+        len(ids), scfg.tts.max_text_tokens)), tok.pad, np.int64)
+    padded[0, : len(ids)] = ids
+    with torch.no_grad():
+        (mel, frames), fused_gen_ms = synced_ms(
+            torch, lambda: tts_mod.tts_generate(
+                params, scfg.tts, torch.from_numpy(padded).to(dev),
+                torch.zeros((1,), dtype=torch.long, device=dev),
+                text_vocab=tok.vocab_size))
+        wav, fused_voc_ms = synced_ms(torch, lambda: resample_poly(
+            voc_mod.vocoder_waveform(voc_params, vcfg, mel),
+            up=48_000 // vcfg.sample_rate, down=1))
+    cap = int((0.35 + scfg.tts.max_seconds_per_text_token * len(ids))
+              * 48_000)
+    n_fused = min(int(frames[0]) * vcfg.hop_length * 48_000
+                  // vcfg.sample_rate, cap)
+    ref = wav[0, :n_fused].cpu().numpy()
+    check(len(chunks) > 1 and n48 == len(got) == len(ref),
+          f"receive_stream: {len(chunks)} chunks, {len(got)} samples "
+          f"streamed, {n48} timed, {len(ref)} fused")
+    # bf16 vocoder weights, fp32 activations: the chunked backbone runs
+    # its GEMMs over chunk + 2 halo rows, the fused one over all rows
+    bar = 2e-2
+    err = float(np.abs(got - ref).max())
+    check(bool(np.isfinite(got).all()) and err <= bar,
+          f"receive_stream: stream differs from fused by {err} (bar {bar})")
+    emit({"phase": "receive_stream", "text": text, "chunk_groups": 16,
+          "max_mel_frames": scfg.tts.max_mel_frames, "chunks": len(chunks),
+          "first_audio_s": first_s, "total_s": total_s,
+          "audio_s": n48 / 48_000, "turnarounds": turns,
+          "fused_ms": {"generate": fused_gen_ms, "vocode_resample":
+                       fused_voc_ms},
+          "stream_vs_fused_max_abs": err, "bar": bar,
+          "wav_peak": float(np.abs(ref).max())})
 
 
 def main() -> None:
@@ -888,7 +1220,19 @@ def main() -> None:
           "decode_step": q_decode_step,
           "texts": [r["text"] for r in q_results][:2]})
 
-    # -- 6. kernels summary ------------------------------------------------
+    # -- 6-8. the receive side ---------------------------------------------
+    del qenc, q_enc
+    torch.cuda.empty_cache()
+    errors = ErrorRecords()
+    for name in ("synthesizer", "streaming_tts"):
+        logging.getLogger(f"janus_tpu_torch.runtime.{name}").addHandler(errors)
+    receive_demo(torch, dev)
+    receive_stream(torch, dev, *receive_flagship(torch, dev))
+    check(not errors.records, f"the synthesizer logged errors: "
+          f"{errors.records}")
+    torch.cuda.empty_cache()
+
+    # -- 9. kernels summary ------------------------------------------------
     # launches: K1-K3 from the flagship run, K4 from the int8 flagship run
     launches["cross_attn_int8"] = q_launches["cross_attn_int8"]
     line = []

@@ -1,1 +1,2 @@
-"""Deterministic synthetic audio (numpy only)."""
+"""Deterministic synthetic audio, the mu-law wire, WAV I/O and upload
+decoding (numpy only)."""

@@ -1,3 +1,3 @@
-"""Tensor ops of the send path and the wrappers of the hand-written CUDA
+"""Tensor ops of the send and receive paths and the wrappers of the hand-written CUDA
 kernels. Importing this package builds nothing and imports no compiler:
 kernels are built at their first launch (see :mod:`.cuda_build`)."""

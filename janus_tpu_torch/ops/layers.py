@@ -34,6 +34,16 @@ def linear(x: torch.Tensor, w,
         return linear_int8_dynamic(x, w, b)
     if isinstance(w, QuantizedWeight):
         w = dequant(w, x.dtype)
+    if w.dtype != x.dtype:
+        # Mixed dtypes, as when the receive side feeds its fp32 mel buffer
+        # through bf16 parameters: the JAX package promotes both operands
+        # for the product, adds the bias in fp32 and returns ``x.dtype``
+        # (the activations' dtype wins, never the weights').
+        ct = torch.promote_types(x.dtype, w.dtype)
+        x2 = x.reshape(-1, x.shape[-1]).to(ct)
+        y = (torch.matmul(x2, w.to(ct)) if b is None
+             else torch.addmm(b.to(ct), x2, w.to(ct)))
+        return y.to(x.dtype).reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
     if b is None:
         return torch.matmul(x, w)
     # Cast-back point: the JAX package keeps the product in fp32, adds the

@@ -1,1 +1,2 @@
-"""Serving runtime: the phrase -> JanusPacket encoder."""
+"""Serving runtime: the phrase -> JanusPacket encoder and the JanusPacket
+-> speech synthesizers (fused and streaming)."""

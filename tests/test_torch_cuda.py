@@ -277,3 +277,83 @@ def test_linear_int8_dynamic_on_the_card_equals_cpu(dev):
     out = linear_int8_dynamic(x.to(dev), DynQuantizedWeight(
         qw.q.to(dev), qw.scale.to(dev)), b.to(dev))
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+
+
+# -- the receive side: plain PyTorch on the card against the CPU ------------
+
+@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (640, 160), (400, 160)])
+def test_istft_on_the_card_equals_cpu(dev, n_fft, hop):
+    """Both overlap-add routes (400/160 scatters); 1e-5 on unit-scale
+    spectra, and the shifted-add route repeats bit for bit."""
+    from janus_tpu_torch.ops.stft import istft
+
+    rng = np.random.default_rng(n_fft)
+    spec = torch.from_numpy((rng.standard_normal((3, 40, n_fft // 2 + 1))
+                             + 1j * rng.standard_normal(
+                                 (3, 40, n_fft // 2 + 1))
+                             ).astype(np.complex64))
+    ref = istft(spec, n_fft, hop)
+    out = istft(spec.to(dev), n_fft, hop)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5)
+    if n_fft % hop == 0:
+        assert torch.equal(out, istft(spec.to(dev), n_fft, hop))
+
+
+@pytest.mark.parametrize("up,down", [(2, 1), (3, 1), (1, 3), (160, 441),
+                                     (2, 3)])
+def test_resample_poly_on_the_card_equals_cpu(dev, up, down):
+    from janus_tpu_torch.ops.resample import resample_poly
+
+    x = torch.from_numpy((0.3 * np.random.default_rng(up).standard_normal(
+        (2, 4410))).astype(np.float32))
+    ref = resample_poly(x, up, down)
+    out = resample_poly(x.to(dev), up, down)
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5)
+
+
+def test_upsample_chunk_is_bit_equal_on_the_card(dev):
+    from janus_tpu_torch.ops.resample import _upsample_fir
+
+    x = torch.from_numpy((0.3 * np.random.default_rng(0).standard_normal(
+        (1, 6000))).astype(np.float32)).to(dev)
+    full = _upsample_fir(x, 2)
+    part = _upsample_fir(x[:, 872:2664], 2)
+    assert torch.equal(part[:, 256:-256], full[:, 2000:5072])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_small_tts_generate_on_the_card_equals_cpu(dev, dtype):
+    """fp32 parameters; fp32 caches within 1e-4, bf16 caches within 2e-3
+    (a cached value may round to the neighbouring bf16); ``n_frames``
+    equal; then the vocoder and the resampler on that mel within 1e-4 of
+    the peak."""
+    from janus_tpu_torch.common.config import TTSConfig, VocoderConfig
+    from janus_tpu_torch.models.params import tree_to
+    from janus_tpu_torch.models.tts import init_tts, tts_generate
+    from janus_tpu_torch.models.vocoder import init_vocoder, vocoder_waveform
+    from janus_tpu_torch.ops.resample import resample_poly
+
+    cfg = TTSConfig(d_model=64, layers=2, num_heads=4, n_mels=16,
+                    max_text_tokens=32, max_mel_frames=32, dtype=dtype)
+    vcfg = VocoderConfig(d_model=64, layers=2, n_fft=256, hop_length=64)
+    g = torch.Generator().manual_seed(0)
+    params = init_tts(g, cfg)
+    voc = init_vocoder(g, vcfg, n_mels=16)
+    rng = np.random.default_rng(1)
+    text = torch.from_numpy(rng.integers(0, 256, (2, 8)))
+    emo = torch.tensor([1, 4])
+    spk = torch.from_numpy(rng.standard_normal((2, 64)).astype(np.float32))
+    ref, ref_n = tts_generate(params, cfg, text, emo, speaker=spk,
+                              stop_threshold=2.0)
+    out, n = tts_generate(tree_to(params, dev), cfg, text.to(dev),
+                          emo.to(dev), speaker=spk.to(dev),
+                          stop_threshold=2.0)
+    assert out.device.type == "cuda" and torch.equal(n.cpu(), ref_n)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0,
+                               atol=1e-4 if dtype == "float32" else 2e-3)
+    wav_ref = resample_poly(vocoder_waveform(voc, vcfg, ref), 2, 1)
+    wav = resample_poly(vocoder_waveform(tree_to(voc, dev), vcfg,
+                                         ref.to(dev)), 2, 1)
+    assert float((wav.cpu() - wav_ref).abs().max()) <= 1e-4 * float(
+        wav_ref.abs().max())

@@ -34,12 +34,17 @@ def test_port_imports_no_jax_and_no_janus_tpu():
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert len(res["modules"]) >= 15
+    assert len(res["modules"]) >= 38
 
 
-def test_entry_point_needs_a_card_unless_cpu_asked(monkeypatch):
+@pytest.mark.parametrize("entry", ["SemanticEncoder", "Synthesizer",
+                                   "StreamingSynthesizer"])
+def test_entry_point_needs_a_card_unless_cpu_asked(monkeypatch, entry):
     from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.streaming_tts import StreamingSynthesizer
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        SemanticEncoder()
+        {"SemanticEncoder": SemanticEncoder, "Synthesizer": Synthesizer,
+         "StreamingSynthesizer": StreamingSynthesizer}[entry]()
