@@ -40,7 +40,20 @@ printing one JSON line per result:
    times, one traced AR step, and prefill + 4 groups against the CPU;
 8. receive_stream — ``StreamingSynthesizer`` at that width: seconds to
    first audio and in all, and the stream against the fused path;
-9. the ``kernels`` summary line. The receive side runs no hand-written
+9. duplex_demo — the live link with the committed demo bundle: three
+   rendered phrases through ``sender_main.main_loop`` (VAD, segmenter,
+   encode, packet, link at 48000 baud) → localhost UDP →
+   ``receiver_main.receive_loop`` in a second thread → captured playback,
+   once on the card and once on the CPU: counts, transcripts and PCM
+   card against CPU, and K1-K3 launched;
+10. duplex_flagship — the same link at full width in one process: the
+   large-v3 recognizer of phase 4 (its full encode; only the transcript
+   is fixed, random weights give none) and the flagship TTS + vocoder of
+   phase 7 behind ``engine.receiver_loop`` with streaming playback, a
+   three-turn conversation captured in real time, the energy VAD and the
+   default 300 bps link: per-turn latencies, VAD time a chunk, the
+   capture queue and the kernels' launches;
+11. the ``kernels`` summary line. The receive side runs no hand-written
    kernel (the JAX package's has no Pallas kernel either), so its phases
    add no row there.
 
@@ -59,6 +72,7 @@ import logging
 import os
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -81,6 +95,7 @@ DEMO_TIMESTAMP = 1_700_000_000.25
 RECEIVE_BATCHES = (8, 1)
 RECEIVE_GROUPS = 256             # the flagship TTS's full budget: 1024 frames
 RECEIVE_STREAM_FRAMES = 512      # the streaming run's mel budget
+CHUNK_MS = 1536 / 48               # the capture chunk period, 32 ms
 
 
 def emit(obj) -> None:
@@ -459,6 +474,345 @@ def receive_stream(torch, dev, tcfg, vcfg, tts_params, voc_params) -> None:
                        fused_voc_ms},
           "stream_vs_fused_max_abs": err, "bar": bar,
           "wav_peak": float(np.abs(ref).max())})
+
+
+def demo_phrases_stream() -> np.ndarray:
+    """The three demo phrases, each followed by 1 s of silence."""
+    from janus_tpu_torch.audio.synthetic import render_text
+
+    parts = []
+    for seed, text in enumerate(DEMO_TEXTS):
+        parts += [render_text(text, SR, seed=seed), np.zeros(SR, np.float32)]
+    return np.concatenate(parts)
+
+
+def run_duplex(cfg, encoder, synthesizer, audio, device, *,
+               realtime=False, streaming=False, fixed_text=None,
+               timeout_s=120.0) -> dict:
+    """The live link through the port's own loops, timed from outside:
+    ``sender_main.main_loop`` on this thread (capture thread, VAD,
+    segmenter, encode, packet, throttled link) → localhost UDP → a receiver
+    thread (``receiver_main.receive_loop``, or ``engine.receiver_loop``
+    with streaming playback) → captured playback. The loops are not
+    changed: the capture, the VAD, the encoder, the link, the listener,
+    the synthesizer and the speaker are wrapped to record when each event
+    happened. ``fixed_text`` replaces the transcript (after the whole
+    encode ran). The receiver is stopped once every packet sent is
+    synthesized and played."""
+    from janus_tpu_torch.audio.io import StreamAudioService
+    from janus_tpu_torch.common.protocol import JanusPacket
+    from janus_tpu_torch.common.state import EngineState
+    from janus_tpu_torch.models.vad import VoiceActivityDetector
+    from janus_tpu_torch.runtime import engine
+    from janus_tpu_torch.runtime.link import LinkSimulator, PacketListener
+    from janus_tpu_torch.tools.receiver_main import receive_loop
+    from janus_tpu_torch.tools.sender_main import main_loop
+
+    clock = time.perf_counter
+    rec = {"reads": [], "vad": [], "encodes": [], "sent": [], "rx": [],
+           "synth": [], "writes": []}
+
+    class Mic(StreamAudioService):
+        def read_chunk(self):
+            chunk = super().read_chunk()
+            if chunk is not None:
+                rec["reads"].append((clock(), chunk))
+            return chunk
+
+    class Speaker(StreamAudioService):
+        def write_chunk(self, audio):
+            super().write_chunk(audio)
+            rec["writes"].append((clock(), self.written_chunks[-1]))
+
+    class Listener(PacketListener):
+        def receive(self):
+            payload = super().receive()
+            if payload is not None:
+                rec["rx"].append((clock(), payload))
+            return payload
+
+    class Link(LinkSimulator):
+        def transmit(self, payload):
+            t0 = clock()
+            super().transmit(payload)
+            rec["sent"].append({"handed": t0, "done": clock(),
+                                "payload": payload})
+
+    class Encoder:
+        def encode_batch(self, phrases):
+            t0 = clock()
+            out = encoder.encode_batch(phrases)
+            for r in out:
+                if fixed_text is not None:
+                    r["text"] = fixed_text(len(rec["encodes"]) + 1)
+                rec["encodes"].append({"ready": t0, "done": clock(),
+                                       "text": r["text"],
+                                       "phrase_s": len(phrases[0]) / SR})
+            return out
+
+    vad = VoiceActivityDetector(cfg.vad, sample_rate=SR, device=device)
+    is_speech = vad.is_speech
+
+    def timed_is_speech(chunk):
+        t0 = clock()
+        out = is_speech(chunk)
+        rec["vad"].append((t0, clock() - t0, chunk))
+        return out
+
+    vad.is_speech = timed_is_speech
+
+    name = "synthesize_streaming" if streaming else "synthesize"
+    synth_fn = getattr(synthesizer, name)
+
+    def timed_stream(packet):
+        entry = {"start": clock(), "chunks": []}
+        rec["synth"].append(entry)
+        for chunk in synth_fn(packet):
+            if chunk:
+                entry["chunks"].append(len(chunk))
+            yield chunk
+        entry["end"] = clock()
+
+    def timed_synthesize(packet):
+        entry = {"start": clock(), "chunks": []}
+        rec["synth"].append(entry)
+        audio = synth_fn(packet)
+        if audio:
+            entry["chunks"].append(len(audio))
+        entry["end"] = clock()
+        return audio
+
+    setattr(synthesizer, name, timed_stream if streaming else timed_synthesize)
+    listener = Listener(0, timeout=0.2)
+    cfg = cfg.override(**{"link.target_ip": "127.0.0.1",
+                          "link.target_port": listener.port,
+                          "link.receiver_port": listener.port})
+    mic, speaker = Mic(audio, realtime=realtime), Speaker()
+    stop, played = threading.Event(), []
+    if streaming:
+        rx = threading.Thread(target=engine.receiver_loop, args=(
+            speaker, EngineState(), synthesizer, listener, stop, None, cfg),
+            daemon=True)
+    else:
+        rx = threading.Thread(target=lambda: played.append(receive_loop(
+            cfg, speaker, synthesizer=synthesizer, listener=listener,
+            stop_event=stop, max_idle_seconds=timeout_s)), daemon=True)
+    try:
+        rx.start()
+        t_start = clock()
+        sent = main_loop(cfg, mic, encoder=Encoder(), vad=vad,
+                         link=Link(cfg.link), max_idle_seconds=2.0)
+        t_sender = clock()
+        deadline = t_sender + timeout_s
+        while clock() < deadline and rx.is_alive():
+            done = [e for e in rec["synth"] if "end" in e]
+            if len(done) >= sent and len(rec["writes"]) >= sum(
+                    len(e["chunks"]) for e in done):
+                break
+            time.sleep(0.02)
+        stop.set()
+        rx.join(timeout=60)
+        check(not rx.is_alive(), "duplex: the receiver thread did not stop")
+    finally:
+        delattr(synthesizer, name)
+        listener.close()
+    t_end = clock()
+
+    # played chunks belong to packets in order (FIFO playback queue)
+    writes, turns = list(rec["writes"]), []
+    encodes = [e for e in rec["encodes"] if e["text"].strip()]
+    for i, entry in enumerate(rec["synth"]):
+        mine, writes = writes[:len(entry["chunks"])], writes[len(entry["chunks"]):]
+        rx_t, payload = rec["rx"][i]
+        turn = {"received_text": JanusPacket.deserialize(payload).text,
+                "packet_bytes": len(payload),
+                "synth_s": entry.get("end", t_end) - entry["start"],
+                "chunks": len(mine),
+                "audio_s": sum(len(c) for _, c in mine) / 2 / SR,
+                "pcm": b"".join(c for _, c in mine)}
+        if mine:
+            turn["received_to_first_chunk_s"] = mine[0][0] - rx_t
+            turn["received_to_last_chunk_s"] = mine[-1][0] - rx_t
+        if i < len(rec["sent"]) and i < len(encodes):
+            s_, e_ = rec["sent"][i], encodes[i]
+            turn.update({
+                "sent_text": JanusPacket.deserialize(s_["payload"]).text,
+                "phrase_s": e_["phrase_s"],
+                "encode_ms": 1e3 * (e_["done"] - e_["ready"]),
+                "ready_to_link_ms": 1e3 * (s_["handed"] - e_["ready"]),
+                "airtime_s": s_["done"] - s_["handed"],
+                "airtime_nominal_s": len(s_["payload"])
+                / cfg.link.bytes_per_second,
+                "link_to_received_s": rx_t - s_["done"],
+                "phrase_ready_to_first_audio_s": (
+                    mine[0][0] - e_["ready"] if mine else None)})
+        turns.append(turn)
+
+    # capture queue: the VAD takes chunks in the order they were read, so a
+    # chunk read and never taken was dropped by the producer (its put timed
+    # out), which it did before its next read
+    reads = [t for t, _ in rec["reads"]]
+    events, k = [], 0  # (time, change of the queue's depth)
+    for t0, _, chunk in rec["vad"]:
+        while rec["reads"][k][1] is not chunk:
+            events.append((reads[k + 1], -1))
+            k += 1
+        events.append((t0, -1))
+        k += 1
+    dropped = k - len(rec["vad"])
+    events += [(t, +1) for t in reads]
+    depth = high_water = 0
+    for _, change in sorted(events, key=lambda e: (e[0], e[1])):
+        depth += change
+        high_water = max(high_water, depth)
+    vad_ms = [1e3 * d for _, d, _ in rec["vad"]]
+    gaps = np.diff(reads) * 1e3 if len(reads) > 1 else [0.0]
+    return {"sent": sent, "vad": vad.backend,
+            "played": (played[0] if played else
+                       sum(1 for e in rec["synth"] if e["chunks"])),
+            "turns": turns, "sender_s": t_sender - t_start,
+            "total_s": t_end - t_start,
+            "chunks_read": len(reads), "chunks_vad": len(vad_ms),
+            "chunks_dropped": dropped,
+            "chunks_left_in_queue": len(reads) - k,
+            "queue_high_water": high_water,
+            "vad_ms_mean": float(np.mean(vad_ms)) if vad_ms else None,
+            "vad_ms_max": float(np.max(vad_ms)) if vad_ms else None,
+            "vad_chunks_over_period": sum(v > CHUNK_MS for v in vad_ms),
+            "capture_gap_ms_max": float(np.max(gaps))}
+
+
+def duplex_demo(torch, kernels) -> None:
+    """The demo bundle over the live link, on the card and on the CPU."""
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.models.zoo import load_demo
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
+
+    bundle = load_demo(base=JanusConfig())
+    # a capture faster than real time: the queue holds the whole stream, so
+    # that no chunk is dropped while the loop encodes
+    cfg = bundle.config.override(**{"link.baud_rate": 48_000,
+                                    "runtime.audio_queue_depth": 1_000})
+    audio = demo_phrases_stream()
+    runs, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        enc = SemanticEncoder(cfg, bundle.asr_params, buckets=(96_000,),
+                              device=device)
+        syn = Synthesizer(cfg, tts_params=bundle.tts_params,
+                          vocoder_params=bundle.vocoder_params,
+                          speaker_params=bundle.speaker_params,
+                          default_speaker_vec=bundle.default_speaker_vec,
+                          device=device)
+        enc.warmup()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+        runs[device] = run_duplex(cfg, enc, syn, audio, device,
+                                  timeout_s=60.0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in kernels}
+    card, cpu = runs["cuda"], runs["cpu"]
+    for device, r in runs.items():
+        check(r["sent"] == 3 and r["played"] == 3 and len(r["turns"]) == 3,
+              f"duplex_demo on {device}: {r['sent']} sent, {r['played']} "
+              f"played")
+    heard = [t["received_text"] for t in card["turns"]]
+    check(heard == [t["received_text"] for t in cpu["turns"]],
+          f"duplex_demo: the card heard {heard}, the CPU "
+          f"{[t['received_text'] for t in cpu['turns']]}")
+    bar, errs = 1e-2, []
+    for a, b in zip(card["turns"], cpu["turns"]):
+        check(len(a["pcm"]) == len(b["pcm"]) > 0, f"duplex_demo: "
+              f"{len(a['pcm'])} bytes played on the card, {len(b['pcm'])} "
+              f"on the CPU")
+        errs.append(float(np.abs(pcm_float(a["pcm"])
+                                 - pcm_float(b["pcm"])).max()))
+    check(max(errs) <= bar, f"duplex_demo: PCM card vs CPU {errs} (bar {bar})")
+    for name in ("mel_fused", "flash_attn", "yin_block_sums"):
+        check(launches[name] > 0, f"duplex_demo never launched {name}: "
+              f"{launches}")
+
+    def brief(r):
+        return {k: v for k, v in r.items() if k != "turns"} | {
+            "turns": [{k: v for k, v in t.items() if k != "pcm"}
+                      for t in r["turns"]]}
+
+    emit({"phase": "duplex_demo", "nvidia_smi": nvidia_smi_line(),
+          "link_baud": cfg.link.baud_rate, "spoken": list(DEMO_TEXTS),
+          "heard": heard, "misread": [s for s, h in zip(DEMO_TEXTS, heard)
+                                      if s != h],
+          "pcm_card_vs_cpu_max_abs": errs, "bar": bar,
+          "samples": [len(t["pcm"]) // 2 for t in card["turns"]],
+          "launches": launches, "card": brief(card), "cpu": brief(cpu)})
+
+
+def duplex_flagship(torch, kernels, asr_params, tcfg, vcfg, tts_params,
+                    voc_params) -> None:
+    """The live link at full width on one card: the phase-4 recognizer
+    weights and the phase-7 TTS + vocoder weights, reused."""
+    from janus_tpu_torch.audio.synthetic import conversation
+    from janus_tpu_torch.common.config import ASRConfig, JanusConfig
+    from janus_tpu_torch.common.protocol import JanusPacket
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
+
+    cfg = dataclasses.replace(JanusConfig(), tts=tcfg, vocoder=vcfg,
+                              asr=ASRConfig.large_v3())
+    cfg = cfg.override(**{"asr.max_decode_tokens": 24})
+    # the default buckets, on the tensors phase 4 built (no copy)
+    enc = SemanticEncoder(cfg, asr_params=asr_params, device="cuda")
+    # random-weight stop logits sit near 0; a hard negative bias makes each
+    # packet play to its duration cap (0.35 s + 0.15 s a text token)
+    stop = tts_params["stop_head"]
+    params = {**tts_params, "stop_head": {
+        **stop, "b": torch.full_like(stop["b"], -5.0)}}
+    syn = Synthesizer(cfg, tts_params=params, vocoder_params=voc_params,
+                      device="cuda")
+    audio = conversation(turns=3, speech_seconds=2.0, silence_seconds=1.0)
+    t0 = time.perf_counter()
+    enc.warmup(bucket=48_000 * 4)  # the bucket of a 2 s turn
+    list(syn.synthesize_streaming(JanusPacket(text="warm up")))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    def fixed(n):
+        return f"test message {n}"
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    r = run_duplex(cfg, enc, syn, audio, "cuda", realtime=True,
+                   streaming=True, fixed_text=fixed, timeout_s=180.0)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(r["sent"] == 3 and r["played"] == 3 and len(r["turns"]) == 3,
+          f"duplex_flagship: {r['sent']} sent, {r['played']} played")
+    for i, t in enumerate(r["turns"]):
+        check(t.get("sent_text") == t["received_text"] == fixed(i + 1)
+              and t["audio_s"] > 0, f"duplex_flagship turn {i}: sent "
+              f"{t.get('sent_text')!r}, played {t['received_text']!r}, "
+              f"{t['audio_s']} s")
+    for name in ("mel_fused", "flash_attn", "yin_block_sums"):
+        check(launches[name] > 0, f"duplex_flagship never launched {name}: "
+              f"{launches}")
+    emit({"phase": "duplex_flagship", "nvidia_smi": nvidia_smi_line(),
+          "asr": "whisper-large-v3 (random, seed 0; phase-4 weights), "
+                 "bfloat16, max_decode_tokens 24, default buckets",
+          "tts": "TTSConfig.flagship() + VocoderConfig() (phase-7 weights, "
+                 "bfloat16), stop bias -5, streaming playback",
+          "capture": "conversation(turns=3, speech 2.0 s, silence 1.0 s), "
+                     "real time",
+          "link_baud": cfg.link.baud_rate, "warmup_s": warm_s,
+          "chunk_period_ms": CHUNK_MS,
+          "turns": [{k: v for k, v in t.items() if k != "pcm"}
+                    for t in r["turns"]],
+          **{k: v for k, v in r.items() if k != "turns"},
+          "launches": launches, "peak_mem_gib": peak_gib})
 
 
 def main() -> None:
@@ -1059,6 +1413,7 @@ def main() -> None:
     from janus_tpu_torch.models.params import cast_floating, init_asr
 
     eot = fenc.tokenizer.eot
+    flagship_asr_params = fenc.params  # reused by duplex_flagship
     del fenc
     torch.cuda.empty_cache()
     qcfg = fcfg.override(**{"asr.decode_cross_kv_int8": True})
@@ -1227,12 +1582,24 @@ def main() -> None:
     for name in ("synthesizer", "streaming_tts"):
         logging.getLogger(f"janus_tpu_torch.runtime.{name}").addHandler(errors)
     receive_demo(torch, dev)
-    receive_stream(torch, dev, *receive_flagship(torch, dev))
+    flagship_tts = receive_flagship(torch, dev)
+    receive_stream(torch, dev, *flagship_tts)
     check(not errors.records, f"the synthesizer logged errors: "
           f"{errors.records}")
     torch.cuda.empty_cache()
 
-    # -- 9. kernels summary ------------------------------------------------
+    # -- 9-10. the live duplex link ----------------------------------------
+    for name in ("runtime.engine", "tools.receiver_main",
+                 "tools.sender_main"):
+        logging.getLogger(f"janus_tpu_torch.{name}").addHandler(errors)
+    duplex_demo(torch, all_kernels)
+    duplex_flagship(torch, all_kernels, flagship_asr_params, *flagship_tts)
+    check(not errors.records, f"the duplex loops logged errors: "
+          f"{errors.records}")
+    del flagship_asr_params, flagship_tts
+    torch.cuda.empty_cache()
+
+    # -- 11. kernels summary -----------------------------------------------
     # launches: K1-K3 from the flagship run, K4 from the int8 flagship run
     launches["cross_attn_int8"] = q_launches["cross_attn_int8"]
     line = []

@@ -2,14 +2,14 @@
 
 A copy of the JAX package's tone-language renderer (``render_text`` and
 the helpers it calls, from ``janus_tpu/train/synthetic_task.py``) and its
-speech-like test signals (``tone``, ``voiced_phrase``, from
-``janus_tpu/audio/synthetic.py``), so the port can speak the demo
+speech-like test signals (``tone``, ``voiced_phrase``, ``conversation``,
+``chunk_stream``, from ``janus_tpu/audio/synthetic.py``), so the port can speak the demo
 checkpoint's language without the JAX package. Same seeds, same samples.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
@@ -20,6 +20,8 @@ __all__ = [
     "render_text",
     "tone",
     "voiced_phrase",
+    "conversation",
+    "chunk_stream",
 ]
 
 # Small closed vocabulary: enough structure to be language-like, small
@@ -181,3 +183,25 @@ def voiced_phrase(f0: float = 180.0, seconds: float = 1.5,
     x *= env
     x += 0.002 * rng.standard_normal(n)
     return x.astype(np.float32)
+
+
+def conversation(turns: int = 3, speech_seconds: float = 2.0,
+                 silence_seconds: float = 1.0, sample_rate: int = 48_000,
+                 f0: float = 200.0, amp: float = 0.3,
+                 seed: int = 0) -> np.ndarray:
+    """Alternating speech/silence turns: ``turns`` voiced phrases of
+    ``speech_seconds``, each followed by ``silence_seconds`` of zeros."""
+    parts: List[np.ndarray] = []
+    for i in range(turns):
+        parts.append(voiced_phrase(f0 + 20 * i, speech_seconds, sample_rate,
+                                   amp, seed=seed + i))
+        parts.append(np.zeros(int(silence_seconds * sample_rate), np.float32))
+    return np.concatenate(parts)
+
+
+def chunk_stream(audio: np.ndarray, chunk_samples: int = 1536
+                 ) -> Iterator[np.ndarray]:
+    """Slice a signal into mic-cadence chunks (last partial chunk dropped,
+    like a real capture stream)."""
+    for i in range(0, len(audio) - chunk_samples + 1, chunk_samples):
+        yield audio[i : i + chunk_samples]

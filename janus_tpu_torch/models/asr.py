@@ -32,6 +32,7 @@ __all__ = [
     "decoder_step",
     "greedy_decode",
     "prepare_mel",
+    "transcribe_mel",
 ]
 
 Params = Dict
@@ -187,6 +188,7 @@ def decoder_step(params: Params, cfg: ASRConfig, token: torch.Tensor,
     return logits[..., 0, :], state
 
 
+@torch.no_grad()
 def greedy_decode(params: Params, cfg: ASRConfig, enc: torch.Tensor,
                   prompt: torch.Tensor, eot_id: int,
                   max_new: Optional[int] = None,
@@ -195,7 +197,9 @@ def greedy_decode(params: Params, cfg: ASRConfig, enc: torch.Tensor,
     """Batched greedy search: ``[B, max_new]`` int32 tokens, padded with
     ``eot_id`` after each lane finishes; stops once every lane has
     emitted eot (one host sync per step reads that flag).
-    ``cross_kv_int8`` as in :func:`init_decode_state`."""
+    ``cross_kv_int8`` as in :func:`init_decode_state`. Runs without
+    autograd: with parameters that require gradients, a graph over every
+    layer and step would otherwise be held until the tokens are read."""
     if max_new is None:
         max_new = cfg.max_decode_tokens
     cache_len = prompt.shape[-1] + max_new
@@ -239,3 +243,15 @@ def prepare_mel(audio_16k: torch.Tensor, cfg: ASRConfig,
         audio_16k = audio_16k[..., :target]
     return log_mel_spectrogram_fused(audio_16k, n_fft=cfg.n_fft,
                                      hop=cfg.hop_length, n_mels=cfg.n_mels)
+
+
+@torch.no_grad()
+def transcribe_mel(params: Params, cfg: ASRConfig, mel: torch.Tensor,
+                   prompt: torch.Tensor, eot_id: int,
+                   max_new: Optional[int] = None,
+                   cache_dtype=torch.float32) -> torch.Tensor:
+    """mel ``[B, frames, n_mels]`` → token ids ``[B, max_new]``: the
+    encoder, then the greedy decode."""
+    enc = encode_audio(params, cfg, mel)
+    return greedy_decode(params, cfg, enc, prompt, eot_id, max_new,
+                         cache_dtype=cache_dtype)

@@ -22,7 +22,7 @@ from janus_tpu_torch.models.params import load_npz_params
 from janus_tpu_torch.models.speaker import speaker_embed
 
 __all__ = ["ModelBundle", "load_demo", "demo_available", "demo_tts_config",
-           "hard_tts_config", "demo_vocoder_config", "ENROLLMENT_PHRASE",
+           "hard_tts_config", "hard_asr_config", "demo_vocoder_config", "ENROLLMENT_PHRASE",
            "REPO_ROOT"]
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -43,6 +43,17 @@ def hard_tts_config() -> TTSConfig:
     to 5-word prompts: a 320-frame budget never truncates a target)."""
     return TTSConfig(d_model=256, layers=6, num_heads=8, n_mels=80,
                      reduction=2, max_text_tokens=48, max_mel_frames=320)
+
+
+def hard_asr_config() -> ASRConfig:
+    """Geometry of ``checkpoints/demo_asr_hard.npz`` (the hard corpus:
+    256 words, 16 speakers, 0.8-1.25x rates, noise, up to 5 words; a
+    3.84 s encoder window and a wider model than the demo's)."""
+    return ASRConfig(
+        n_mels=80, d_model=192, encoder_layers=3, decoder_layers=3,
+        num_heads=6, vocab_size=261, max_source_positions=192,
+        max_target_positions=64, max_decode_tokens=48, dtype="float32",
+    )
 
 
 def demo_vocoder_config() -> VocoderConfig:

@@ -117,6 +117,9 @@ class SemanticEncoder:
 
     # -- device path -------------------------------------------------------
 
+    # Autograd off inside the method: grad mode is thread-local, and the
+    # engine calls ``encode_batch`` from an executor thread.
+    @torch.no_grad()
     def _encode_impl(self, audio_48k: torch.Tensor, n_valid: torch.Tensor,
                      n_16k_frames: int) -> Tuple[torch.Tensor, ...]:
         """``audio_48k[B, T48]`` int16 or float32 (zero-padded),
@@ -279,3 +282,11 @@ class SemanticEncoder:
             text=res["text"], mode=mode, prosody=res["prosody"],
             override_emotion=override_emotion,
             timestamp=timestamp if timestamp is not None else time.time())
+
+    def warmup(self, bucket: Optional[int] = None) -> None:
+        """Run one silent phrase of ``bucket`` samples (default the
+        smallest bucket) through the whole encode: cuBLAS handles, the
+        kernels' build and load, and the allocator's pools are set up
+        before the first real phrase."""
+        b = bucket or self.buckets[0]
+        self.encode_batch([np.zeros(b, dtype=np.float32)])

@@ -357,3 +357,112 @@ def test_small_tts_generate_on_the_card_equals_cpu(dev, dtype):
                                          ref.to(dev)), 2, 1)
     assert float((wav.cpu() - wav_ref).abs().max()) <= 1e-4 * float(
         wav_ref.abs().max())
+
+
+# -- the live duplex link ---------------------------------------------------
+
+def _demo_loopback(device):
+    """The three demo phrases (1 s of silence after each) through
+    ``sender_main.main_loop`` → localhost UDP → ``receive_loop`` with the
+    demo bundle on ``device``: (sent, played, transcripts, played PCM)."""
+    import threading
+    import time
+
+    from janus_tpu_torch.audio.io import StreamAudioService
+    from janus_tpu_torch.audio.synthetic import render_text
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.common.protocol import JanusPacket
+    from janus_tpu_torch.models.vad import VoiceActivityDetector
+    from janus_tpu_torch.models.zoo import load_demo
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.link import LinkSimulator, PacketListener
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
+    from janus_tpu_torch.tools.receiver_main import receive_loop
+    from janus_tpu_torch.tools.sender_main import main_loop
+
+    b = load_demo(base=JanusConfig())
+    listener = PacketListener(0, timeout=0.2)
+    cfg = b.config.override(**{
+        "link.baud_rate": 48_000, "link.target_ip": "127.0.0.1",
+        "link.target_port": listener.port,
+        "runtime.audio_queue_depth": 1_000})
+    enc = SemanticEncoder(cfg, b.asr_params, buckets=(96_000,),
+                          device=device)
+    syn = Synthesizer(cfg, tts_params=b.tts_params,
+                      vocoder_params=b.vocoder_params,
+                      speaker_params=b.speaker_params,
+                      default_speaker_vec=b.default_speaker_vec,
+                      device=device)
+    enc.warmup()
+    heard = []
+    receive = listener.receive
+
+    def recording_receive():
+        payload = receive()
+        if payload is not None:
+            heard.append(JanusPacket.deserialize(payload).text)
+        return payload
+
+    listener.receive = recording_receive
+    audio = np.concatenate([np.concatenate([render_text(t, 48_000, seed=s),
+                                            np.zeros(48_000, np.float32)])
+                            for s, t in enumerate(("alpha bravo",
+                                                   "fox golf hotel",
+                                                   "kilo lima"))])
+    speaker, stop, played = StreamAudioService(), threading.Event(), []
+    rx = threading.Thread(target=lambda: played.append(receive_loop(
+        cfg, speaker, synthesizer=syn, listener=listener, stop_event=stop,
+        max_idle_seconds=8.0)), daemon=True)
+    rx.start()
+    sent = main_loop(cfg, StreamAudioService(audio), encoder=enc,
+                     vad=VoiceActivityDetector(cfg.vad, device=device),
+                     link=LinkSimulator(cfg.link), max_idle_seconds=2.0)
+    deadline = time.monotonic() + 60
+    while len(speaker.written_chunks) < sent and time.monotonic() < deadline:
+        time.sleep(0.05)
+    stop.set()
+    rx.join(timeout=60)
+    return sent, played[0], heard, list(speaker.written_chunks)
+
+
+def test_demo_duplex_on_the_card_equals_cpu(dev):
+    """The card's run against the CPU's: the same counts and transcripts,
+    the PCM within 1e-2 of full scale with equal sample counts."""
+    from janus_tpu_torch.ops.mel_fused import KERNEL as MEL
+    from janus_tpu_torch.ops.yin_blocksums import KERNEL as YIN
+
+    before = (MEL.launches, YIN.launches)
+    card = _demo_loopback("cuda")
+    assert MEL.launches > before[0] and YIN.launches > before[1]
+    cpu = _demo_loopback("cpu")
+    assert card[0] == cpu[0] == 3 and card[1] == cpu[1] == 3
+    assert card[2] == cpu[2]
+    for got, ref in zip(card[3], cpu[3]):
+        assert len(got) == len(ref) > 0
+        err = np.abs(np.frombuffer(got, np.int16).astype(np.float32)
+                     - np.frombuffer(ref, np.int16)) / 32767.0
+        assert err.max() <= 1e-2
+
+
+def test_energy_vad_on_the_card_decides_as_cpu(dev):
+    """200 chunks (a conversation, then loud noise): identical decisions,
+    probabilities within 1e-6, the noise floor a 0-dim fp32 tensor on the
+    card."""
+    from janus_tpu_torch.audio.synthetic import chunk_stream, conversation
+    from janus_tpu_torch.common.config import VADConfig
+    from janus_tpu_torch.models.vad import VoiceActivityDetector
+
+    conv = list(chunk_stream(conversation(turns=3, speech_seconds=1.0,
+                                          silence_seconds=0.6, amp=0.3)))
+    loud = (0.05 * np.random.default_rng(1).standard_normal(
+        (200 - len(conv), 1536))).astype(np.float32)
+    card = VoiceActivityDetector(VADConfig(backend="energy"), device="cuda")
+    cpu = VoiceActivityDetector(VADConfig(backend="energy"), device="cpu")
+    assert card._floor.device.type == "cuda" and card._floor.dim() == 0
+    decisions = []
+    for chunk in conv + list(loud):
+        p, q = card.speech_prob(chunk), cpu.speech_prob(chunk)
+        assert abs(p - q) <= 1e-6
+        decisions.append((p > 0.5, q > 0.5))
+    assert all(a == b for a, b in decisions)
+    assert any(a for a, _ in decisions)

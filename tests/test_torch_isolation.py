@@ -34,17 +34,56 @@ def test_port_imports_no_jax_and_no_janus_tpu():
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert len(res["modules"]) >= 38
+    assert len(res["modules"]) >= 49
+    for name in ("janus_tpu_torch.runtime.engine",
+                 "janus_tpu_torch.tools.sender_main",
+                 "janus_tpu_torch.tools.receiver_main",
+                 "janus_tpu_torch.models.vad"):
+        assert name in res["modules"]
 
 
-@pytest.mark.parametrize("entry", ["SemanticEncoder", "Synthesizer",
-                                   "StreamingSynthesizer"])
-def test_entry_point_needs_a_card_unless_cpu_asked(monkeypatch, entry):
+def _entry_points():
+    from janus_tpu_torch.models.vad import VoiceActivityDetector
     from janus_tpu_torch.runtime.codec import SemanticEncoder
     from janus_tpu_torch.runtime.streaming_tts import StreamingSynthesizer
     from janus_tpu_torch.runtime.synthesizer import Synthesizer
 
+    return {"SemanticEncoder": SemanticEncoder, "Synthesizer": Synthesizer,
+            "StreamingSynthesizer": StreamingSynthesizer,
+            "VoiceActivityDetector": VoiceActivityDetector}
+
+
+@pytest.mark.parametrize("entry", ["SemanticEncoder", "Synthesizer",
+                                   "StreamingSynthesizer",
+                                   "VoiceActivityDetector"])
+def test_entry_point_needs_a_card_unless_cpu_asked(monkeypatch, entry):
+    cls = _entry_points()[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        {"SemanticEncoder": SemanticEncoder, "Synthesizer": Synthesizer,
-         "StreamingSynthesizer": StreamingSynthesizer}[entry]()
+        cls()
+    if entry == "VoiceActivityDetector":
+        assert cls(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("loop", ["sender", "receiver"])
+def test_cli_loops_build_their_models_on_the_card(monkeypatch, loop):
+    """Given no encoder or synthesizer, ``main_loop`` and ``receive_loop``
+    build them on the card, so without one they raise (and the CPU is
+    taken only when asked for)."""
+    from janus_tpu_torch.audio.io import StreamAudioService
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.runtime.link import PacketListener
+    from janus_tpu_torch.tools.receiver_main import receive_loop
+    from janus_tpu_torch.tools.sender_main import main_loop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = JanusConfig()
+    listener = PacketListener(0, timeout=0.05)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            if loop == "sender":
+                main_loop(cfg, StreamAudioService())
+            else:
+                receive_loop(cfg, StreamAudioService(), listener=listener)
+    finally:
+        listener.close()
