@@ -53,9 +53,23 @@ printing one JSON line per result:
    three-turn conversation captured in real time, the energy VAD and the
    default 300 bps link: per-turn latencies, VAD time a chunk, the
    capture queue and the kernels' launches;
-11. the ``kernels`` summary line. The receive side runs no hand-written
-   kernel (the JAX package's has no Pallas kernel either), so its phases
-   add no row there.
+11. sessions_flagship — the multi-session serving runtime at large-v3
+   width on phase 4's weights (2 s bucket, 24 decode tokens): encode
+   batch scaling at b = 1, 8, 32, 64 with one traced decode step at
+   b = 64, then ``SessionManager``'s tick loop over 32 sessions fed
+   through ``push_audio`` one 32 ms chunk a tick, synchronous and
+   overlapped (``overlap_speedup``), on the native ring buffers;
+12. server_demo — ``JanusServer`` with the demo bundle on the card and on
+   the CPU: health, the WebSocket control plane through a stdlib client,
+   a spoken phrase through the live duplex on loopback UDP, the phrase
+   uploaded to ``/api/voice/verify`` as WAV and (with libopus) as
+   WebM/Opus and Ogg/Opus, and the saved clone reference through the
+   speaker encoder and one cloned synthesis;
+13. the ``kernels`` summary line: K1-K3 launches of the flagship encode,
+   the tick loop's overlapped run and the card's server run, K4's of the
+   int8 flagship encode. The receive side runs no hand-written kernel
+   (the JAX package's has no Pallas kernel either), so its phases add no
+   row there.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -66,12 +80,19 @@ nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import asyncio
+import base64
+import contextlib
 import dataclasses
+import hashlib
+import http.client
 import json
 import logging
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from unittest import mock
@@ -96,6 +117,12 @@ RECEIVE_BATCHES = (8, 1)
 RECEIVE_GROUPS = 256             # the flagship TTS's full budget: 1024 frames
 RECEIVE_STREAM_FRAMES = 512      # the streaming run's mel budget
 CHUNK_MS = 1536 / 48               # the capture chunk period, 32 ms
+SESSION_BATCHES = (1, 8, 32, 64)   # encode batch scaling (bench.py:287-311)
+SESSION_COUNT = 32                 # the serving tick loop (bench.py:484-541)
+SESSION_BUCKET = 96_000            # the 2 s duration bucket
+VERIFY_PHRASE = "fox golf hotel"
+UPLOAD_TYPES = {"wav": "audio/wav", "webm": "audio/webm;codecs=opus",
+                "ogg": "audio/ogg;codecs=opus"}
 
 
 def emit(obj) -> None:
@@ -191,6 +218,157 @@ class ErrorRecords(logging.Handler):
 
     def emit(self, record):
         self.records.append(record.getMessage())
+
+
+class WsClient:
+    """A minimal WebSocket client on the standard library (the card's
+    machine need not have a WebSocket package): the RFC 6455 handshake,
+    masked text frames out, unmasked frames in."""
+
+    _GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+
+    def __init__(self, port: int, path: str = "/ws/janus",
+                 host: str = "127.0.0.1", timeout: float = 10.0):
+        self._sock = socket.create_connection((host, port), timeout=timeout)
+        self._buf = b""
+        key = base64.b64encode(os.urandom(16)).decode()
+        self._sock.sendall((
+            f"GET {path} HTTP/1.1\r\nHost: {host}:{port}\r\n"
+            "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+            f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n"
+            "\r\n").encode())
+        while b"\r\n\r\n" not in self._buf:
+            self._fill()
+        head, self._buf = self._buf.split(b"\r\n\r\n", 1)
+        accept = base64.b64encode(hashlib.sha1(
+            (key + self._GUID).encode()).digest()).decode()
+        check(head.startswith(b"HTTP/1.1 101")
+              and f"Sec-WebSocket-Accept: {accept}".encode() in head,
+              f"websocket handshake answered {head!r}")
+
+    def _fill(self) -> None:
+        data = self._sock.recv(65536)
+        if not data:
+            raise ConnectionError("the server closed the websocket")
+        self._buf += data
+
+    def _frame(self):
+        """(first byte, payload) of the next whole frame; the buffer is
+        consumed only once the frame is complete, so a timeout loses
+        nothing."""
+        while True:
+            buf = self._buf
+            if len(buf) >= 2:
+                n, off = buf[1] & 0x7F, 2
+                ext = {126: 2, 127: 8}.get(n, 0)
+                if len(buf) >= off + ext:
+                    if ext:
+                        n = int.from_bytes(buf[off:off + ext], "big")
+                        off += ext
+                    if len(buf) >= off + n:
+                        self._buf = buf[off + n:]
+                        return buf[0], buf[off:off + n]
+            self._fill()
+
+    def send_json(self, obj) -> None:
+        payload = json.dumps(obj).encode()
+        n = len(payload)
+        if n < 126:
+            head = bytes([0x81, 0x80 | n])
+        elif n < 1 << 16:
+            head = bytes([0x81, 0x80 | 126]) + n.to_bytes(2, "big")
+        else:
+            head = bytes([0x81, 0x80 | 127]) + n.to_bytes(8, "big")
+        mask = os.urandom(4)
+        self._sock.sendall(head + mask + bytes(
+            b ^ mask[i % 4] for i, b in enumerate(payload)))
+
+    def recv_json(self, timeout: float = 5.0):
+        """The next text message, parsed; ``TimeoutError`` when none
+        arrives within ``timeout`` seconds."""
+        self._sock.settimeout(timeout)
+        message = b""
+        while True:
+            first, payload = self._frame()
+            opcode = first & 0x0F
+            if opcode == 0x8:
+                raise ConnectionError("the server closed the websocket")
+            if opcode in (0x0, 0x1):
+                message += payload
+                if first & 0x80:
+                    return json.loads(message)
+
+    def close(self) -> None:
+        try:
+            self._sock.sendall(bytes([0x88, 0x82]) + b"\x00" * 4
+                               + (1000).to_bytes(2, "big"))
+        except OSError:
+            pass
+        self._sock.close()
+
+
+def http_json(port: int, path: str, body: bytes = None,
+              content_type: str = None, timeout: float = 120.0):
+    """``(status, parsed JSON)`` of a GET (no body) or POST to the local
+    server, on ``http.client`` (no proxy is ever consulted)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET" if body is None else "POST", path, body=body,
+                     headers={"Content-Type": content_type}
+                     if content_type else {})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def multipart(field: str, filename: str, data: bytes, content_type: str):
+    """A multipart/form-data body of one file part, as a browser's
+    ``FormData`` sends it, and its Content-Type."""
+    boundary = "----janusform" + os.urandom(8).hex()
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="{field}"; filename="{filename}"\r\n'
+            f"Content-Type: {content_type}\r\n\r\n").encode() + data + (
+                f"\r\n--{boundary}--\r\n").encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+@contextlib.contextmanager
+def serving(server, start_engine: bool = True):
+    """Run ``server`` (a ``JanusServer``) on an asyncio loop in a thread;
+    yield the loop, then stop the server and join the thread."""
+    loop = asyncio.new_event_loop()
+    started, state = threading.Event(), {}
+
+    async def main():
+        state["stop"] = asyncio.Event()
+        try:
+            await server.start(start_engine=start_engine)
+        except BaseException as e:
+            state["error"] = e
+            started.set()
+            raise
+        started.set()
+        await state["stop"].wait()
+        await server.stop()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(main())
+        finally:
+            loop.close()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    check(started.wait(60) and "error" not in state,
+          f"the server did not start: {state.get('error')}")
+    try:
+        yield loop
+    finally:
+        loop.call_soon_threadsafe(state["stop"].set)
+        thread.join(timeout=60)
+        check(not thread.is_alive(), "the server thread did not stop")
 
 
 def receive_demo(torch, dev) -> None:
@@ -813,6 +991,378 @@ def duplex_flagship(torch, kernels, asr_params, tcfg, vcfg, tts_params,
                     for t in r["turns"]],
           **{k: v for k, v in r.items() if k != "turns"},
           "launches": launches, "peak_mem_gib": peak_gib})
+
+
+def sessions_flagship(torch, kernels, asr_params) -> dict:
+    """The multi-session serving runtime at large-v3 width on the phase-4
+    weights: (a) encode batch scaling, (b) the serving tick loop,
+    synchronous and overlapped, (c) the native ring buffers. Returns the
+    overlapped run's kernel launches."""
+    from janus_tpu_torch.audio.synthetic import conversation, voiced_phrase
+    from janus_tpu_torch.common.config import ASRConfig, JanusConfig
+    from janus_tpu_torch.models import asr as asr_mod
+    from janus_tpu_torch.native import HAVE_NATIVE
+    from janus_tpu_torch.ops.resample import decimate_48k_to_16k
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.sessions import SessionManager
+
+    cfg = dataclasses.replace(JanusConfig(), asr=ASRConfig.large_v3())
+    cfg = cfg.override(**{"asr.max_decode_tokens": 24})
+    acfg = cfg.asr
+    errors = ErrorRecords()
+    sessions_log = logging.getLogger("janus_tpu_torch.runtime.sessions")
+    sessions_log.addHandler(errors)
+
+    def read_launches():
+        torch.cuda.synchronize()
+        return {k.name: k.launches for k in kernels}
+
+    def reset_launches():
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+
+    def check_launches(where, launches, batches):
+        check(launches["mel_fused"] >= batches
+              and launches["flash_attn"] == acfg.encoder_layers * batches
+              and launches["yin_block_sums"] >= batches,
+              f"sessions_flagship {where}: launches {launches} for "
+              f"{batches} encode batches")
+
+    # (a) batch scaling: ms per encode_batch, best of 2 after a warm-up
+    enc = SemanticEncoder(cfg, asr_params=asr_params,
+                          buckets=(SESSION_BUCKET,), device="cuda")
+    scaling = {}
+    for b in SESSION_BATCHES:
+        phrases = [voiced_phrase(f0=150.0 + 3 * i, seconds=2.0, amp=0.12,
+                                 seed=i) for i in range(b)]
+        enc.encode_batch(phrases)  # warm-up
+        reset_launches()
+        times = [synced_ms(torch, lambda: enc.encode_batch(phrases))[1]
+                 for _ in range(2)]
+        launches = read_launches()
+        check_launches(f"b={b}", launches, 2)
+        scaling[str(b)] = {"encode_ms": times, "best_ms": min(times),
+                           "audio_s_per_s": b * 2.0 / (min(times) / 1e3),
+                           "launches": launches}
+    # one decode step at b = 64, traced
+    b = SESSION_BATCHES[-1]
+    with torch.no_grad():
+        audio = torch.from_numpy(np.stack([voiced_phrase(
+            f0=150.0 + 3 * i, seconds=2.0, amp=0.12, seed=i)
+            for i in range(b)])).to(enc.device)
+        mel = asr_mod.prepare_mel(decimate_48k_to_16k(audio), acfg,
+                                  pad_to_frames=enc.mel_frame_budget(
+                                      SESSION_BUCKET))
+        encoded = asr_mod.encode_audio(enc.params, acfg,
+                                       mel.to(torch.bfloat16))
+        prompt = torch.full((b, 1), enc.tokenizer.sot, dtype=torch.long,
+                            device=enc.device)
+        step = profile_decode_step(torch, asr_mod, enc.params, acfg, encoded,
+                                   prompt)
+    del enc, audio, mel, encoded
+    torch.cuda.empty_cache()
+
+    # (b) the serving tick loop: 32 sessions, one 32 ms chunk per session
+    # per tick through push_audio; the transcript fixed at the host-decode
+    # hook (random weights give none), as bench.py:487-492 does
+    class FixedText(SemanticEncoder):
+        def _finalize(self, arrays, b_real):
+            out = super()._finalize(arrays, b_real)
+            for r in out:
+                r["text"] = "status report follows"
+            return out
+
+    serve_enc = FixedText(cfg, asr_params=asr_params,
+                          buckets=(SESSION_BUCKET,), device="cuda")
+    streams = [conversation(turns=2, speech_seconds=0.8 + 0.05 * (i % 8),
+                            silence_seconds=0.7, f0=130.0 + 4 * i, amp=0.3,
+                            seed=i) for i in range(SESSION_COUNT)]
+    chunk = cfg.audio.chunk_samples
+    total_audio_s = sum(len(a) for a in streams) / SR
+    n_ticks = max(len(a) for a in streams) // chunk + 40
+    submit = serve_enc.encode_batch_submit
+
+    def run_mode(mode_cfg) -> dict:
+        mgr = SessionManager(mode_cfg, encoder=serve_enc)
+        sizes, tick_vad_ms, vad_ms = [], [], [0.0]
+        serve_enc.encode_batch_submit = lambda phrases: (
+            sizes.append(len(phrases)), submit(phrases))[1]
+
+        def timed(fn):
+            def call(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                vad_ms[0] += 1e3 * (time.perf_counter() - t0)
+                return out
+            return call
+
+        mgr._dispatch_vad = timed(mgr._dispatch_vad)
+        mgr._consume_vad = timed(mgr._consume_vad)
+        for i in range(SESSION_COUNT):
+            mgr.add_session(f"s{i}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        packets, t0 = 0, time.perf_counter()
+        try:
+            for k in range(n_ticks):
+                for i, a in enumerate(streams):
+                    piece = a[k * chunk:(k + 1) * chunk]
+                    if len(piece):
+                        check(mgr.push_audio(f"s{i}", piece),
+                              f"sessions_flagship: ring of s{i} full")
+                vad_ms[0] = 0.0
+                packets += len(mgr.tick())
+                tick_vad_ms.append(vad_ms[0])
+            packets += len(mgr.flush())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            del serve_enc.encode_batch_submit
+        launches = read_launches()
+        check_launches(f"tick loop ({mode_cfg.runtime.max_inflight_encodes} "
+                       f"in flight)", launches, len(sizes))
+        return {"seconds": seconds, "packets": packets,
+                "audio_s_per_s": total_audio_s / seconds,
+                "encode_batches": len(sizes), "batch_sizes": sizes,
+                "vad_ms_per_tick_mean": float(np.mean(tick_vad_ms)),
+                "vad_ms_per_tick_max": float(np.max(tick_vad_ms)),
+                "launches": launches,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "native_rings": all(s.ring.native
+                                    for s in mgr.sessions.values()),
+                "per_session": {sid: [[p.prosody["pitch"], p.prosody["energy"]]
+                                      for p in s.packets_out]
+                                for sid, s in mgr.sessions.items()}}
+
+    sync_cfg = cfg.override(**{"runtime.max_inflight_encodes": 0,
+                               "runtime.pipelined_vad": False})
+    over_cfg = cfg.override(**{"runtime.max_inflight_encodes": 2,
+                               "runtime.pipelined_vad": True})
+    run_mode(sync_cfg)  # warm-up
+    sync, over = run_mode(sync_cfg), run_mode(over_cfg)
+    sessions_log.removeHandler(errors)
+    check(not errors.records, f"sessions_flagship logged errors: "
+          f"{errors.records}")
+    for name, r in (("sync", sync), ("overlapped", over)):
+        counts = {sid: len(v) for sid, v in r["per_session"].items()}
+        check(r["packets"] > 0 and all(n == 2 for n in counts.values()),
+              f"sessions_flagship {name}: packets per session {counts}")
+    check(sync["per_session"] == over["per_session"],
+          "sessions_flagship: the prosody codes per session and turn differ "
+          "between the synchronous and the overlapped runs")
+    # (c) the native ring buffers
+    check(HAVE_NATIVE and sync["native_rings"] and over["native_rings"],
+          "sessions_flagship: the sessions did not ride the C++ ring buffer")
+
+    def brief(r):
+        return {k: v for k, v in r.items() if k != "per_session"}
+
+    emit({"phase": "sessions_flagship", "nvidia_smi": nvidia_smi_line(),
+          "asr": "whisper-large-v3 (random, seed 0; phase-4 weights), "
+                 "bfloat16, max_decode_tokens 24, bucket 2 s",
+          "scaling": scaling, "decode_step_b64": step,
+          "tick_loop": {"sessions": SESSION_COUNT, "ticks": n_ticks,
+                        "audio_s": total_audio_s,
+                        "capture": "conversation(turns=2, speech 0.8 + "
+                                   "0.05 (i % 8) s, silence 0.7 s, f0 130 + "
+                                   "4 i), one 32 ms chunk a tick",
+                        "sync": brief(sync), "overlapped": brief(over),
+                        "overlap_speedup": sync["seconds"] / over["seconds"],
+                        "prosody_per_session": over["per_session"]},
+          "have_native": HAVE_NATIVE})
+    return over["launches"]
+
+
+def free_udp_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def server_run(torch, bundle, phrase, uploads, device, tmp) -> dict:
+    """``JanusServer`` with the demo bundle on ``device``: health, the WS
+    control plane, a spoken phrase through the live duplex over loopback
+    UDP to the virtual speaker, the verify uploads, then the clone."""
+    from janus_tpu_torch.api.server import JanusServer
+    from janus_tpu_torch.audio.io import StreamAudioService
+    from janus_tpu_torch.common.protocol import JanusPacket
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
+
+    def synced(fn):
+        if device == "cuda":
+            return synced_ms(torch, fn)
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    port = free_udp_port()
+    ref_path = os.path.join(tmp, f"reference_{device}")
+    cfg = bundle.config.override(**{
+        "server.port": 0, "server.reference_audio_path": ref_path,
+        "server.verify_phrase": VERIFY_PHRASE, "link.baud_rate": 48_000,
+        "link.target_ip": "127.0.0.1", "link.target_port": port,
+        "link.receiver_port": port})
+    # 2 s of silence (the WS client connects meanwhile), the phrase, 1 s
+    mic = StreamAudioService(np.concatenate([
+        np.zeros(2 * SR, np.float32), phrase, np.zeros(SR, np.float32)]),
+        realtime=True)
+    enc = SemanticEncoder(cfg, asr_params=bundle.asr_params,
+                          buckets=(96_000,), device=device)
+    enc.warmup()
+    syn = Synthesizer(cfg, tts_params=bundle.tts_params,
+                      vocoder_params=bundle.vocoder_params,
+                      speaker_params=bundle.speaker_params,
+                      default_speaker_vec=bundle.default_speaker_vec,
+                      reference_audio_path=ref_path, device=device)
+    srv = JanusServer(cfg, audio_service=mic, encoder=enc, synthesizer=syn,
+                      device=device)
+    events, verify, t0 = [], {}, time.perf_counter()
+    with serving(srv):
+        http_port = srv.http.bound_port
+        health = http_json(http_port, "/api/health")
+        ws = WsClient(http_port, cfg.server.ws_path)
+        try:
+            events.append(ws.recv_json())
+            ws.send_json({"type": "control", "is_streaming": True})
+            deadline = time.perf_counter() + 60
+            # the sent and the received packet each give a transcript and
+            # a packet summary; then the speaker must hold audio
+            while time.perf_counter() < deadline and not (
+                    sum(e["type"] == "packet_summary" for e in events) >= 2
+                    and mic.written_chunks):
+                try:
+                    events.append(ws.recv_json(timeout=1.0))
+                except TimeoutError:
+                    continue
+        finally:
+            ws.close()
+        duplex_s = time.perf_counter() - t0
+        # playback done: the speaker's chunk count holds still for 1 s
+        n = -1
+        while n != len(mic.written_chunks) and time.perf_counter() < deadline:
+            n = len(mic.written_chunks)
+            time.sleep(1.0)
+        for kind, blob in uploads.items():
+            body, ctype = multipart("audio_file", f"recording.{kind}", blob,
+                                    UPLOAD_TYPES[kind])
+            (status, resp), ms = synced(lambda: http_json(
+                http_port, "/api/voice/verify", body, ctype))
+            verify[kind] = {"http": status, **resp, "ms": ms}
+    check(health == (200, {"status": "ok"}), f"server_demo {device}: health "
+          f"{health}")
+    # the saved clone reference through the speaker encoder, then one
+    # cloned synthesis
+    check(os.path.exists(ref_path), f"server_demo {device}: no reference "
+          f"saved ({verify})")
+    _, load_ms = synced(lambda: syn._load_reference_audio(ref_path))
+    check(syn._speaker_vec is not None, f"server_demo {device}: the saved "
+          f"reference gave no clone voice")
+    cloned, clone_synth_ms = synced(lambda: syn.synthesize(
+        JanusPacket(text=VERIFY_PHRASE)))
+    check(len(cloned) > 0, f"server_demo {device}: empty cloned speech")
+    return {"events": events, "verify": verify, "duplex_s": duplex_s,
+            "pcm": b"".join(mic.written_chunks), "clone_load_ms": load_ms,
+            "clone_synth_ms": clone_synth_ms,
+            "cloned_samples": len(cloned) // 2,
+            "speaker_vec": syn._speaker_vec.float().cpu()}
+
+
+def server_demo(torch, kernels) -> dict:
+    """``JanusServer`` with the demo bundle, on the card and on the CPU.
+    Returns the card run's kernel launches."""
+    from janus_tpu_torch.audio.ogg import mux_ogg_opus
+    from janus_tpu_torch.audio.opus import OpusEncoder, opus_available
+    from janus_tpu_torch.audio.synthetic import render_text
+    from janus_tpu_torch.audio.wav import write_wav
+    from janus_tpu_torch.audio.webm import mux_webm_opus
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.models.zoo import load_demo
+
+    bundle = load_demo(base=JanusConfig())
+    phrase = render_text(VERIFY_PHRASE, SR, seed=1)
+    errors = ErrorRecords()
+    loggers = [logging.getLogger(f"janus_tpu_torch.{name}") for name in (
+        "api.http", "api.endpoints", "api.socket_manager", "runtime.engine",
+        "runtime.synthesizer", "runtime.streaming_tts")]
+    for lg in loggers:
+        lg.addHandler(errors)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "upload.wav")
+        write_wav(wav, phrase, SR)
+        with open(wav, "rb") as f:
+            uploads = {"wav": f.read()}
+        have_opus = opus_available()
+        if have_opus:
+            enc = OpusEncoder()
+            packets, pre = enc.encode(phrase), enc.lookahead
+            enc.close()
+            uploads["webm"] = mux_webm_opus(packets, pre)
+            uploads["ogg"] = mux_ogg_opus(packets, pre)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        card = server_run(torch, bundle, phrase, uploads, "cuda", tmp)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        cpu = server_run(torch, bundle, phrase, uploads, "cpu", tmp)
+    for lg in loggers:
+        lg.removeHandler(errors)
+    check(not errors.records, f"server_demo logged errors: {errors.records}")
+
+    def summary(r):
+        return ([e.get("text") for e in r["events"]
+                 if e["type"] == "transcript"],
+                [e["bytes"] for e in r["events"]
+                 if e["type"] == "packet_summary"],
+                {k: v["status"] for k, v in r["verify"].items()})
+
+    check(len(card["events"]) > 1
+          and card["events"][0]["type"] == "control_state"
+          and card["events"][1]["type"] == "control_state"
+          and card["events"][1]["is_streaming"] is True,
+          f"server_demo: control plane events {card['events'][:2]}")
+    check(card["verify"]["wav"]["status"] == "verified",
+          f"server_demo: the WAV upload was not verified: {card['verify']}")
+    check(summary(card) == summary(cpu), f"server_demo: the card gives "
+          f"{summary(card)}, the CPU {summary(cpu)}")
+    transcripts, packet_bytes, statuses = summary(card)
+    check(len(transcripts) == 2 and len(packet_bytes) == 2,
+          f"server_demo: events {card['events']}")
+    bar = 1e-2
+    check(len(card["pcm"]) == len(cpu["pcm"]) > 0, f"server_demo: "
+          f"{len(card['pcm'])} bytes played on the card, {len(cpu['pcm'])} "
+          f"on the CPU")
+    err = float(np.abs(pcm_float(card["pcm"]) - pcm_float(cpu["pcm"])).max())
+    check(err <= bar, f"server_demo: PCM card vs CPU {err} (bar {bar})")
+    vec_err = float((card["speaker_vec"] - cpu["speaker_vec"]).abs().max())
+    for name in ("mel_fused", "flash_attn", "yin_block_sums"):
+        check(launches[name] > 0, f"server_demo never launched {name}: "
+              f"{launches}")
+
+    def brief(r):
+        return {"duplex_s": r["duplex_s"], "verify": r["verify"],
+                "clone_load_ms": r["clone_load_ms"],
+                "clone_synth_ms": r["clone_synth_ms"],
+                "cloned_samples": r["cloned_samples"]}
+
+    line = {"phase": "server_demo", "nvidia_smi": nvidia_smi_line(),
+            "opus_available": have_opus, "uploads": sorted(uploads),
+            "spoken": VERIFY_PHRASE, "events": card["events"],
+            "transcripts": transcripts, "packet_bytes": packet_bytes,
+            "verify_status": statuses,
+            "pcm_card_vs_cpu_max_abs": err, "bar": bar,
+            "samples": len(card["pcm"]) // 2,
+            "clone_vec_card_vs_cpu_max_abs": vec_err,
+            "clone_load_ms": card["clone_load_ms"],
+            "card": brief(card), "cpu": brief(cpu), "launches": launches}
+    if not have_opus:
+        line["note"] = ("libopus is missing on this machine: WAV upload "
+                        "only; the WebM/Ogg parity is held by the CPU tests")
+    emit(line)
+    return launches
 
 
 def main() -> None:
@@ -1596,18 +2146,31 @@ def main() -> None:
     duplex_flagship(torch, all_kernels, flagship_asr_params, *flagship_tts)
     check(not errors.records, f"the duplex loops logged errors: "
           f"{errors.records}")
-    del flagship_asr_params, flagship_tts
+    del flagship_tts
     torch.cuda.empty_cache()
 
-    # -- 11. kernels summary -----------------------------------------------
-    # launches: K1-K3 from the flagship run, K4 from the int8 flagship run
-    launches["cross_attn_int8"] = q_launches["cross_attn_int8"]
+    # -- 11-12. the serving surface ----------------------------------------
+    by_phase = {"flagship": launches,
+                "flagship_int8": {"cross_attn_int8":
+                                  q_launches["cross_attn_int8"]}}
+    by_phase["sessions_flagship"] = sessions_flagship(
+        torch, all_kernels, flagship_asr_params)
+    del flagship_asr_params
+    torch.cuda.empty_cache()
+    by_phase["server_demo"] = server_demo(torch, all_kernels)
+
+    # -- 13. kernels summary -----------------------------------------------
+    # launches: K1-K3 from the flagship run, the tick loop's overlapped run
+    # and the card's server run; K4 from the int8 flagship run
     line = []
     for k in all_kernels:
         row = summary[k.name]
+        counts = {p: c[k.name] for p, c in by_phase.items() if k.name in c}
         line.append({"name": k.name, "route": "cuda",
                      "source": f"janus_tpu_torch/csrc/{k.name}.cu",
-                     "replaces": k.replaces, "launches": launches[k.name],
+                     "replaces": k.replaces,
+                     "launches": sum(counts.values()),
+                     "launches_by_phase": counts,
                      "max_abs_err": row["max_err"], "ms": row["kernel_ms"],
                      "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

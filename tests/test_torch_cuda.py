@@ -466,3 +466,78 @@ def test_energy_vad_on_the_card_decides_as_cpu(dev):
         decisions.append((p > 0.5, q > 0.5))
     assert all(a == b for a, b in decisions)
     assert any(a for a, _ in decisions)
+
+
+def _session_packets(device):
+    """The demo bundle's ``SessionManager`` over three sessions (two
+    phrases ending on one tick), one 32 ms chunk a session a tick; packet
+    bytes with the timestamp fixed, in harvest order."""
+    import dataclasses
+
+    from janus_tpu_torch.audio.synthetic import render_text
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.models.zoo import load_demo
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.sessions import SessionManager
+
+    b = load_demo(base=JanusConfig())
+    mgr = SessionManager(b.config, encoder=SemanticEncoder(
+        b.config, b.asr_params, buckets=(96_000,), device=device))
+    silence = np.zeros(48_000, np.float32)
+    a = render_text("alpha bravo", 48_000, seed=0)
+    streams = {"s0": np.concatenate([a, silence]),
+               "s1": np.concatenate([0.6 * a, silence]),
+               "s2": np.concatenate([render_text("fox golf hotel", 48_000,
+                                                 seed=1), silence])}
+    for sid in streams:
+        assert mgr.add_session(sid).ring.native
+    out = []
+    for k in range(max(len(x) for x in streams.values()) // 1536 + 1):
+        for sid, x in streams.items():
+            if len(x[k * 1536:(k + 1) * 1536]):
+                mgr.push_audio(sid, x[k * 1536:(k + 1) * 1536])
+        out += mgr.tick()
+    out += mgr.flush()
+    return [(sid, dataclasses.replace(p, timestamp=1.0).serialize())
+            for sid, p in out]
+
+
+def test_session_manager_on_the_card_equals_cpu(dev):
+    from janus_tpu_torch.ops.cuda_build import KERNELS
+
+    before = KERNELS["flash_attn"].launches
+    card = _session_packets("cuda")
+    assert KERNELS["flash_attn"].launches > before
+    assert card == _session_packets("cpu") and len(card) == 3
+
+
+def test_janus_server_on_the_card(dev, tmp_path):
+    """``JanusServer`` on the card: health, and the WebSocket snapshot and
+    ack through ``chip_smoke.py``'s stdlib client."""
+    import chip_smoke
+    from janus_tpu_torch.api.server import JanusServer
+    from janus_tpu_torch.audio.io import StreamAudioService
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.models.zoo import load_demo
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+
+    b = load_demo(base=JanusConfig())
+    cfg = b.config.override(**{
+        "server.port": 0,
+        "server.reference_audio_path": str(tmp_path / "ref.wav")})
+    srv = JanusServer(cfg, audio_service=StreamAudioService(),
+                      encoder=SemanticEncoder(cfg, b.asr_params,
+                                              buckets=(96_000,)))
+    assert srv.encoder.device.type == "cuda"
+    assert srv.synthesizer.device.type == "cuda"
+    with chip_smoke.serving(srv, start_engine=False):
+        port = srv.http.bound_port
+        assert chip_smoke.http_json(port, "/api/health") == (
+            200, {"status": "ok"})
+        ws = chip_smoke.WsClient(port)
+        try:
+            assert ws.recv_json()["type"] == "control_state"
+            ws.send_json({"type": "control", "is_streaming": True})
+            assert ws.recv_json()["is_streaming"] is True
+        finally:
+            ws.close()

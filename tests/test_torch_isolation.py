@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``janus_tpu_torch``
-(and ``chip_smoke``) loads neither JAX nor the JAX package."""
+(and ``chip_smoke``) loads neither JAX nor the JAX package, nor pydantic
+or a WebSocket package, which the card's machine need not have."""
 
 import json
 import os
@@ -23,39 +24,65 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "janus_tpu" or m.startswith("janus_tpu."))
-print(json.dumps({"modules": names, "bad": bad}))
+third_party = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("pydantic", "pydantic_core",
+                                            "websockets"))
+print(json.dumps({"modules": names, "bad": bad, "third_party": third_party}))
+"""
+
+_TYPES_PROBE = r"""
+import json, sys
+import janus_tpu_torch.api.types
+print(json.dumps(sorted(m for m in sys.modules if m.startswith("pydantic"))))
 """
 
 
-def test_port_imports_no_jax_and_no_janus_tpu():
+def _probe(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_and_no_janus_tpu():
+    res = _probe(_PROBE)
     assert res["bad"] == []
-    assert len(res["modules"]) >= 49
+    assert res["third_party"] == []  # no pydantic, no websockets
+    assert len(res["modules"]) >= 68
     for name in ("janus_tpu_torch.runtime.engine",
                  "janus_tpu_torch.tools.sender_main",
                  "janus_tpu_torch.tools.receiver_main",
-                 "janus_tpu_torch.models.vad"):
+                 "janus_tpu_torch.models.vad",
+                 "janus_tpu_torch.runtime.sessions",
+                 "janus_tpu_torch.api.server",
+                 "janus_tpu_torch.native",
+                 "janus_tpu_torch.audio.webm"):
         assert name in res["modules"]
 
 
+def test_api_types_import_no_pydantic():
+    assert _probe(_TYPES_PROBE) == []
+
+
 def _entry_points():
+    from janus_tpu_torch.api.server import JanusServer
     from janus_tpu_torch.models.vad import VoiceActivityDetector
     from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.sessions import SessionManager
     from janus_tpu_torch.runtime.streaming_tts import StreamingSynthesizer
     from janus_tpu_torch.runtime.synthesizer import Synthesizer
 
     return {"SemanticEncoder": SemanticEncoder, "Synthesizer": Synthesizer,
             "StreamingSynthesizer": StreamingSynthesizer,
-            "VoiceActivityDetector": VoiceActivityDetector}
+            "VoiceActivityDetector": VoiceActivityDetector,
+            "SessionManager": SessionManager, "JanusServer": JanusServer}
 
 
 @pytest.mark.parametrize("entry", ["SemanticEncoder", "Synthesizer",
                                    "StreamingSynthesizer",
-                                   "VoiceActivityDetector"])
+                                   "VoiceActivityDetector", "SessionManager",
+                                   "JanusServer"])
 def test_entry_point_needs_a_card_unless_cpu_asked(monkeypatch, entry):
     cls = _entry_points()[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -63,6 +90,14 @@ def test_entry_point_needs_a_card_unless_cpu_asked(monkeypatch, entry):
         cls()
     if entry == "VoiceActivityDetector":
         assert cls(device="cpu").device.type == "cpu"
+    if entry == "SessionManager":
+        from janus_tpu_torch.common.config import JanusConfig
+
+        cfg = JanusConfig().override(**{
+            "asr.d_model": 64, "asr.encoder_layers": 1,
+            "asr.decoder_layers": 1, "asr.num_heads": 4, "asr.n_mels": 16,
+            "asr.vocab_size": 261})
+        assert cls(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("loop", ["sender", "receiver"])
