@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send and receive paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's send, receive and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -65,11 +66,29 @@ printing one JSON line per result:
    uploaded to ``/api/voice/verify`` as WAV and (with libopus) as
    WebM/Opus and Ogg/Opus, and the saved clone reference through the
    speaker encoder and one cloned synthesis;
-13. the ``kernels`` summary line: K1-K3 launches of the flagship encode,
-   the tick loop's overlapped run and the card's server run, K4's of the
-   int8 flagship encode. The receive side runs no hand-written kernel
-   (the JAX package's has no Pallas kernel either), so its phases add no
-   row there.
+13. encode_profile and flagship_check — ``tools.encode_profile`` (stage
+   times of the encode, 8 phrases of 10 s) and ``tools.flagship_check
+   --decode --int8`` (the encoder at 3000 frames, the transcribe, int8
+   weights and cross K/V) on phase 4's large-v3 weights;
+14. train_demo — the demo ASR, TTS and vocoder, 3 optimizer steps each on
+   one fixed batch from the same seeded weights on the card and on the
+   CPU (losses within 1e-3 relative), then ``train_demo_asr(steps=3)``
+   through its entry point and its npz back through ``load_npz_params``;
+15. train_flagship — Whisper large-v3 at full width in float32 (weights
+   from ``init_asr`` on the card): 5 ``Trainer.train_step`` on 2
+   utterances in the 30 s window (finite losses, the last below the
+   first), step ms, peak memory, and one step traced (launches, busy,
+   idle, top ops, K2's forward kernel and ``_FlashAttention.backward``
+   shares);
+16. zoo_gates — the seven quality gates of
+   ``tests/test_zoo_checkpoints.py`` on the committed checkpoints, on the
+   card, at their floors;
+17. the ``kernels`` summary line: each kernel's launches by phase (K1-K3
+   from the flagship encode, the tick loop's overlapped run, the tools,
+   the card's server run, the training phases and the gates; K4 from the
+   int8 flagship encode and ``flagship_check --int8``). The receive side
+   runs no hand-written kernel (the JAX package's has no Pallas kernel
+   either), so its phases add no row there.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -121,6 +140,12 @@ SESSION_BATCHES = (1, 8, 32, 64)   # encode batch scaling (bench.py:287-311)
 SESSION_COUNT = 32                 # the serving tick loop (bench.py:484-541)
 SESSION_BUCKET = 96_000            # the 2 s duration bucket
 VERIFY_PHRASE = "fox golf hotel"
+TRAIN_DEMO_STEPS = 3
+TRAIN_DEMO_BATCH = 8
+TRAIN_DEMO_LR = 1e-4
+TRAIN_FLAGSHIP_BATCH = 2           # utterances, in the 30 s window
+TRAIN_FLAGSHIP_STEPS = 5
+TRAIN_FLAGSHIP_LR = 1e-4
 UPLOAD_TYPES = {"wav": "audio/wav", "webm": "audio/webm;codecs=opus",
                 "ogg": "audio/ogg;codecs=opus"}
 
@@ -1365,6 +1390,425 @@ def server_demo(torch, kernels) -> dict:
     return launches
 
 
+def reset_launches(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_launches(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
+
+
+def _device_ms(event) -> float:
+    """Device time of a profiler event and its children, ms (the field's
+    name moved between PyTorch releases)."""
+    us = getattr(event, "device_time_total", None)
+    if us is None:
+        us = event.cuda_time_total
+    return us / 1e3
+
+
+def trace_train_step(torch, step, wall_ms: float) -> dict:
+    """One training step traced under ``torch.profiler``: kernels, the
+    host's launch calls, the device's busy time and idle share against the
+    untraced step's wall time, the top device ops, and K2's share: the
+    forward kernel's device time and the device time under
+    ``_FlashAttention.backward`` (the plain attention's recompute and
+    gradient). Nulls where the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not device:
+        return {"device_events": 0, "traced_wall_ms": traced_ms,
+                "device_busy_ms": None, "device_idle_share": None}
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    fwd = sum(e.time_range.elapsed_us() for e in device
+              if "flash_fwd" in e.name) / 1e3
+    bwd = sum(_device_ms(e) for e in events
+              if e.device_type == DeviceType.CPU and e.name.startswith(
+                  "autograd::engine::evaluate_function: "
+                  "_FlashAttentionBackward"))
+    ops = {}
+    for e in device:
+        ops[e.name] = ops.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_events": len(device),
+            "host_kernel_launches": sum(
+                1 for e in events if e.device_type == DeviceType.CPU
+                and e.name.startswith("cudaLaunchKernel")),
+            "traced_wall_ms": traced_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "k2_forward_ms": fwd, "k2_backward_ms": bwd,
+            "k2_forward_share": fwd / busy, "k2_backward_share": bwd / busy,
+            "top_ops_ms": [{"name": n[:120], "ms": ms} for n, ms in top]}
+
+
+def train_demo(torch, kernels) -> dict:
+    """The demo ASR, TTS and vocoder: 3 steps each on one fixed batch from
+    the same seeded weights on the card and on the CPU (losses within
+    1e-3 relative; the vocoder's gradient against float64 and its losses
+    at lr 1e-3 are reported), then ``train_demo_asr(steps=3)`` through its entry
+    point on the card and its npz back through ``load_npz_params``.
+    Returns the card runs' kernel launches."""
+    from janus_tpu_torch.common.device import resolve_device
+    from janus_tpu_torch.models.asr import prepare_mel
+    from janus_tpu_torch.models.params import (flatten_with_paths, init_asr,
+                                               load_npz_params, map_tree,
+                                               save_npz, tree_to)
+    from janus_tpu_torch.models.tokenizer import ByteTokenizer
+    from janus_tpu_torch.models.tts import EMOTIONS, emotion_id, init_tts
+    from janus_tpu_torch.models.vocoder import init_vocoder
+    from janus_tpu_torch.ops.mel import log_mel_spectrogram
+    from janus_tpu_torch.train import demo
+    from janus_tpu_torch.train.losses import asr_loss, tts_loss, vocoder_loss
+    from janus_tpu_torch.train.synthetic_task import (mel_targets_for,
+                                                      render_text,
+                                                      sample_batch,
+                                                      sample_text)
+    from janus_tpu_torch.train.trainer import Trainer
+
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(0)
+    acfg = demo.demo_asr_config()
+    tcfg, vcfg = demo.demo_tts_config(), demo.demo_vocoder_config()
+    n_frames = 2 * acfg.max_source_positions
+
+    def asr_fn(p, audio, tokens, mask):
+        return asr_loss(p, acfg, prepare_mel(audio, acfg,
+                                             pad_to_frames=n_frames),
+                        tokens, mask)
+
+    audio, tokens, mask, _ = sample_batch(
+        rng, TRAIN_DEMO_BATCH, tok, max_tokens=acfg.max_target_positions,
+        **demo.STANDARD_CORPUS)
+
+    texts = [sample_text(rng) for _ in range(TRAIN_DEMO_BATCH)]
+    emos = [EMOTIONS[i % len(EMOTIONS)] for i in range(TRAIN_DEMO_BATCH)]
+    mels, gmask = mel_targets_for(texts, tcfg.n_mels, tcfg.reduction,
+                                  tcfg.max_mel_frames // tcfg.reduction,
+                                  emotions=emos)
+    ids = np.full((TRAIN_DEMO_BATCH, 16), tok.pad, np.int64)
+    for i, t in enumerate(texts):
+        ids[i, :len(tok.encode(t)[:16])] = tok.encode(t)[:16]
+    emo = np.array([emotion_id(e) for e in emos], np.int64)
+    spk = np.stack(demo.demo_speaker_vectors(tcfg)[1])[
+        np.arange(TRAIN_DEMO_BATCH) % 4].astype(np.float32)
+    noisy = (mels + 0.1 * rng.standard_normal(mels.shape)).astype(np.float32)
+
+    def tts_fn(p, *b):
+        return tts_loss(p, tcfg, *b[:4], speaker=b[4], text_vocab=tok.vocab_size,
+                        mel_inputs=b[5])
+
+    t_samples = 96 * vcfg.hop_length
+    wavs = np.zeros((4, t_samples), np.float32)
+    for i in range(4):
+        w = render_text(sample_text(rng), 16_000, seed=i, speaker=i,
+                        hop_quantize=vcfg.hop_length)[:t_samples]
+        wavs[i, :len(w)] = w
+
+    # the vocoder's batch is (mel, wav), as train_demo_vocoder hands it
+    # over, the mel made once on the CPU: both devices start from the same
+    # input (the card's own log-mel differs from it by
+    # ``vocoder_mel_card_vs_cpu_max_abs``)
+    with torch.no_grad():
+        wav_t = torch.from_numpy(wavs)
+        voc_mel = log_mel_spectrogram(wav_t, 16_000, 400, vcfg.hop_length,
+                                      80)[:, :96, :]
+        mel_gap = float((log_mel_spectrogram(
+            wav_t.to(resolve_device("cuda")), 16_000, 400, vcfg.hop_length,
+            80)[:, :96, :].cpu() - voc_mel).abs().max())
+
+    def voc_fn(p, mel, wav):
+        return vocoder_loss(p, vcfg, mel, wav)
+
+    cpu_gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    models = {
+        "asr": (init_asr(cpu_gen(), acfg), asr_fn, (audio, tokens, mask)),
+        "tts": (init_tts(cpu_gen(), tcfg, text_vocab=tok.vocab_size),
+                tts_fn, (ids, emo, mels, gmask, spk, noisy)),
+        "vocoder": (init_vocoder(cpu_gen(), vcfg, n_mels=80), voc_fn,
+                    (voc_mel.numpy(), wavs)),
+    }
+    def trajectory(params, fn, batch, dev, lr):
+        trainer = Trainer(fn, learning_rate=lr)
+        state = trainer.create_state(tree_to(params, dev))
+        hist = []
+        for _ in range(TRAIN_DEMO_STEPS):
+            state, m = trainer.train_step(state, *batch)
+            hist.append(float(m["loss"]))
+        return hist
+
+    card, cpu = resolve_device("cuda"), torch.device("cpu")
+    reset_launches(kernels)
+    losses = {}
+    for name, (params, fn, batch) in models.items():
+        runs = {where: trajectory(params, fn, batch, dev, TRAIN_DEMO_LR)
+                for where, dev in (("card", card), ("cpu", cpu))}
+        rel = [abs(a - b) / abs(b) for a, b in zip(runs["card"], runs["cpu"])]
+        losses[name] = {**runs, "rel": rel}
+        check(all(np.isfinite(runs["card"])) and max(rel) <= 1e-3,
+              f"train_demo {name}: card vs CPU losses {losses[name]}")
+
+    # The vocoder's loss is ill-conditioned in float32: its log-magnitude
+    # term weighs each STFT bin by 1/(|X| + 1e-5), so its gradient lies
+    # up to ~1e-3 (of a leaf's largest magnitude) from a float64
+    # evaluation on either device, and Adam's first steps move every
+    # weight by ~lr whatever its gradient's size: at lr 1e-3 two float32
+    # runs part faster than at TRAIN_DEMO_LR. Both are readings, not
+    # checks: each device's gradient against a float64 CPU evaluation,
+    # and the losses at lr 1e-3 (``vocoder_at_1e-3``).
+    voc_params, voc_batch = models["vocoder"][0], models["vocoder"][2]
+
+    def voc_grads(dev, dtype):
+        p = map_tree(lambda t: t.to(dtype), tree_to(voc_params, dev))
+        pairs = list(flatten_with_paths(p))
+        leaves = [v.requires_grad_() for _, v in pairs]
+        loss, _ = voc_fn(p, *(torch.from_numpy(b).to(dev).to(dtype)
+                              for b in voc_batch))
+        return {k: g.detach().double().cpu() for (k, _), g in zip(
+            pairs, torch.autograd.grad(loss, leaves))}
+
+    def worst(got, ref):
+        return max(float((got[k] - ref[k]).abs().max()
+                         / ref[k].abs().max().clamp_min(1e-30)) for k in ref)
+
+    ref64 = voc_grads(cpu, torch.float64)
+    grad_err = {"card": worst(voc_grads(card, torch.float32), ref64),
+                "cpu": worst(voc_grads(cpu, torch.float32), ref64)}
+    runs = {where: trajectory(voc_params, voc_fn, voc_batch, dev, 1e-3)
+            for where, dev in (("card", card), ("cpu", cpu))}
+    losses["vocoder_at_1e-3"] = {**runs, "rel": [
+        abs(a - b) / abs(b) for a, b in zip(runs["card"], runs["cpu"])]}
+
+    t0 = time.perf_counter()
+    params, _, _, hist = demo.train_demo_asr(steps=TRAIN_DEMO_STEPS,
+                                             pool_n=64, log_every=0,
+                                             device="cuda")
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "asr.npz")
+        save_npz(path, params)
+        back = dict(flatten_with_paths(load_npz_params(path)))
+    round_trip = all(torch.equal(back[k], v.detach().cpu().half().float())
+                     for k, v in flatten_with_paths(params))
+    check(len(hist) == TRAIN_DEMO_STEPS and all(np.isfinite(hist)),
+          f"train_demo_asr history {hist}")
+    check(round_trip and len(back) == len(list(flatten_with_paths(params))),
+          "train_demo: save_npz -> load_npz_params did not round-trip")
+    check(launches["mel_fused"] >= TRAIN_DEMO_STEPS
+          and launches["flash_attn"] >= TRAIN_DEMO_STEPS
+          * acfg.encoder_layers, f"train_demo launches {launches}")
+    emit({"phase": "train_demo", "nvidia_smi": nvidia_smi_line(),
+          "steps": TRAIN_DEMO_STEPS, "batch": TRAIN_DEMO_BATCH,
+          "learning_rate": TRAIN_DEMO_LR, "losses": losses,
+          "bar_rel": 1e-3, "vocoder_grad_vs_fp64_worst_leaf": grad_err,
+          "vocoder_mel_card_vs_cpu_max_abs": mel_gap,
+          "train_demo_asr": {"history": hist, "seconds": entry_s,
+                             "npz_round_trip": round_trip},
+          "launches": launches})
+    return launches
+
+
+def train_flagship(torch, kernels) -> dict:
+    """Whisper large-v3 at full width in float32, weights from
+    ``init_asr`` on the card: ``TRAIN_FLAGSHIP_STEPS`` steps of
+    ``Trainer.train_step`` on one batch of ``sample_batch`` utterances in
+    the entry point's 30 s window, then one step traced. Returns the
+    launches of the untraced steps."""
+    from janus_tpu_torch.common.config import ASRConfig
+    from janus_tpu_torch.common.device import resolve_device
+    from janus_tpu_torch.models.asr import prepare_mel
+    from janus_tpu_torch.models.params import flatten_with_paths, init_asr
+    from janus_tpu_torch.models.tokenizer import ByteTokenizer
+    from janus_tpu_torch.train.losses import asr_loss
+    from janus_tpu_torch.train.synthetic_task import sample_batch
+    from janus_tpu_torch.train.trainer import Trainer
+
+    dev = resolve_device("cuda")
+    cfg = dataclasses.replace(ASRConfig.large_v3(), dtype="float32")
+    n_frames = 2 * cfg.max_source_positions
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_asr(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = sum(t.numel() for _, t in flatten_with_paths(params))
+
+    def loss_fn(p, audio, tokens, mask):
+        return asr_loss(p, cfg, prepare_mel(audio, cfg,
+                                            pad_to_frames=n_frames),
+                        tokens, mask)
+
+    trainer = Trainer(loss_fn, learning_rate=TRAIN_FLAGSHIP_LR)
+    state = trainer.create_state(params)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    audio, tokens, mask, texts = sample_batch(
+        np.random.default_rng(0), TRAIN_FLAGSHIP_BATCH, ByteTokenizer(),
+        max_tokens=cfg.max_target_positions)
+    batch = tuple(torch.from_numpy(a).to(dev) for a in (audio, tokens, mask))
+
+    reset_launches(kernels)
+    losses, norms, step_ms = [], [], []
+    for _ in range(TRAIN_FLAGSHIP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, *batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = read_launches(kernels)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall_ms = float(np.median(step_ms[1:]))
+    holder = [state]
+
+    def step():
+        holder[0], _ = trainer.train_step(holder[0], *batch)
+
+    trace = trace_train_step(torch, step, wall_ms)
+    del state, holder, trainer
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train_flagship: losses {losses}, grad norms {norms}")
+    check(losses[-1] < losses[0], f"train_flagship: the loss on one batch "
+          f"did not fall over {TRAIN_FLAGSHIP_STEPS} steps: {losses}")
+    check(launches["mel_fused"] == TRAIN_FLAGSHIP_STEPS
+          and launches["flash_attn"] == TRAIN_FLAGSHIP_STEPS
+          * cfg.encoder_layers, f"train_flagship launches {launches}")
+    emit({"phase": "train_flagship", "nvidia_smi": nvidia_smi_line(),
+          "model": "whisper-large-v3 (random, init_asr seed 0), float32",
+          "params": n_params, "batch": TRAIN_FLAGSHIP_BATCH,
+          "mel_frames": n_frames, "tokens": cfg.max_target_positions,
+          "texts": texts, "learning_rate": TRAIN_FLAGSHIP_LR,
+          "init_s": init_s, "losses": losses, "grad_norms": norms,
+          "step_ms": step_ms, "step_ms_median_2_on": wall_ms,
+          "peak_mem_gib": peak_gib, "launches": launches, "trace": trace})
+    return launches
+
+
+def zoo_gates(torch, kernels) -> dict:
+    """The committed checkpoints' quality gates on the card, at the floors
+    of ``tests/test_zoo_checkpoints.py``. Returns the launches."""
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.eval.roundtrip import (evaluate_emotion_roundtrip,
+                                                evaluate_hard_roundtrip,
+                                                evaluate_voice_clone_identity)
+    from janus_tpu_torch.models.tokenizer import ByteTokenizer
+    from janus_tpu_torch.models.zoo import load_demo, load_demo_hard
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
+    from janus_tpu_torch.train import demo
+    from janus_tpu_torch.train.retrain_demo import quick_copy_snr
+
+    tok = ByteTokenizer()
+    bundle = load_demo(base=JanusConfig())
+    cfg = bundle.config
+    gates, times = {}, {}
+    reset_launches(kernels)
+
+    def gate(name, fn, ok):
+        t0 = time.perf_counter()
+        value = fn()
+        times[name] = time.perf_counter() - t0
+        gates[name] = {"value": value, "pass": bool(ok(value))}
+
+    gate("neutral_wer", lambda: demo.evaluate_asr(
+        bundle.asr_params, demo.demo_asr_config(), tok, n_utterances=16,
+        seed=123)[0], lambda v: v == 0.0)
+    gate("emotion_rendering_wer", lambda: demo.evaluate_asr(
+        bundle.asr_params, demo.demo_asr_config(), tok, n_utterances=24,
+        seed=77, corpus=demo.STANDARD_CORPUS)[0], lambda v: v <= 0.08)
+    gate("vocoder_copy_snr_db", lambda: quick_copy_snr(
+        bundle.vocoder_params, demo.demo_vocoder_config()),
+        lambda v: v >= 24.0)
+    encoder = SemanticEncoder(cfg, asr_params=bundle.asr_params,
+                              buckets=(48_000 * 2,), device="cuda")
+    synth = Synthesizer(cfg, tts_params=bundle.tts_params,
+                        vocoder_params=bundle.vocoder_params,
+                        default_speaker_vec=demo.demo_speaker_vectors(
+                            cfg.tts)[1][0], device="cuda")
+    gate("emotion_roundtrip", lambda: evaluate_emotion_roundtrip(
+        synth, encoder), lambda v: v["emotion_roundtrip_match"] == 1.0)
+    gate("voice_clone_identity", lambda: evaluate_voice_clone_identity(
+        bundle.tts_params, cfg.tts, bundle.vocoder_params, cfg.vocoder),
+        lambda v: v["voice_clone_identity_frac"] == 1.0)
+    hard = load_demo_hard(base=JanusConfig())
+
+    def hard_wers():
+        out = {}
+        for label, snr in (("clean", None), ("snr10", (10.0, 10.0)),
+                           ("snr5", (5.0, 5.0)), ("snr0", (0.0, 0.0))):
+            corpus = dict(demo.HARD_CORPUS, clean_prob=0.0)
+            if snr is None:
+                corpus.pop("snr_db_range")
+            else:
+                corpus["snr_db_range"] = snr
+            out[label] = demo.evaluate_asr(
+                hard.asr_params, demo.hard_asr_config(), tok,
+                n_utterances=24, seed=321, corpus=corpus,
+                max_seconds=3.84)[0]
+        return out
+
+    floors = {"clean": 0.05, "snr10": 0.15, "snr5": 0.05, "snr0": 0.15}
+    gate("hard_wer", hard_wers,
+         lambda v: all(v[k] <= floors[k] for k in floors))
+    gate("hard_roundtrip", lambda: evaluate_hard_roundtrip(
+        hard, n_utterances=12, seed=555),
+        lambda v: v["hard_roundtrip_wer"] <= 0.10)
+    launches = read_launches(kernels)
+    emit({"phase": "zoo_gates", "nvidia_smi": nvidia_smi_line(),
+          "gates": gates, "seconds": times, "hard_floors": floors,
+          "launches": launches})
+    check(all(g["pass"] for g in gates.values()),
+          f"zoo_gates: a gate missed its floor: {gates}")
+    for name in ("mel_fused", "flash_attn", "yin_block_sums"):
+        check(launches[name] > 0, f"zoo_gates never launched {name}")
+    return launches
+
+
+def profile_tools(torch, kernels, params, fcfg) -> dict:
+    """``tools.encode_profile`` and ``tools.flagship_check`` (``--decode
+    --int8``) on the large-v3 weights already built. Returns each one's
+    launches."""
+    from janus_tpu_torch.tools.encode_profile import profile_encode
+    from janus_tpu_torch.tools.flagship_check import check_flagship
+
+    by_phase = {}
+    reset_launches(kernels)
+    line = profile_encode(params, fcfg, batch=FLAGSHIP_BATCH,
+                          seconds=FLAGSHIP_SECONDS, device="cuda")
+    by_phase["encode_profile"] = read_launches(kernels)
+    emit({"phase": "encode_profile", "nvidia_smi": nvidia_smi_line(), **line,
+          "launches": by_phase["encode_profile"]})
+    check(all(np.isfinite(v) and v > 0 for v in line["stages_ms"].values())
+          and all(by_phase["encode_profile"][n] > 0 for n in
+                  ("mel_fused", "flash_attn", "yin_block_sums")),
+          f"encode_profile stages {line['stages_ms']}, launches "
+          f"{by_phase['encode_profile']}")
+    reset_launches(kernels)
+    line = check_flagship(params, fcfg.asr, frames=3000, batch=1,
+                          decode=True, int8=True, device="cuda")
+    by_phase["flagship_check"] = read_launches(kernels)
+    emit({"phase": "flagship_check", "nvidia_smi": nvidia_smi_line(), **line,
+          "launches": by_phase["flagship_check"]})
+    check(line["step_ms"] > 0 and line["tokens_shape"] == [1, 16]
+          and by_phase["flagship_check"]["cross_attn_int8"] > 0,
+          f"flagship_check {line}, launches {by_phase['flagship_check']}")
+    return by_phase
+
+
 def main() -> None:
     import torch
 
@@ -2155,13 +2599,21 @@ def main() -> None:
                                   q_launches["cross_attn_int8"]}}
     by_phase["sessions_flagship"] = sessions_flagship(
         torch, all_kernels, flagship_asr_params)
+    by_phase.update(profile_tools(torch, all_kernels, flagship_asr_params,
+                                  fcfg))
     del flagship_asr_params
     torch.cuda.empty_cache()
     by_phase["server_demo"] = server_demo(torch, all_kernels)
 
-    # -- 13. kernels summary -----------------------------------------------
-    # launches: K1-K3 from the flagship run, the tick loop's overlapped run
-    # and the card's server run; K4 from the int8 flagship run
+    # -- 14-16. training and the evaluation gates ---------------------------
+    by_phase["train_demo"] = train_demo(torch, all_kernels)
+    by_phase["train_flagship"] = train_flagship(torch, all_kernels)
+    by_phase["zoo_gates"] = zoo_gates(torch, all_kernels)
+
+    # -- 17. kernels summary -----------------------------------------------
+    # launches: K1-K3 from the flagship run, the tick loop's overlapped run,
+    # the two tools, the card's server run, the training phases and the
+    # gates; K4 from the int8 flagship run and flagship_check --int8
     line = []
     for k in all_kernels:
         row = summary[k.name]

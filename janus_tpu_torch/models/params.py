@@ -1,6 +1,6 @@
-"""Parameter trees: path flattening, the npz loader, the bridge from the
-JAX package's trees, the seeded ASR initializer and the decode-layout
-QKV fusion.
+"""Parameter trees: path flattening, the npz loader and writer, the
+bridges from and to the JAX package's trees, the seeded ASR initializer
+and the decode-layout QKV fusion.
 
 Params are nested dicts of tensors with the JAX package's layouts (linear
 ``w[d_in, d_out]``, conv ``w[K, C_in, C_out]``) and per-layer ``blocks``
@@ -27,7 +27,9 @@ __all__ = [
     "tree_to",
     "cast_floating",
     "load_npz_params",
+    "save_npz",
     "params_from_jax",
+    "params_to_jax",
     "init_asr",
     "fuse_qkv",
     "prepare_decode_params",
@@ -120,6 +122,19 @@ def load_npz_params(path: str, device="cpu") -> Params:
     return unflatten_from_paths(pairs)
 
 
+def save_npz(path: str, params: Params) -> None:
+    """Write the zoo's checkpoint format: a flat npz keyed by tree path,
+    floating leaves as fp16 (read back by :func:`load_npz_params` here and
+    by the JAX package's ``load_npz_params``)."""
+    flat = {}
+    for k, v in flatten_with_paths(params):
+        a = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+             else np.asarray(v))
+        flat[k] = (a.astype(np.float16) if np.issubdtype(a.dtype, np.floating)
+                   else a)
+    np.savez(path, **flat)
+
+
 def _unstack_blocks(tree: Any) -> Any:
     """Layer-stacked ``blocks`` (a dict of ``[L, ...]`` leaves) → list of
     per-layer dicts; per-layer lists pass through."""
@@ -165,6 +180,24 @@ def params_from_jax(tree: Any, device="cpu") -> Params:
     tree of tensors on ``device`` (stacked blocks become per-layer lists,
     quantized weights the port's types of the same name)."""
     return tree_to(_unstack_blocks(_port_types(tree)), device)
+
+
+def params_to_jax(tree: Any) -> Any:
+    """The inverse of :func:`params_from_jax` for dense trees: the same
+    nested dicts and per-layer ``blocks`` lists, every leaf a numpy array
+    on the host, as the JAX package's functions take them."""
+    def leaf(t):
+        if isinstance(t, (QuantizedWeight, DynQuantizedWeight)):
+            raise TypeError("params_to_jax takes dense trees; quantize on "
+                            "the JAX side instead")
+        return (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                else np.asarray(t))
+
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_namedtuple(tree):
+        return [params_to_jax(v) for v in tree]
+    return leaf(tree)
 
 
 # --------------------------------------------------------------------------

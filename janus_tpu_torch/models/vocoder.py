@@ -94,8 +94,10 @@ def vocoder_spectra(params: Params, cfg: VocoderConfig,
     norm = torch.rsqrt(cos_p ** 2 + sin_p ** 2 + 1e-7)
     # torch.complex takes no bf16 parts: the parts are formed in the
     # activations' dtype and widened, as promotion to complex64 does
-    return torch.complex((mag * cos_p * norm).float(),
-                         (mag * sin_p * norm).float())
+    # (float64 parts stay float64)
+    ct = torch.promote_types(mag.dtype, torch.float32)
+    return torch.complex((mag * cos_p * norm).to(ct),
+                         (mag * sin_p * norm).to(ct))
 
 
 def spectra_to_waveform(cfg: VocoderConfig, spec: torch.Tensor,

@@ -1,7 +1,8 @@
 """Model zoo: the committed demo checkpoints as one bundle.
 
 ``load_demo()`` returns the tone-language demo models (recognizer, TTS,
-vocoder, speaker encoder) and their configuration, ready to plug into
+vocoder, speaker encoder) and their configuration, and ``load_demo_hard()``
+the hard-corpus bundle (256-word recognizer and TTS), ready to plug into
 :class:`~janus_tpu_torch.runtime.codec.SemanticEncoder` and
 :class:`~janus_tpu_torch.runtime.synthesizer.Synthesizer`. The parameter
 trees are float32 tensors on the CPU; the entry points move them.
@@ -21,7 +22,8 @@ from janus_tpu_torch.common.config import (ASRConfig, JanusConfig, TTSConfig,
 from janus_tpu_torch.models.params import load_npz_params
 from janus_tpu_torch.models.speaker import speaker_embed
 
-__all__ = ["ModelBundle", "load_demo", "demo_available", "demo_tts_config",
+__all__ = ["ModelBundle", "load_demo", "demo_available", "load_demo_hard",
+           "hard_available", "demo_tts_config",
            "hard_tts_config", "hard_asr_config", "demo_vocoder_config", "ENROLLMENT_PHRASE",
            "REPO_ROOT"]
 
@@ -104,4 +106,34 @@ def load_demo(ckpt_dir: str = _CKPT_DIR,
         bundle.default_speaker_vec = speaker_embed(
             bundle.speaker_params, torch.from_numpy(ref),
             n_mels=cfg.tts.n_mels).numpy()
+    return bundle
+
+
+def hard_available(ckpt_dir: str = _CKPT_DIR) -> bool:
+    return (os.path.exists(os.path.join(ckpt_dir, "demo_asr_hard.npz"))
+            and os.path.exists(os.path.join(ckpt_dir, "demo_tts_hard.npz")))
+
+
+def load_demo_hard(ckpt_dir: str = _CKPT_DIR,
+                   base: Optional[JanusConfig] = None) -> ModelBundle:
+    """The hard-corpus bundle: the 256-word/16-speaker recognizer and the
+    hard-corpus TTS, sharing the demo vocoder (trained on arbitrary
+    character strings, not corpus words). The speaker encoder is the one
+    of the TTS's width, ``checkpoints/demo_speaker_hard.npz`` (float32),
+    and the default voice synthetic speaker 0's enrollment embedding."""
+    from janus_tpu_torch.train.demo import demo_speaker_vectors
+
+    cfg = base if base is not None else JanusConfig.from_env()
+    cfg = _with_sections(cfg, asr=hard_asr_config(), tts=hard_tts_config(),
+                         vocoder=demo_vocoder_config())
+    bundle = ModelBundle(config=cfg)
+    for field, name in (("asr_params", "demo_asr_hard.npz"),
+                        ("tts_params", "demo_tts_hard.npz"),
+                        ("vocoder_params", "demo_vocoder.npz")):
+        path = os.path.join(ckpt_dir, name)
+        if os.path.exists(path):
+            setattr(bundle, field, load_npz_params(path))
+    spk_params, vecs = demo_speaker_vectors(cfg.tts, ckpt_dir=ckpt_dir)
+    bundle.speaker_params = spk_params
+    bundle.default_speaker_vec = vecs[0]
     return bundle

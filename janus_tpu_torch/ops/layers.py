@@ -57,11 +57,12 @@ def linear(x: torch.Tensor, w,
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    ct = torch.promote_types(x.dtype, torch.float32)  # fp32, or fp64
+    xf = x.to(ct)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return (y * scale.to(ct) + bias.to(ct)).to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``janus_tpu_torch``
-(and ``chip_smoke``) loads neither JAX nor the JAX package, nor pydantic
-or a WebSocket package, which the card's machine need not have."""
+(and ``chip_smoke``) loads neither JAX nor the JAX package (nor optax or
+orbax), nor pydantic or a WebSocket package, which the card's machine need
+not have."""
 
 import json
 import os
@@ -23,6 +24,7 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.split(".")[0] in ("optax", "orbax")
              or m == "janus_tpu" or m.startswith("janus_tpu."))
 third_party = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("pydantic", "pydantic_core",
@@ -49,8 +51,19 @@ def test_port_imports_no_jax_and_no_janus_tpu():
     res = _probe(_PROBE)
     assert res["bad"] == []
     assert res["third_party"] == []  # no pydantic, no websockets
-    assert len(res["modules"]) >= 68
-    for name in ("janus_tpu_torch.runtime.engine",
+    assert len(res["modules"]) >= 81
+    for name in ("janus_tpu_torch.train.synthetic_task",
+                 "janus_tpu_torch.train.losses",
+                 "janus_tpu_torch.train.trainer",
+                 "janus_tpu_torch.train.checkpoint",
+                 "janus_tpu_torch.train.demo",
+                 "janus_tpu_torch.train.retrain_demo",
+                 "janus_tpu_torch.eval.metrics",
+                 "janus_tpu_torch.eval.roundtrip",
+                 "janus_tpu_torch.models.import_whisper",
+                 "janus_tpu_torch.tools.encode_profile",
+                 "janus_tpu_torch.tools.flagship_check",
+                 "janus_tpu_torch.runtime.engine",
                  "janus_tpu_torch.tools.sender_main",
                  "janus_tpu_torch.tools.receiver_main",
                  "janus_tpu_torch.models.vad",
@@ -98,6 +111,30 @@ def test_entry_point_needs_a_card_unless_cpu_asked(monkeypatch, entry):
             "asr.decoder_layers": 1, "asr.num_heads": 4, "asr.n_mels": 16,
             "asr.vocab_size": 261})
         assert cls(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["train_demo_asr", "train_demo_tts",
+                                   "train_demo_vocoder", "evaluate_asr",
+                                   "train_vocoder", "profile_encode"])
+def test_training_and_eval_entry_points_need_a_card(monkeypatch, entry):
+    from janus_tpu_torch.common.config import ASRConfig, JanusConfig
+    from janus_tpu_torch.models.tokenizer import ByteTokenizer
+    from janus_tpu_torch.tools import encode_profile
+    from janus_tpu_torch.train import demo, retrain_demo
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "train_demo_asr": lambda: demo.train_demo_asr(steps=1),
+        "train_demo_tts": lambda: demo.train_demo_tts(steps=1),
+        "train_demo_vocoder": lambda: demo.train_demo_vocoder(steps=1),
+        "evaluate_asr": lambda: demo.evaluate_asr(
+            {}, ASRConfig.demo(), ByteTokenizer()),
+        "train_vocoder": lambda: retrain_demo.train_vocoder(1, 1),
+        "profile_encode": lambda: encode_profile.profile_encode(
+            {}, JanusConfig()),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
 
 
 @pytest.mark.parametrize("loop", ["sender", "receiver"])
