@@ -83,12 +83,29 @@ printing one JSON line per result:
 16. zoo_gates — the seven quality gates of
    ``tests/test_zoo_checkpoints.py`` on the committed checkpoints, on the
    card, at their floors;
-17. the ``kernels`` summary line: each kernel's launches by phase (K1-K3
+17. parallel_flagship — the mesh layouts at full width in a world of one
+   card (a one-rank NCCL group; the ``(1, 1, 1)`` mesh issues no
+   collective): ``SemanticEncoder(mesh=...)`` on phase 4's large-v3
+   weights, 8 phrases of 10 s, packets byte-equal to ``mesh=None``;
+   ``Synthesizer(mesh=...)`` with the flagship TTS over 32 groups, PCM
+   equal to ``mesh=None``; 2 steps of the mesh ``Trainer`` on large-v3
+   fp32, losses within 1e-6 relative of ``train_flagship``'s; and
+   ``eval.scaling.analyze_encode_scaling`` at N = 1 on the card;
+18. parallel_ranks — two ranks on the one card through ``run_ranks``
+   (gloo carrying CUDA tensors), at demo width: Ulysses attention at
+   seq 2, the tensor-parallel encoder at model 2 and ``SemanticEncoder``
+   at data 2, each against its unsharded run on the card. Ring attention
+   and the pipeline are left out: gloo refuses point-to-point sends of
+   CUDA tensors (``GLOO_P2P_REFUSAL``). Then the ranks' forkserver and
+   resource tracker are stopped, and no child process of the script may
+   be left running;
+19. the ``kernels`` summary line: each kernel's launches by phase (K1-K3
    from the flagship encode, the tick loop's overlapped run, the tools,
-   the card's server run, the training phases and the gates; K4 from the
-   int8 flagship encode and ``flagship_check --int8``). The receive side
-   runs no hand-written kernel (the JAX package's has no Pallas kernel
-   either), so its phases add no row there.
+   the card's server run, the training phases, the gates and the two
+   parallel phases; K4 from the int8 flagship encode and
+   ``flagship_check --int8``). The receive side runs no hand-written
+   kernel (the JAX package's has no Pallas kernel either), so its phases
+   add no row there.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -146,6 +163,15 @@ TRAIN_DEMO_LR = 1e-4
 TRAIN_FLAGSHIP_BATCH = 2           # utterances, in the 30 s window
 TRAIN_FLAGSHIP_STEPS = 5
 TRAIN_FLAGSHIP_LR = 1e-4
+PARALLEL_GROUPS = 32               # the flagship TTS budget under a mesh
+PARALLEL_TRAIN_STEPS = 2
+# mesh against mesh=None in turns, three of each (the host's spread
+# between two calls is ~20 %)
+PARALLEL_ORDER = ("none", "mesh", "mesh", "none", "none", "mesh")
+# what gloo answers a point-to-point send of a CUDA tensor (PyTorch 2.11,
+# one H100 host): the ring and the pipeline need NCCL and two cards
+GLOO_P2P_REFUSAL = ("RuntimeError: [/pytorch/third_party/gloo/gloo/transport"
+                    "/tcp/pair.cc:339] writev [127.0.0.1]:36177: Bad address")
 UPLOAD_TYPES = {"wav": "audio/wav", "webm": "audio/webm;codecs=opus",
                 "ogg": "audio/ogg;codecs=opus"}
 
@@ -157,6 +183,22 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def child_processes() -> list:
+    """``[(pid, command line)]`` of this process's children still alive."""
+    pids = []
+    for task in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{task}/children") as f:
+            pids += [int(p) for p in f.read().split()]
+    out = []
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                out.append((pid, f.read().replace(b"\0", b" ").decode()[:120]))
+        except FileNotFoundError:
+            pass
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -1620,12 +1662,12 @@ def train_demo(torch, kernels) -> dict:
     return launches
 
 
-def train_flagship(torch, kernels) -> dict:
-    """Whisper large-v3 at full width in float32, weights from
-    ``init_asr`` on the card: ``TRAIN_FLAGSHIP_STEPS`` steps of
-    ``Trainer.train_step`` on one batch of ``sample_batch`` utterances in
-    the entry point's 30 s window, then one step traced. Returns the
-    launches of the untraced steps."""
+def flagship_training(torch, mesh=None, rules=None):
+    """Whisper large-v3 in float32 (``init_asr`` seed 0 on the card), a
+    ``Trainer`` over it (on ``mesh`` with ``rules`` when given), its state,
+    and one batch of ``sample_batch`` utterances (seed 0) in the entry
+    point's 30 s window. Returns (cfg, trainer, state, batch, texts,
+    params, init_s)."""
     from janus_tpu_torch.common.config import ASRConfig
     from janus_tpu_torch.common.device import resolve_device
     from janus_tpu_torch.models.asr import prepare_mel
@@ -1649,7 +1691,8 @@ def train_flagship(torch, kernels) -> dict:
                                             pad_to_frames=n_frames),
                         tokens, mask)
 
-    trainer = Trainer(loss_fn, learning_rate=TRAIN_FLAGSHIP_LR)
+    trainer = Trainer(loss_fn, learning_rate=TRAIN_FLAGSHIP_LR, mesh=mesh,
+                      rules=rules)
     state = trainer.create_state(params)
     del params
     torch.cuda.synchronize()
@@ -1658,6 +1701,18 @@ def train_flagship(torch, kernels) -> dict:
         np.random.default_rng(0), TRAIN_FLAGSHIP_BATCH, ByteTokenizer(),
         max_tokens=cfg.max_target_positions)
     batch = tuple(torch.from_numpy(a).to(dev) for a in (audio, tokens, mask))
+    return cfg, trainer, state, batch, texts, n_params, init_s
+
+
+def train_flagship(torch, kernels):
+    """Whisper large-v3 at full width in float32, weights from
+    ``init_asr`` on the card: ``TRAIN_FLAGSHIP_STEPS`` steps of
+    ``Trainer.train_step`` on one batch of ``sample_batch`` utterances in
+    the entry point's 30 s window, then one step traced. Returns the
+    launches of the untraced steps and the losses."""
+    cfg, trainer, state, batch, texts, n_params, init_s = flagship_training(
+        torch)
+    n_frames = 2 * cfg.max_source_positions
 
     reset_launches(kernels)
     losses, norms, step_ms = [], [], []
@@ -1695,7 +1750,7 @@ def train_flagship(torch, kernels) -> dict:
           "init_s": init_s, "losses": losses, "grad_norms": norms,
           "step_ms": step_ms, "step_ms_median_2_on": wall_ms,
           "peak_mem_gib": peak_gib, "launches": launches, "trace": trace})
-    return launches
+    return launches, losses
 
 
 def zoo_gates(torch, kernels) -> dict:
@@ -1775,6 +1830,303 @@ def zoo_gates(torch, kernels) -> dict:
           f"zoo_gates: a gate missed its floor: {gates}")
     for name in ("mel_fused", "flash_attn", "yin_block_sums"):
         check(launches[name] > 0, f"zoo_gates never launched {name}")
+    return launches
+
+
+def packet_bytes(result: dict) -> bytes:
+    """The wire bytes of an ``encode_batch`` result at a fixed timestamp."""
+    from janus_tpu_torch.common.protocol import JanusPacket
+
+    return JanusPacket(text=result["text"], prosody=result["prosody"],
+                       timestamp=DEMO_TIMESTAMP).serialize()
+
+
+def world_of_one():
+    """A one-rank NCCL process group on the card (a ``FileStore`` in a
+    fresh directory); the caller destroys it."""
+    import torch.distributed as dist
+
+    store = os.path.join(tempfile.mkdtemp(prefix="janus_world1_"), "store")
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+
+
+def parallel_flagship(torch, kernels, train_losses) -> dict:
+    """The mesh layouts at full width in a world of one card (a one-rank
+    NCCL group, the ``(1, 1, 1)`` mesh: no collective is issued):
+    ``SemanticEncoder(mesh=...)`` on large-v3 bf16 (phase 4's weights from
+    seed 0) against ``mesh=None`` (packets byte-equal), the flagship TTS
+    through ``Synthesizer(mesh=...)`` over ``PARALLEL_GROUPS`` groups
+    against ``mesh=None`` (PCM equal), ``PARALLEL_TRAIN_STEPS`` steps of
+    the mesh ``Trainer`` on large-v3 fp32 against ``train_flagship``'s
+    losses (1e-6 relative), and ``analyze_encode_scaling`` at N = 1 on the
+    card. Returns the launches of the mesh encode and train steps."""
+    import torch.distributed as dist
+
+    from janus_tpu_torch.audio.synthetic import voiced_phrase
+    from janus_tpu_torch.common.config import (ASRConfig, JanusConfig,
+                                               MeshConfig, TTSConfig)
+    from janus_tpu_torch.common.device import resolve_device
+    from janus_tpu_torch.common.protocol import JanusPacket
+    from janus_tpu_torch.eval.scaling import analyze_encode_scaling
+    from janus_tpu_torch.models import tts as tts_mod
+    from janus_tpu_torch.models import vocoder as voc_mod
+    from janus_tpu_torch.models.params import cast_floating
+    from janus_tpu_torch.models.tokenizer import ByteTokenizer
+    from janus_tpu_torch.parallel.mesh import build_mesh
+    from janus_tpu_torch.parallel.sharding import ASR_PARTITION_RULES
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
+
+    t_phase = time.perf_counter()
+    dev = resolve_device("cuda")
+    world_of_one()
+    out = {"phase": "parallel_flagship", "world": dist.get_world_size(),
+           "backend": dist.get_backend()}
+    try:
+        mesh = build_mesh(MeshConfig())
+        out["mesh"] = str(mesh)
+
+        # the encoder: mesh against mesh=None, timed in turns
+        fcfg = dataclasses.replace(JanusConfig(), asr=ASRConfig.large_v3())
+        fcfg = fcfg.override(**{"asr.max_decode_tokens": 24})
+        bucket = int(SR * FLAGSHIP_SECONDS)
+        phrases = [voiced_phrase(f0=140.0 + 15 * i, seconds=FLAGSHIP_SECONDS,
+                                 amp=0.12, seed=i)
+                   for i in range(FLAGSHIP_BATCH)]
+        encoders = {"none": SemanticEncoder(fcfg, buckets=(bucket,),
+                                            device="cuda"),
+                    "mesh": SemanticEncoder(fcfg, buckets=(bucket,),
+                                            device="cuda", mesh=mesh)}
+        results, encode_ms = {}, {}
+        for name, enc in encoders.items():
+            enc.encode_batch(phrases)  # warm-up
+        for name in PARALLEL_ORDER:
+            if name == "mesh":
+                reset_launches(kernels)
+            results[name], ms = synced_ms(
+                torch, lambda: encoders[name].encode_batch(phrases))
+            encode_ms.setdefault(name, []).append(ms)
+            if name == "mesh":
+                launches = read_launches(kernels)
+        del encoders
+        torch.cuda.empty_cache()
+        check([packet_bytes(r) for r in results["mesh"]]
+              == [packet_bytes(r) for r in results["none"]],
+              f"parallel_flagship: mesh packets differ from mesh=None: "
+              f"{results['mesh']} vs {results['none']}")
+        check(launches["mel_fused"] >= 1 and launches["yin_block_sums"] >= 1
+              and launches["flash_attn"] == fcfg.asr.encoder_layers,
+              f"parallel_flagship encode launches {launches}")
+        out["encode"] = {"batch": FLAGSHIP_BATCH, "seconds": FLAGSHIP_SECONDS,
+                         "ms": encode_ms, "packets_byte_equal": True,
+                         "launches": dict(launches),
+                         "texts": [r["text"] for r in results["mesh"]][:2]}
+
+        # the synthesizer: the flagship TTS over a cut budget
+        tok = ByteTokenizer()
+        tcfg = dataclasses.replace(
+            TTSConfig.flagship(),
+            max_mel_frames=PARALLEL_GROUPS * TTSConfig.flagship().reduction)
+        scfg = dataclasses.replace(JanusConfig(), tts=tcfg)
+        tts_params = cast_floating(tts_mod.init_tts(
+            torch.Generator(device=dev).manual_seed(0), tcfg,
+            text_vocab=tok.vocab_size), torch.bfloat16)
+        # a stop logit pinned low: the whole budget is generated
+        tts_params["stop_head"]["b"].fill_(-5.0)
+        voc_params = cast_floating(voc_mod.init_vocoder(
+            torch.Generator(device=dev).manual_seed(1), scfg.vocoder,
+            n_mels=tcfg.n_mels), torch.bfloat16)
+        synths = {name: Synthesizer(scfg, tts_params=tts_params,
+                                    vocoder_params=voc_params, device="cuda",
+                                    mesh=mesh if name == "mesh" else None)
+                  for name in ("none", "mesh")}
+        pkt = JanusPacket(text="the mesh layout at full width",
+                          prosody={"pitch": "High", "energy": "Loud"},
+                          timestamp=DEMO_TIMESTAMP)
+        pcm, synth_ms = {}, {}
+        for name in ("none", "mesh"):
+            synths[name].synthesize(pkt)  # warm-up
+        for name in PARALLEL_ORDER:
+            pcm[name], ms = synced_ms(torch,
+                                      lambda: synths[name].synthesize(pkt))
+            synth_ms.setdefault(name, []).append(ms)
+        del synths, tts_params, voc_params
+        torch.cuda.empty_cache()
+        check(len(pcm["mesh"]) > 0 and pcm["mesh"] == pcm["none"],
+              f"parallel_flagship: mesh PCM ({len(pcm['mesh'])} bytes) "
+              f"differs from mesh=None ({len(pcm['none'])} bytes)")
+        out["synthesize"] = {"groups": PARALLEL_GROUPS, "ms": synth_ms,
+                             "pcm_bytes": len(pcm["mesh"]),
+                             "pcm_equal": True}
+
+        # the trainer: the mesh steps against train_flagship's losses
+        cfg, trainer, state, batch, _, n_params, init_s = flagship_training(
+            torch, mesh=mesh, rules=ASR_PARTITION_RULES)
+        reset_launches(kernels)
+        losses, step_ms = [], []
+        for _ in range(PARALLEL_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, *batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+        train_launches = read_launches(kernels)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, trainer
+        torch.cuda.empty_cache()
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
+        check(max(rel) <= 1e-6, f"parallel_flagship: mesh losses {losses} vs "
+              f"train_flagship's {train_losses[:len(losses)]}")
+        out["train"] = {"params": n_params, "batch": TRAIN_FLAGSHIP_BATCH,
+                        "losses": losses,
+                        "train_flagship_losses": train_losses[:len(losses)],
+                        "max_rel_diff": max(rel), "step_ms": step_ms,
+                        "init_s": init_s, "peak_mem_gib": peak_gib,
+                        "launches": dict(train_launches)}
+        check(train_launches["flash_attn"]
+              == PARALLEL_TRAIN_STEPS * cfg.encoder_layers,
+              f"parallel_flagship train launches {train_launches}")
+        for k, n in train_launches.items():
+            launches[k] += n
+    finally:
+        dist.destroy_process_group()
+
+    # the scaling rows at N = 1 on the card (a rank process of its own)
+    rows = analyze_encode_scaling(device_counts=(1,), device="cuda")
+    # the kernels' least work is in the row: the encoder's attention
+    # (flash_attn) and the frontend (mel_fused, yin_block_sums)
+    check(len(rows) == 1 and rows[0]["collective_bytes"] == {}
+          and rows[0]["per_device_flops"] > 0
+          and all(rows[0]["kernel_work"].get(k, {}).get("flops", 0) > 0
+                  for k in ("mel_fused", "flash_attn", "yin_block_sums")),
+          f"parallel_flagship scaling rows {rows}")
+    out["scaling"] = rows
+    out["seconds"] = time.perf_counter() - t_phase
+    out["nvidia_smi"] = nvidia_smi_line()
+    out["launches"] = launches
+    emit(out)
+    return launches
+
+
+def parallel_ranks_body() -> dict:
+    """One of two ranks on one card (gloo, CUDA tensors), at demo width:
+    Ulysses attention at seq 2, the tensor-parallel ASR encoder at model 2
+    on the demo weights, and ``SemanticEncoder`` at data 2 on the demo
+    bundle, each against its unsharded run on the card. Ring attention
+    and the pipeline are left out: gloo refuses point-to-point sends of
+    CUDA tensors (``PERF.md`` §7)."""
+    import torch
+    import torch.distributed as dist
+
+    from janus_tpu_torch.audio.synthetic import render_text
+    from janus_tpu_torch.common.config import ASRConfig, JanusConfig, MeshConfig
+    from janus_tpu_torch.common.device import resolve_device
+    from janus_tpu_torch.models import asr as asr_mod
+    from janus_tpu_torch.models.params import load_npz_params, tree_to
+    from janus_tpu_torch.ops import cuda_build
+    from janus_tpu_torch.ops.attention import attend
+    from janus_tpu_torch.parallel import collectives as C
+    from janus_tpu_torch.parallel.mesh import build_mesh
+    from janus_tpu_torch.parallel.sharding import (ASR_PARTITION_RULES,
+                                                   shard_params)
+    from janus_tpu_torch.parallel.ulysses import ulysses_attention
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+
+    dev = resolve_device("cuda")
+    kernels = list(cuda_build.KERNELS.values())
+    rank = dist.get_rank()
+    cfg = dataclasses.replace(JanusConfig(), asr=ASRConfig.demo())
+    acfg = cfg.asr
+    params = load_npz_params(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "checkpoints",
+        "demo_asr.npz"))
+    gen = torch.Generator(device=dev).manual_seed(99)
+    out = {"rank": rank, "cases": {}}
+
+    # Ulysses at seq 2: the demo encoder's attention shape
+    mesh = build_mesh(MeshConfig(data=1, model=1, seq=2))
+    head_dim = acfg.d_model // acfg.num_heads
+    q, k, v = (torch.randn((2, acfg.num_heads, 100, head_dim),
+                           generator=gen, device=dev) for _ in range(3))
+    ref = attend(q, k, v)
+    i = C.axis_index(mesh, "seq")
+    with C.counting() as coll:
+        got = C.all_gather(ulysses_attention(
+            *(a[:, :, 50 * i:50 * (i + 1)] for a in (q, k, v)), mesh),
+            mesh, "seq", dim=2)
+    torch.cuda.synchronize()
+    out["cases"]["ulysses_seq2"] = {
+        "max_abs_err": float((got - ref).abs().max()), "atol": 2e-5,
+        "collective_bytes": dict(coll)}
+
+    # the tensor-parallel encoder at model 2 on the demo weights
+    mesh = build_mesh(MeshConfig(data=1, model=2, seq=1))
+    mel = torch.randn((2, 200, acfg.n_mels), generator=gen, device=dev)
+    dense = tree_to(params, dev)
+    ref = asr_mod.encode_audio(dense, acfg, mel)
+    local = tree_to(shard_params(params, mesh, ASR_PARTITION_RULES), dev)
+    reset_launches(kernels)
+    with C.use_mesh(mesh), C.counting() as coll:
+        got = asr_mod.encode_audio(local, acfg, mel)
+    torch.cuda.synchronize()
+    out["cases"]["tp_encoder_model2"] = {
+        "max_abs_err": float((got - ref).abs().max()), "atol": 2e-4,
+        "collective_bytes": dict(coll), "launches": read_launches(kernels)}
+
+    # SemanticEncoder at data 2 on the demo bundle: packets byte-equal
+    phrases = [render_text(t, SR, seed=s) for s, t in enumerate(DEMO_TEXTS)]
+    plain = SemanticEncoder(cfg, params, buckets=(96_000,), device="cuda")
+    sharded = SemanticEncoder(cfg, params, buckets=(96_000,), device="cuda",
+                              mesh=build_mesh(MeshConfig(data=2)))
+    reset_launches(kernels)
+    with C.counting() as coll:
+        res = sharded.encode_batch(phrases)
+    launches = read_launches(kernels)
+    ref = plain.encode_batch(phrases)
+
+    out["cases"]["encoder_data2"] = {
+        "packets_byte_equal": ([packet_bytes(r) for r in res]
+                               == [packet_bytes(r) for r in ref]),
+        "texts": [r["text"] for r in res], "collective_bytes": dict(coll),
+        "launches": launches}
+    return out
+
+
+def parallel_ranks(torch) -> dict:
+    """Two ranks on the one card through ``run_ranks``, which puts more
+    ranks than cards on gloo (carrying CUDA tensors here):
+    :func:`parallel_ranks_body` on each. Returns the kernels' launches
+    summed over the ranks."""
+    import chip_smoke  # the rank function by its module's name
+
+    from janus_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(chip_smoke.parallel_ranks_body, 2, device="cuda",
+                      timeout=600)
+    launches = {}
+    for r in ranks:
+        for case, row in r["cases"].items():
+            if "max_abs_err" in row:
+                check(row["max_abs_err"] <= row["atol"],
+                      f"parallel_ranks {case} rank {r['rank']}: {row}")
+            if case == "encoder_data2":
+                check(row["packets_byte_equal"],
+                      f"parallel_ranks encoder_data2 rank {r['rank']}: {row}")
+            for k, n in row.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + n
+    for r in ranks:
+        enc = r["cases"]["encoder_data2"]["launches"]
+        check(enc["mel_fused"] >= 1 and enc["yin_block_sums"] >= 1
+              and enc["flash_attn"] >= 1,
+              f"parallel_ranks: rank {r['rank']}'s encode launches {enc}")
+    emit({"phase": "parallel_ranks", "ranks": ranks, "backend": "gloo",
+          "left_out": {"ring_attention_seq2": GLOO_P2P_REFUSAL,
+                       "pipeline_stage2": GLOO_P2P_REFUSAL},
+          "seconds": time.perf_counter() - t0, "launches": launches,
+          "nvidia_smi": nvidia_smi_line()})
     return launches
 
 
@@ -2607,13 +2959,28 @@ def main() -> None:
 
     # -- 14-16. training and the evaluation gates ---------------------------
     by_phase["train_demo"] = train_demo(torch, all_kernels)
-    by_phase["train_flagship"] = train_flagship(torch, all_kernels)
+    by_phase["train_flagship"], train_losses = train_flagship(
+        torch, all_kernels)
     by_phase["zoo_gates"] = zoo_gates(torch, all_kernels)
 
-    # -- 17. kernels summary -----------------------------------------------
+    # -- 17-18. the parallel layouts ---------------------------------------
+    by_phase["parallel_flagship"] = parallel_flagship(torch, all_kernels,
+                                                      train_losses)
+    by_phase["parallel_ranks"] = parallel_ranks(torch)
+
+    # every process this script started has ended: the kernel builds, the
+    # ranks, and the forkserver and resource tracker behind them
+    from janus_tpu_torch.parallel.launch import stop_rank_server
+
+    stop_rank_server()
+    check(not child_processes(),
+          f"processes left running: {child_processes()}")
+
+    # -- 19. kernels summary -----------------------------------------------
     # launches: K1-K3 from the flagship run, the tick loop's overlapped run,
-    # the two tools, the card's server run, the training phases and the
-    # gates; K4 from the int8 flagship run and flagship_check --int8
+    # the two tools, the card's server run, the training phases, the gates
+    # and the parallel phases; K4 from the int8 flagship run and
+    # flagship_check --int8
     line = []
     for k in all_kernels:
         row = summary[k.name]

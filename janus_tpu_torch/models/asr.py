@@ -6,6 +6,13 @@ package's layouts). Layer loops are Python loops; the encoder's self-
 attention goes through the fused attention kernel (:mod:`..ops.flash`);
 with ``cross_kv_int8`` the decoder's cross-attention runs over int8 K/V
 through the K4 kernel (:mod:`..ops.cross_attn`).
+
+Under a mesh (:func:`~..parallel.collectives.use_mesh`) the parameters
+are this rank's shards by ``ASR_PARTITION_RULES`` and every attention and
+MLP is tensor-parallel over ``model``: H / tp local heads, column-parallel
+q/k/v and ``fc1``, row-parallel ``out`` and ``fc2`` (one all-reduce per
+sublayer), in the encoder and in the decoder's self- and cross-attention.
+``encode_audio(..., sp_mesh=)`` runs the encoder sequence-parallel.
 """
 
 from __future__ import annotations
@@ -20,9 +27,14 @@ from janus_tpu_torch.ops.attention import KVCache, attend, merge_heads, split_he
 from janus_tpu_torch.ops.cross_attn import cross_attention_kv
 from janus_tpu_torch.ops.flash import flash_attention
 from janus_tpu_torch.ops.layers import (conv1d, embedding_lookup, gelu,
-                                        layer_norm, linear, sinusoid_positions)
+                                        layer_norm, linear, row_linear,
+                                        sinusoid_positions)
 from janus_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
 from janus_tpu_torch.ops.quant import quantize_kv_t
+from janus_tpu_torch.parallel.collectives import (all_gather, axis_index,
+                                                  axis_size, enter_model,
+                                                  local_heads)
+from janus_tpu_torch.parallel.ring_attention import ring_attention
 
 __all__ = [
     "encode_audio",
@@ -42,37 +54,67 @@ Params = Dict
 # encoder
 # --------------------------------------------------------------------------
 
-def _attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    q = split_heads(linear(x, p["q"]["w"], p["q"]["b"]), num_heads)
-    k = split_heads(linear(x, p["k"]["w"], p["k"].get("b")), num_heads)
-    v = split_heads(linear(x, p["v"]["w"], p["v"]["b"]), num_heads)
+def _attention(p: Params, x: torch.Tensor, num_heads: int,
+               sp_mesh=None) -> torch.Tensor:
+    x = enter_model(x)
+    heads = local_heads(num_heads, p["q"]["w"])
+    q = split_heads(linear(x, p["q"]["w"], p["q"]["b"]), heads)
+    k = split_heads(linear(x, p["k"]["w"], p["k"].get("b")), heads)
+    v = split_heads(linear(x, p["v"]["w"], p["v"]["b"]), heads)
     # No mask: frames past a phrase's end (zero audio padded to the bucket)
     # are attended like real frames, exactly as the JAX encoder does —
     # results match it, and a phrase's text may depend on its bucket.
-    return linear(merge_heads(flash_attention(q, k, v)),
-                  p["out"]["w"], p["out"]["b"])
+    if sp_mesh is not None:
+        # frames split over "seq": exact attention by the K/V ring
+        o = ring_attention(q, k, v, sp_mesh, axis_name="seq")
+    else:
+        o = flash_attention(q, k, v)
+    return row_linear(merge_heads(o), p["out"]["w"], p["out"]["b"])
 
 
 def _mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return linear(gelu(linear(x, p["fc1"]["w"], p["fc1"]["b"])),
-                  p["fc2"]["w"], p["fc2"]["b"])
+    x = enter_model(x)
+    return row_linear(gelu(linear(x, p["fc1"]["w"], p["fc1"]["b"])),
+                      p["fc2"]["w"], p["fc2"]["b"])
 
 
-def encode_audio(params: Params, cfg: ASRConfig,
-                 mel: torch.Tensor) -> torch.Tensor:
-    """``mel[..., T, n_mels] -> enc[..., T//2, d_model]`` (T even)."""
+def encode_audio(params: Params, cfg: ASRConfig, mel: torch.Tensor,
+                 sp_mesh=None) -> torch.Tensor:
+    """``mel[..., T, n_mels] -> enc[..., T//2, d_model]`` (T even).
+
+    With ``sp_mesh`` (a mesh with a ``seq`` dimension) the encoder runs
+    sequence-parallel: the conv stem runs replicated on the whole mel (as
+    the JAX package's GSPMD program shards only after it), each rank keeps
+    its stretch of the T/2 encoder frames with sinusoid positions at the
+    stretch's global offset, self-attention is exact through
+    :func:`~..parallel.ring_attention.ring_attention`, and the output is
+    all-gathered over ``seq``, so every rank returns it whole. T/2 must
+    divide by the ``seq`` size."""
     enc = params["encoder"]
+    if sp_mesh is not None:
+        n = axis_size(sp_mesh, "seq")
+        t = mel.shape[-2] // 2
+        if mel.shape[-2] % 2 or t % n:
+            raise ValueError(f"{mel.shape[-2]} mel frames: the {t} encoder "
+                             f"frames do not split over |seq|={n}")
     x = gelu(conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], stride=1,
                     padding=1))
     x = gelu(conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], stride=2,
                     padding=1))
-    x = x + sinusoid_positions(x.shape[-2], cfg.d_model,
-                               device=x.device).to(x.dtype)
+    pos = sinusoid_positions(x.shape[-2], cfg.d_model, device=x.device)
+    if sp_mesh is not None:
+        me = axis_index(sp_mesh, "seq")
+        lo, hi = me * t // n, (me + 1) * t // n
+        x, pos = x[..., lo:hi, :], pos[lo:hi]
+    x = x + pos.to(x.dtype)
     for blk in enc["blocks"]:
         x = x + _attention(blk["attn"], layer_norm(x, **blk["attn_ln"]),
-                           cfg.num_heads)
+                           cfg.num_heads, sp_mesh=sp_mesh)
         x = x + _mlp(blk["mlp"], layer_norm(x, **blk["mlp_ln"]))
-    return layer_norm(x, **enc["ln_post"])
+    x = layer_norm(x, **enc["ln_post"])
+    if sp_mesh is not None:
+        x = all_gather(x, sp_mesh, "seq", dim=-2)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -105,16 +147,18 @@ def init_decode_state(params: Params, cfg: ASRConfig, enc: torch.Tensor,
     batch_shape = tuple(enc.shape[:-2])
     if max_len is None:
         max_len = cfg.max_target_positions
+    blocks = params["decoder"]["blocks"]
+    heads = local_heads(cfg.num_heads, blocks[0]["cross"]["k"]["w"])
     head_dim = cfg.d_model // cfg.num_heads
+    enc = enter_model(enc)
     caches, ks, vs = [], [], []
-    for blk in params["decoder"]["blocks"]:
-        caches.append(KVCache.create(batch_shape, cfg.num_heads, max_len,
+    for blk in blocks:
+        caches.append(KVCache.create(batch_shape, heads, max_len,
                                      head_dim, dtype=dtype, device=enc.device))
         p = blk["cross"]
         ks.append(split_heads(linear(enc, p["k"]["w"], p["k"].get("b")),
-                              cfg.num_heads))
-        vs.append(split_heads(linear(enc, p["v"]["w"], p["v"]["b"]),
-                              cfg.num_heads))
+                              heads))
+        vs.append(split_heads(linear(enc, p["v"]["w"], p["v"]["b"]), heads))
     if cross_kv_int8:
         ks = [quantize_kv_t(k) for k in ks]
         vs = [quantize_kv_t(v) for v in vs]
@@ -124,15 +168,16 @@ def init_decode_state(params: Params, cfg: ASRConfig, enc: torch.Tensor,
 def _self_qkv(blk: Params, cfg: ASRConfig, x: torch.Tensor):
     """Pre-norm + self-attention projections (fused ``qkv`` when the tree
     was prepared by :func:`..params.prepare_decode_params`)."""
-    h = layer_norm(x, **blk["attn_ln"])
+    h = enter_model(layer_norm(x, **blk["attn_ln"]))
     p = blk["attn"]
     if "qkv" in p:
+        heads = local_heads(cfg.num_heads, p["qkv"]["w"], parts=3)
         qkv = linear(h, p["qkv"]["w"], p["qkv"]["b"]).chunk(3, dim=-1)
-        return tuple(split_heads(t, cfg.num_heads) for t in qkv)
-    return (split_heads(linear(h, p["q"]["w"], p["q"]["b"]), cfg.num_heads),
-            split_heads(linear(h, p["k"]["w"], p["k"].get("b")),
-                        cfg.num_heads),
-            split_heads(linear(h, p["v"]["w"], p["v"]["b"]), cfg.num_heads))
+        return tuple(split_heads(t, heads) for t in qkv)
+    heads = local_heads(cfg.num_heads, p["q"]["w"])
+    return (split_heads(linear(h, p["q"]["w"], p["q"]["b"]), heads),
+            split_heads(linear(h, p["k"]["w"], p["k"].get("b")), heads),
+            split_heads(linear(h, p["v"]["w"], p["v"]["b"]), heads))
 
 
 def _decoder_layer(blk: Params, cfg: ASRConfig, x: torch.Tensor,
@@ -144,13 +189,14 @@ def _decoder_layer(blk: Params, cfg: ASRConfig, x: torch.Tensor,
     cache.append_lockstep(k, v)
     mask = cache.valid_mask(t_new)
     p = blk["attn"]
-    x = x + linear(merge_heads(attend(q, cache.k, cache.v, mask)),
-                   p["out"]["w"], p["out"]["b"])
-    h = layer_norm(x, **blk["cross_ln"])
+    x = x + row_linear(merge_heads(attend(q, cache.k, cache.v, mask)),
+                       p["out"]["w"], p["out"]["b"])
+    h = enter_model(layer_norm(x, **blk["cross_ln"]))
     pc = blk["cross"]
-    qc = split_heads(linear(h, pc["q"]["w"], pc["q"]["b"]), cfg.num_heads)
-    x = x + linear(merge_heads(cross_attention_kv(qc, cross_k, cross_v)),
-                   pc["out"]["w"], pc["out"]["b"])
+    qc = split_heads(linear(h, pc["q"]["w"], pc["q"]["b"]),
+                     local_heads(cfg.num_heads, pc["q"]["w"]))
+    x = x + row_linear(merge_heads(cross_attention_kv(qc, cross_k, cross_v)),
+                       pc["out"]["w"], pc["out"]["b"])
     return x + _mlp(blk["mlp"], layer_norm(x, **blk["mlp_ln"]))
 
 

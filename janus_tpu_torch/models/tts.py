@@ -18,7 +18,10 @@ cloud TTS call (reference: backend/services/synthesizer.py:177-207):
 Generation is KV-cached: the prompt is prefilled in one pass, then each
 step appends exactly one position. Parameters are a tree of tensors with
 per-layer ``blocks`` (see :mod:`janus_tpu_torch.models.params`); caches
-are written in place.
+are written in place. Under a mesh
+(:func:`~janus_tpu_torch.parallel.collectives.use_mesh`) the blocks are
+tensor-parallel over ``model`` by ``TTS_PARTITION_RULES``: local heads,
+column-parallel q/k/v and ``fc1``, row-parallel ``out`` and ``fc2``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from janus_tpu_torch.models.params import (_init_attn, _init_ln, _init_mlp,
 from janus_tpu_torch.ops.attention import (KVCache, attend, merge_heads,
                                            split_heads)
 from janus_tpu_torch.ops.layers import (embedding_lookup, gelu, layer_norm,
-                                        linear)
+                                        linear, row_linear)
+from janus_tpu_torch.parallel.collectives import enter_model, local_heads
 
 __all__ = [
     "EMOTIONS",
@@ -136,19 +140,21 @@ def _block(blk: Params, x: torch.Tensor, num_heads: int, cache: KVCache,
     place. ``mask`` is the causal mask of an earlier layer of this pass
     (every layer's cache has the same capacity and fill) or None; the
     mask used is returned beside the output."""
-    h = layer_norm(x, **blk["attn_ln"])
+    h = enter_model(layer_norm(x, **blk["attn_ln"]))
     p = blk["attn"]
-    q = split_heads(linear(h, p["q"]["w"], p["q"]["b"]), num_heads)
-    k = split_heads(linear(h, p["k"]["w"], p["k"].get("b")), num_heads)
-    v = split_heads(linear(h, p["v"]["w"], p["v"]["b"]), num_heads)
+    heads = local_heads(num_heads, p["q"]["w"])
+    q = split_heads(linear(h, p["q"]["w"], p["q"]["b"]), heads)
+    k = split_heads(linear(h, p["k"]["w"], p["k"].get("b")), heads)
+    v = split_heads(linear(h, p["v"]["w"], p["v"]["b"]), heads)
     cache.append_lockstep(k, v)
     if mask is None:
         mask = cache.valid_mask(x.shape[-2])
-    x = x + linear(merge_heads(attend(q, cache.k, cache.v, mask)),
-                   p["out"]["w"], p["out"]["b"])
-    h = layer_norm(x, **blk["mlp_ln"])
-    h = linear(gelu(linear(h, blk["mlp"]["fc1"]["w"], blk["mlp"]["fc1"]["b"])),
-               blk["mlp"]["fc2"]["w"], blk["mlp"]["fc2"]["b"])
+    x = x + row_linear(merge_heads(attend(q, cache.k, cache.v, mask)),
+                       p["out"]["w"], p["out"]["b"])
+    h = enter_model(layer_norm(x, **blk["mlp_ln"]))
+    h = row_linear(gelu(linear(h, blk["mlp"]["fc1"]["w"],
+                               blk["mlp"]["fc1"]["b"])),
+                   blk["mlp"]["fc2"]["w"], blk["mlp"]["fc2"]["b"])
     return x + h, mask
 
 
@@ -162,12 +168,13 @@ class TTSState(NamedTuple):
         return self.caches[0].length
 
 
-def _make_state(cfg: TTSConfig, batch: int, cache_len: int,
+def _make_state(params: Params, cfg: TTSConfig, batch: int, cache_len: int,
                 dtype=torch.float32, device="cpu") -> TTSState:
     head_dim = cfg.d_model // cfg.num_heads
+    heads = local_heads(cfg.num_heads, params["blocks"][0]["attn"]["q"]["w"])
     return TTSState(tuple(
-        KVCache.create((batch,), cfg.num_heads, cache_len, head_dim,
-                       dtype=dtype, device=device)
+        KVCache.create((batch,), heads, cache_len,
+                       head_dim, dtype=dtype, device=device)
         for _ in range(cfg.layers)))
 
 
@@ -278,7 +285,7 @@ def tts_forward(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
     # prompt at 0..P-1; audio groups at the fixed base (audio_pos_base)
     pos = torch.cat([_pos_rows(params, 0, p),
                      _pos_rows(params, audio_pos_base(cfg), total - p)])
-    state = _make_state(cfg, b, total, device=x.device)
+    state = _make_state(params, cfg, b, total, device=x.device)
     mel, stop, _ = _forward_embedded(params, cfg, x, pos, state)
     # outputs at positions [p-1, total): predictions for each mel group
     return mel[:, p - 1:, :], stop[:, p - 1:]
@@ -300,7 +307,7 @@ def tts_prefill(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
     b = text_ids.shape[0]
     prompt = _prompt_embedding(params, cfg, text_ids, emotion, speaker,
                                text_vocab)
-    state = _make_state(cfg, b, prompt.shape[1] + max_groups,
+    state = _make_state(params, cfg, b, prompt.shape[1] + max_groups,
                         dtype=getattr(torch, cfg.dtype), device=prompt.device)
     mel0, stop0, state = _forward_embedded(
         params, cfg, prompt, _pos_rows(params, 0, prompt.shape[1]), state)

@@ -7,6 +7,13 @@ waveform is reconstructed with one windowed overlap-add inverse STFT.
 Everything is parallel over frames: a handful of matmuls and one batched
 inverse real FFT (the reference outsourced waveform generation to a cloud
 service; reference: backend/services/synthesizer.py:191-207).
+
+Under a mesh (:func:`~janus_tpu_torch.parallel.collectives.use_mesh`) each
+block's pointwise MLP is tensor-parallel over ``model`` by
+``VOCODER_PARTITION_RULES`` (column-parallel ``pw1``, row-parallel
+``pw2``). The heads' rules match no top-level path, in the JAX package as
+here, so ``mag_head`` and ``phase_head`` stay whole on every rank and the
+iSTFT needs no gather.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ import torch.nn.functional as F
 
 from janus_tpu_torch.common.config import VocoderConfig
 from janus_tpu_torch.models.params import _init_ln, _normal, _zeros
-from janus_tpu_torch.ops.layers import gelu, layer_norm, linear
+from janus_tpu_torch.ops.layers import gelu, layer_norm, linear, row_linear
+from janus_tpu_torch.parallel.collectives import column_width, enter_model
 from janus_tpu_torch.ops.stft import hann_window, istft
 
 __all__ = ["init_vocoder", "vocoder_waveform", "vocoder_spectra",
@@ -27,7 +35,11 @@ __all__ = ["init_vocoder", "vocoder_waveform", "vocoder_spectra",
 Params = Dict
 
 
-def _init_block(g: torch.Generator, d: int, k: int = 7, mlp: int = 3) -> Params:
+_MLP = 3  # the backbone's pointwise width, in multiples of d_model
+
+
+def _init_block(g: torch.Generator, d: int, k: int = 7,
+                mlp: int = _MLP) -> Params:
     return {
         "dwconv": {"w": _normal(g, (k, d), scale=0.1), "b": _zeros(g, d)},
         "ln": _init_ln(g, d),
@@ -80,9 +92,10 @@ def vocoder_spectra(params: Params, cfg: VocoderConfig,
     x = linear(mel, params["embed"]["w"], params["embed"]["b"])
     for blk in params["blocks"]:
         h = _depthwise_conv(x, blk["dwconv"]["w"], blk["dwconv"]["b"])
-        h = layer_norm(h, **blk["ln"])
-        h = linear(gelu(linear(h, blk["pw1"]["w"], blk["pw1"]["b"])),
-                   blk["pw2"]["w"], blk["pw2"]["b"])
+        h = enter_model(layer_norm(h, **blk["ln"]))
+        column_width(blk["pw1"]["w"], _MLP * x.shape[-1])
+        h = row_linear(gelu(linear(h, blk["pw1"]["w"], blk["pw1"]["b"])),
+                       blk["pw2"]["w"], blk["pw2"]["b"])
         x = x + blk["gamma"] * h
     x = layer_norm(x, **params["ln_out"])
 

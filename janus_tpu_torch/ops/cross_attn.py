@@ -149,7 +149,11 @@ def cross_attention_int8(q: torch.Tensor, k: QuantKVT,
     k_ptr, v_ptr = kq.data_ptr(), vq.data_ptr()
     out = torch.empty_like(q)
     fn = cuda_build.entry(KERNEL, "cross_attn_int8", _ARGTYPES)
-    KERNEL.launches += 1
+    # QK^T and PV (4 T Dh a query row) plus the score scaling, max, exp,
+    # sum and V-scale fold (~6 a score)
+    KERNEL.launched(q.numel() // dh * (4.0 * t * dh + 6.0 * t),
+                    2 * q.numel() * q.element_size() + kq.numel() + vq.numel()
+                    + 4 * (ks.numel() + vs.numel()))
     code = fn(q.data_ptr(), k_ptr, ks.data_ptr(), v_ptr, vs.data_ptr(),
               out.data_ptr(), q.numel() // (tq * dh), tq, t, dh, dtype,
               dh ** -0.5, k_row, v_row, plan_splits(t),

@@ -35,12 +35,16 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class Kernel:
     """One hand-written kernel: its source, its loaded library, and the
     count of launches its wrapper made (a plain integer; a caller resets
-    it to 0 before a run and reads it after)."""
+    it to 0 before a run and reads it after), with the least work those
+    launches needed: ``flops`` (the operations of the function computed)
+    and ``bytes`` (each input read once, each output written once)."""
 
     def __init__(self, name: str, replaces: str):
         self.name = name
         self.replaces = replaces
         self.launches = 0
+        self.flops = 0.0
+        self.bytes = 0.0
         self._lib: Optional[ctypes.CDLL] = None
         self._entries: Dict[str, Callable] = {}
 
@@ -51,6 +55,12 @@ class Kernel:
     @property
     def library_path(self) -> Path:
         return BUILD_DIR / f"lib{self.name}.so"
+
+    def launched(self, flops: float, nbytes: float) -> None:
+        """Count one launch of the kernel and the work it was given."""
+        self.launches += 1
+        self.flops += flops
+        self.bytes += nbytes
 
     def stale(self) -> bool:
         so = self.library_path

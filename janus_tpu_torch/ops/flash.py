@@ -109,14 +109,17 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    # QK^T and PV; causal: the lower triangle with its diagonal
+    flops = 4.0 * bh * dh * (tq * (tq + 1) / 2 if causal else tq * tk)
+    nbytes = 2 * (tq + tk) * bh * dh * q.element_size()
     if route == "wgmma":
         fn = cuda_build.entry(KERNEL, "flash_attn_fwd_wgmma", _WGMMA_ARGTYPES)
-        KERNEL.launches += 1
+        KERNEL.launched(flops, nbytes)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   bh, tq, tk, dh, int(causal), stream)
     else:
         fn = cuda_build.entry(KERNEL, "flash_attn_fwd", _SIMT_ARGTYPES)
-        KERNEL.launches += 1
+        KERNEL.launched(flops, nbytes)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   bh, tq, tk, dh, _DTYPES[q.dtype], int(causal), stream)
     cuda_build.check_launch(KERNEL, code)

@@ -11,9 +11,11 @@ import torch.nn.functional as F
 
 from janus_tpu_torch.ops.quant import (DynQuantizedWeight, QuantizedWeight,
                                        dequant, linear_int8_dynamic)
+from janus_tpu_torch.parallel.collectives import exit_model, model_size
 
 __all__ = [
     "linear",
+    "row_linear",
     "layer_norm",
     "gelu",
     "conv1d",
@@ -53,6 +55,20 @@ def linear(x: torch.Tensor, w,
     # cast to the compute dtype, so ``b.to(x.dtype)`` loses nothing.
     y = torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
     return y.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+def row_linear(x: torch.Tensor, w,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`linear` whose ``w`` is split by rows over the ``model``
+    dimension of the current mesh (row parallel, see
+    :func:`~janus_tpu_torch.parallel.collectives.use_mesh`): the partial
+    products are summed over it, then the bias, which every rank holds
+    whole, is added once, in fp32. Without tensor parallelism, exactly
+    :func:`linear`."""
+    if model_size() == 1:
+        return linear(x, w, b)
+    y = exit_model(linear(x, w))
+    return y if b is None else (y.float() + b.float()).to(y.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -157,6 +157,16 @@ def _fft_tables(sample_rate: int, n_mels: int, device: torch.device):
     return torch.from_numpy(table).to(device), roots
 
 
+@functools.lru_cache(maxsize=None)
+def _frame_flops(n_fft: int, sample_rate: int, n_mels: int) -> float:
+    """The least work of one frame: a real FFT (2.5 n log2 n), |X|^2, the
+    filterbank's nonzero taps and one log per mel."""
+    fb = _mel_filterbank_np(sample_rate, n_fft, n_mels, 0.0,
+                            sample_rate / 2.0)
+    return (2.5 * n_fft * np.log2(n_fft) + 3 * (n_fft // 2 + 1)
+            + 2 * np.count_nonzero(fb) + n_mels)
+
+
 def mel_log10(audio: torch.Tensor, sample_rate: int = 16_000,
               n_fft: int = 400, hop: int = 160, n_mels: int = 80,
               route: Optional[str] = None) -> torch.Tensor:
@@ -187,12 +197,14 @@ def mel_log10(audio: torch.Tensor, sample_rate: int = 16_000,
     out = torch.empty((n_signals * n_frames, n_mels), dtype=torch.float32,
                       device=audio.device)
     stream = torch.cuda.current_stream(audio.device).cuda_stream
+    flops = n_signals * n_frames * _frame_flops(n_fft, sample_rate, n_mels)
+    nbytes = 4 * (n_signals * t_len + out.numel())
     if route == "fft":
         if x.stride(1) != 1 or (n_signals > 1 and x.stride(0) < t_len):
             x = x.contiguous()
         table, roots = _fft_tables(sample_rate, n_mels, audio.device)
         fn = cuda_build.entry(KERNEL, "mel_log10_fft", _FFT_ARGTYPES)
-        KERNEL.launches += 1
+        KERNEL.launched(flops, nbytes)
         code = fn(x.data_ptr(), n_signals, x.stride(0), t_len, n_frames, hop,
                   table.data_ptr(), roots.ctypes.data, n_mels,
                   out.data_ptr(), stream)
@@ -200,7 +212,7 @@ def mel_log10(audio: torch.Tensor, sample_rate: int = 16_000,
         x = _reflect_pad(x, n_fft // 2).contiguous()
         cos, sin, fbt = _banks(n_fft, sample_rate, n_mels, audio.device)
         fn = cuda_build.entry(KERNEL, "mel_log10_dense", _DENSE_ARGTYPES)
-        KERNEL.launches += 1
+        KERNEL.launched(flops, nbytes)
         code = fn(x.data_ptr(), n_signals, x.shape[1], n_frames, hop, n_fft,
                   cos.data_ptr(), sin.data_ptr(), cos.shape[1],
                   fbt.data_ptr(), n_mels, out.data_ptr(), stream)

@@ -136,17 +136,19 @@ def block_sums(padded: torch.Tensor, nblk: int, hop: int,
     out = torch.empty((n_signals, nblk, n_lags_out), dtype=torch.float32,
                       device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    flops = 2.0 * n_signals * nblk * n_lags_out * hop
+    nbytes = 4 * (x.numel() + out.numel())
     if route == "tiled":
         plan = plan_rows(hop, n_lags_out)
         fn = cuda_build.entry(KERNEL, "yin_block_sums_tiled",
                               _TILED_ARGTYPES)
-        KERNEL.launches += 1
+        KERNEL.launched(flops, nbytes)
         code = fn(x.data_ptr(), n_signals, t_len, nblk, hop, n_lags_out,
                   plan.rows, plan.groups, plan.pitch, out.data_ptr(), stream)
     else:
         fn = cuda_build.entry(KERNEL, "yin_block_sums_simple",
                               _SIMPLE_ARGTYPES)
-        KERNEL.launches += 1
+        KERNEL.launched(flops, nbytes)
         code = fn(x.data_ptr(), n_signals, t_len, nblk, hop, n_lags_out,
                   out.data_ptr(), stream)
     cuda_build.check_launch(KERNEL, code)

@@ -9,6 +9,13 @@ cross K/V through the K4 kernel under ``asr.decode_cross_kv_int8``),
 then host-side token decode and the MessagePack packet. Phrases are
 padded into duration buckets and the batch to the next power of two, as
 in the JAX package.
+
+With a ``mesh`` the encode is the JAX package's pod layout, written as
+explicit SPMD: the lanes are split over ``data`` (each data rank runs the
+frontend, K1 and K3, on its own lanes, as ``shard_map`` does there), the
+recognizer is tensor-parallel over ``model``, a ``seq`` dimension runs
+the encoder sequence-parallel, and the results are all-gathered over
+``data``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,10 @@ from janus_tpu_torch.ops.energy import ENERGY_TAGS, classify_energy, rms_energy
 from janus_tpu_torch.ops.resample import decimate_48k_to_16k
 from janus_tpu_torch.ops.yin import (PITCH_TAGS, classify_pitch,
                                      mean_voiced_pitch, yin_track)
+from janus_tpu_torch.parallel.collectives import (all_gather, axis_index,
+                                                  axis_size, use_mesh)
+from janus_tpu_torch.parallel.sharding import (ASR_PARTITION_RULES,
+                                               shard_params)
 
 __all__ = ["SemanticEncoder", "PendingEncode", "duration_bucket",
            "mel_frame_budget", "DEFAULT_BUCKETS"]
@@ -93,23 +104,37 @@ class SemanticEncoder:
     assembler. ``asr_params`` is a tree of tensors or arrays in the
     package's layout (see :mod:`janus_tpu_torch.models.params`), possibly
     quantized by :func:`janus_tpu_torch.ops.quant.quantize_tree`; without
-    one the recognizer is initialized from seed 0."""
+    one the recognizer is initialized from seed 0.
+
+    ``mesh`` (:func:`janus_tpu_torch.parallel.mesh.build_mesh`) serves on
+    every rank of it, each rank constructing the encoder with the same
+    arguments and calling ``encode_batch`` with the same phrases: the
+    lanes are split over ``data``, the weights are this rank's shards by
+    ``ASR_PARTITION_RULES`` (tensor-parallel over ``model``), a ``seq``
+    dimension above 1 runs the encoder sequence-parallel, and every rank
+    returns the whole batch's results."""
 
     def __init__(self, cfg: Optional[JanusConfig] = None, asr_params=None,
                  tokenizer=None, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 device="cuda") -> None:
+                 device="cuda", mesh=None) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg or JanusConfig()
         self.tokenizer = tokenizer or ByteTokenizer()
         if asr_params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             asr_params = init_asr(gen, self.cfg.asr)
+        self.mesh = mesh
+        if mesh is not None:
+            asr_params = shard_params(asr_params, mesh, ASR_PARTITION_RULES)
         params = tree_to(asr_params, self.device)
         self._compute_dtype = getattr(torch, self.cfg.asr.dtype)
         if self._compute_dtype != torch.float32:
             # matmuls still accumulate fp32; norms and softmax run fp32
             params = cast_floating(params, self._compute_dtype)
-        self.params = prepare_decode_params(params)
+        # the decode layout (fused q/k/v) once; under a mesh the tree keeps
+        # the per-layer q/k/v that the partition rules name, as in the JAX
+        # package
+        self.params = prepare_decode_params(params) if mesh is None else params
         self.buckets = tuple(buckets)
 
     def mel_frame_budget(self, bucket: int) -> int:
@@ -126,6 +151,12 @@ class SemanticEncoder:
         ``n_valid[B]`` true lengths → (tokens[B, N], energy_code[B],
         pitch_code[B], mean_f0[B], rms[B])."""
         acfg, pcfg = self.cfg.asr, self.cfg.prosody
+        data = axis_size(self.mesh, "data")
+        if data > 1:
+            # this data rank's lanes (the batch is padded to tile "data")
+            lane = axis_index(self.mesh, "data")
+            audio_48k = audio_48k.chunk(data)[lane]
+            n_valid = n_valid.chunk(data)[lane]
         if audio_48k.dtype == torch.int16:
             # int16 wire: the exact inverse of the capture-side
             # int16 -> float32 / 32768 conversion; divide (not multiply by
@@ -158,17 +189,24 @@ class SemanticEncoder:
         pitch_code = classify_pitch(f0, pcfg.pitch_deep_hz, pcfg.pitch_high_hz)
 
         mel = asr_mod.prepare_mel(audio_16k, acfg, pad_to_frames=n_16k_frames)
-        enc = asr_mod.encode_audio(self.params, acfg,
-                                   mel.to(self._compute_dtype))
+        sp_mesh = self.mesh if axis_size(self.mesh, "seq") > 1 else None
         sot = self.tokenizer.sot_sequence()
-        prompt = torch.tensor(sot, dtype=torch.long,
-                              device=enc.device).expand(audio_48k.shape[0],
-                                                        len(sot))
-        tokens = asr_mod.greedy_decode(
-            self.params, acfg, enc, prompt, self.tokenizer.eot,
-            max_new=acfg.max_decode_tokens, cache_dtype=self._compute_dtype,
-            cross_kv_int8=acfg.decode_cross_kv_int8)
-        return tokens, energy_code, pitch_code, f0, rms
+        with use_mesh(self.mesh):
+            enc = asr_mod.encode_audio(self.params, acfg,
+                                       mel.to(self._compute_dtype),
+                                       sp_mesh=sp_mesh)
+            prompt = torch.tensor(sot, dtype=torch.long,
+                                  device=enc.device).expand(
+                                      audio_48k.shape[0], len(sot))
+            tokens = asr_mod.greedy_decode(
+                self.params, acfg, enc, prompt, self.tokenizer.eot,
+                max_new=acfg.max_decode_tokens,
+                cache_dtype=self._compute_dtype,
+                cross_kv_int8=acfg.decode_cross_kv_int8)
+        out = (tokens, energy_code, pitch_code, f0, rms)
+        if data > 1:
+            out = tuple(all_gather(a, self.mesh, "data") for a in out)
+        return out
 
     # -- host path ---------------------------------------------------------
 
@@ -190,6 +228,11 @@ class SemanticEncoder:
         bucket = duration_bucket(max(len(p) for p in phrases), self.buckets)
         b_real = len(phrases)
         b_pad = 1 << (b_real - 1).bit_length()  # next power of two
+        data = axis_size(self.mesh, "data")
+        # lanes tile the data dimension (one phrase through data=4 still
+        # ships 4 lanes, 3 of them zero audio)
+        b_pad = max(b_pad, data)
+        b_pad += (-b_pad) % data
         batch = np.zeros((b_pad, bucket), dtype=np.float32)
         n_valid = np.zeros((b_pad,), dtype=np.int64)
         for i, p in enumerate(phrases):

@@ -38,6 +38,10 @@ from janus_tpu_torch.models.speaker import init_speaker_encoder, speaker_embed
 from janus_tpu_torch.models.tokenizer import ByteTokenizer
 from janus_tpu_torch.ops.morse import morse_audio
 from janus_tpu_torch.ops.resample import decimate_48k_to_16k, resample_poly
+from janus_tpu_torch.parallel.collectives import use_mesh
+from janus_tpu_torch.parallel.sharding import (TTS_PARTITION_RULES,
+                                               VOCODER_PARTITION_RULES,
+                                               shard_params)
 from janus_tpu_torch.runtime.emotion import tts_emotion_tag
 
 logger = logging.getLogger(__name__)
@@ -53,7 +57,14 @@ class Synthesizer:
     without them the models are initialized from ``rng_seed``.
     ``default_speaker_vec`` is the voice used when no reference audio is
     enrolled (speaker-conditioned checkpoints are trained with a vector in
-    the [SPK] slot, so unconditioned generation is off-distribution)."""
+    the [SPK] slot, so unconditioned generation is off-distribution).
+
+    With a ``mesh`` (every rank of it constructing the synthesizer with
+    the same arguments and synthesizing the same packets) the TTS and
+    vocoder weights are this rank's shards by ``TTS_PARTITION_RULES`` and
+    ``VOCODER_PARTITION_RULES``, and generation is tensor-parallel over
+    ``model``; every rank returns the same audio. Generation draws no
+    random numbers, so the ranks need no shared generator."""
 
     def __init__(
         self,
@@ -65,6 +76,7 @@ class Synthesizer:
         rng_seed: int = 0,
         default_speaker_vec=None,
         device="cuda",
+        mesh=None,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg or JanusConfig()
@@ -83,6 +95,11 @@ class Synthesizer:
         if speaker_params is None:
             speaker_params = init_speaker_encoder(
                 gen(rng_seed + 2), n_mels=tcfg.n_mels, d_out=tcfg.d_model)
+        self.mesh = mesh
+        if mesh is not None:
+            tts_params = shard_params(tts_params, mesh, TTS_PARTITION_RULES)
+            vocoder_params = shard_params(vocoder_params, mesh,
+                                          VOCODER_PARTITION_RULES)
         self.tts_params = tree_to(tts_params, self.device)
         self.vocoder_params = tree_to(vocoder_params, self.device)
         self.speaker_params = tree_to(speaker_params, self.device)
@@ -140,11 +157,12 @@ class Synthesizer:
                     speaker: Optional[torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(wav48[B, T48], n48[B])``: generate, vocode, resample."""
-        mel, n_frames = tts_mod.tts_generate(
-            self.tts_params, self.cfg.tts, text_ids, emotion,
-            speaker=speaker, text_vocab=self.tokenizer.vocab_size)
-        wav = voc_mod.vocoder_waveform(self.vocoder_params, self.cfg.vocoder,
-                                       mel)
+        with use_mesh(self.mesh):
+            mel, n_frames = tts_mod.tts_generate(
+                self.tts_params, self.cfg.tts, text_ids, emotion,
+                speaker=speaker, text_vocab=self.tokenizer.vocab_size)
+            wav = voc_mod.vocoder_waveform(self.vocoder_params,
+                                           self.cfg.vocoder, mel)
         # vocoder rate -> 48 kHz playback
         sr = self.cfg.vocoder.sample_rate
         g = math.gcd(48_000, sr)
@@ -214,8 +232,15 @@ class Synthesizer:
                 vocoder_params=self.vocoder_params, device=self.device)
         emitted = False
         try:
-            for chunk in self._streamer.stream_pcm16(
-                    packet.text, tag, speaker=self._speaker_arg()):
+            chunks = self._streamer.stream_pcm16(packet.text, tag,
+                                                 speaker=self._speaker_arg())
+            while True:
+                # the mesh is set while a chunk is computed, not while the
+                # caller holds it
+                with use_mesh(self.mesh):
+                    chunk = next(chunks, None)
+                if chunk is None:
+                    break
                 emitted = True
                 yield chunk
         except Exception as e:

@@ -12,6 +12,14 @@ that greedy decoding uses: the self-attention cache is written in place
 (:meth:`~janus_tpu_torch.ops.attention.KVCache.append_lockstep`), which
 autograd records as a slice copy, so its gradient is that of the JAX
 package's ``dynamic_update_slice``.
+
+Every reduction over the batch goes through
+:func:`~janus_tpu_torch.parallel.collectives.dp_sum` / ``dp_mean``:
+outside a data-parallel trainer step these are the plain sum and mean;
+inside one they reduce over the global batch, so a masked mean divides
+the whole batch's masked sum by its whole mask (the mean of per-rank
+means differs whenever the ranks' token counts do), as the JAX package's
+losses do over a global batch.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from janus_tpu_torch.models import vad as vad_mod
 from janus_tpu_torch.models.vocoder import (spectra_to_waveform,
                                             vocoder_spectra)
 from janus_tpu_torch.ops.stft import stft
+from janus_tpu_torch.parallel.collectives import dp_mean, dp_size, dp_sum
 
 __all__ = ["asr_loss", "tts_loss", "vocoder_loss", "vad_loss"]
 
@@ -51,9 +60,9 @@ def asr_loss(params, cfg: ASRConfig, mel: Tensor, tokens: Tensor,
     mask = token_mask[:, 1:].float()
     ce = -torch.gather(torch.log_softmax(logits, dim=-1), -1,
                        targets[..., None])[..., 0]
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    loss = (ce * mask).sum() / denom
-    acc = ((logits.argmax(-1) == targets).float() * mask).sum() / denom
+    denom = torch.clamp_min(dp_sum(mask.sum()), 1.0)
+    loss = dp_sum((ce * mask).sum()) / denom
+    acc = dp_sum(((logits.argmax(-1) == targets).float() * mask).sum()) / denom
     return loss, {"asr_ce": loss, "asr_acc": acc}
 
 
@@ -71,10 +80,10 @@ def tts_loss(params, cfg: TTSConfig, text_ids: Tensor, emotion: Tensor,
         params, cfg, text_ids, emotion, mel_groups, speaker, text_vocab,
         mel_inputs=mel_inputs)
     m = group_mask.float()
-    denom = torch.clamp_min(m.sum(), 1.0)
+    denom = torch.clamp_min(dp_sum(m.sum()), 1.0)
     diff = mel_pred - mel_groups
-    l1 = (diff.abs().mean(-1) * m).sum() / denom
-    l2 = ((diff ** 2).mean(-1) * m).sum() / denom
+    l1 = dp_sum((diff.abs().mean(-1) * m).sum()) / denom
+    l2 = dp_sum(((diff ** 2).mean(-1) * m).sum()) / denom
 
     # stop target: 1 at the final real group of each sequence
     last_idx = torch.clamp_min(m.sum(-1) - 1, 0).long()
@@ -82,10 +91,17 @@ def tts_loss(params, cfg: TTSConfig, text_ids: Tensor, emotion: Tensor,
         stop_logits.dtype)
     bce = -(stop_target * F.logsigmoid(stop_logits)
             + (1 - stop_target) * F.logsigmoid(-stop_logits))
-    stop = (bce * m).sum() / denom
+    stop = dp_sum((bce * m).sum()) / denom
 
     loss = l1 + l2 + 0.5 * stop
     return loss, {"tts_l1": l1, "tts_l2": l2, "tts_stop": stop}
+
+
+def _norm(x: Tensor) -> Tensor:
+    """Frobenius norm over the global batch."""
+    if dp_size() == 1:
+        return torch.linalg.norm(x)
+    return torch.sqrt(dp_sum(x.square().sum()))
 
 
 # the two magnitude resolutions (n_fft, hop) of the multi-resolution term
@@ -107,22 +123,22 @@ def vocoder_loss(params, cfg: VocoderConfig, mel: Tensor, target_wav: Tensor
     """
     spec_pred = vocoder_spectra(params, cfg, mel)
     pred = spectra_to_waveform(cfg, spec_pred, length=target_wav.shape[-1])
-    l1 = (pred - target_wav).abs().mean()
+    l1 = dp_mean((pred - target_wav).abs())
 
     t = spec_pred.shape[-2]
     spec_true = stft(target_wav, n_fft=cfg.n_fft, hop=cfg.hop_length)[..., :t, :]
-    cplx = (spec_pred - spec_true).abs().mean() / (spec_true.abs().mean()
-                                                    + 1e-6)
+    cplx = dp_mean((spec_pred - spec_true).abs()) / (
+        dp_mean(spec_true.abs()) + 1e-6)
 
     sc_total = 0.0
     mag_total = 0.0
     for n_fft, hop in STFT_RESOLUTIONS:
         sp = stft(pred, n_fft=n_fft, hop=hop).abs()
         st = stft(target_wav, n_fft=n_fft, hop=hop).abs()
-        sc_total = sc_total + torch.linalg.norm(sp - st) / torch.clamp_min(
-            torch.linalg.norm(st), 1e-6)
-        mag_total = mag_total + (torch.log(sp + 1e-5)
-                                 - torch.log(st + 1e-5)).abs().mean()
+        sc_total = sc_total + _norm(sp - st) / torch.clamp_min(_norm(st),
+                                                                1e-6)
+        mag_total = mag_total + dp_mean((torch.log(sp + 1e-5)
+                                         - torch.log(st + 1e-5)).abs())
     n_res = len(STFT_RESOLUTIONS)
     loss = 10.0 * l1 + 4.0 * cplx + sc_total / n_res + mag_total / n_res
     return loss, {"voc_l1": l1, "voc_cplx": cplx, "voc_sc": sc_total / n_res,
@@ -136,6 +152,6 @@ def vad_loss(params, chunk_16k: Tensor, label: Tensor) -> Tuple[Tensor, Dict]:
     eps = 1e-6
     bce = -(label * torch.log(prob + eps)
             + (1 - label) * torch.log(1 - prob + eps))
-    loss = bce.mean()
-    acc = ((prob > 0.5) == (label > 0.5)).float().mean()
+    loss = dp_mean(bce)
+    acc = dp_mean(((prob > 0.5) == (label > 0.5)).float())
     return loss, {"vad_bce": loss, "vad_acc": acc}

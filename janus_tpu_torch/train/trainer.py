@@ -1,4 +1,4 @@
-"""One-device trainer with the JAX package's optimizer written out.
+"""The trainer, with the JAX package's optimizer written out.
 
 The JAX package's :class:`Trainer` steps
 ``optax.chain(clip_by_global_norm(grad_clip), adamw(lr, weight_decay=wd))``
@@ -20,8 +20,25 @@ Metrics are the loss function's, plus ``loss`` and the pre-clip
 ``grad_norm``, as 0-dim tensors on the parameters' device: reading one
 waits for the device, so a loop reads them only where it logs.
 
-One device only: the JAX package's mesh, partition rules and
-``shard_batch`` belong to its ``parallel/`` package.
+With a ``mesh`` and partition ``rules`` (every rank of the mesh running
+the same steps on the same global batch) the layout is the JAX package's
+sharded trainer, written as explicit SPMD:
+
+- the parameters and moments are this rank's shards by ``rules``, and the
+  models run tensor-parallel over ``model``
+  (:func:`~janus_tpu_torch.parallel.collectives.use_mesh`);
+- :meth:`Trainer.shard_batch` takes this rank's slice of the batch's
+  leading axis over ``dp_spec``'s dimensions (``replica`` × ``data``);
+- the loss reduces over the global batch with
+  :func:`~janus_tpu_torch.parallel.collectives.dp_sum` / ``dp_mean``, as
+  every loss of :mod:`.losses` does (a masked mean is then the whole
+  batch's), and the gradients are summed over ``replica`` × ``data``; a
+  step whose loss did not is refused;
+- the clipping norm is the whole gradient's: the squares of the split
+  leaves summed over ``model``, the whole leaves counted once;
+- the optimizer runs on the local shards.
+
+``mesh=None`` is the one-device trainer.
 """
 
 from __future__ import annotations
@@ -35,6 +52,11 @@ import torch
 
 from janus_tpu_torch.models.params import (flatten_with_paths, map_tree,
                                            unflatten_from_paths)
+from janus_tpu_torch.parallel.collectives import (DP_AXES, all_reduce,
+                                                  axis_index, axis_size,
+                                                  data_parallel, use_mesh)
+from janus_tpu_torch.parallel.sharding import (partition_spec_for,
+                                               shard_params)
 
 __all__ = ["TrainState", "Trainer", "warmup_cosine_decay_schedule",
            "global_norm"]
@@ -116,24 +138,70 @@ def _leaves(tree: Any) -> Tuple[List[str], List[torch.Tensor]]:
 class Trainer:
     def __init__(self, loss_fn: Callable[..., Tuple[torch.Tensor, Dict]],
                  learning_rate: Union[float, Schedule] = 3e-4,
-                 weight_decay: float = 0.01, grad_clip: float = 1.0) -> None:
-        """``loss_fn(params, *batch) -> (loss, metrics)``."""
+                 weight_decay: float = 0.01, grad_clip: float = 1.0,
+                 mesh=None, rules=None) -> None:
+        """``loss_fn(params, *batch) -> (loss, metrics)``; ``rules`` (the
+        partition rules of ``parallel/sharding.py``) go with a ``mesh``."""
+        if mesh is not None and rules is None:
+            raise ValueError("a mesh needs partition rules")
         self._loss_fn = loss_fn
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
+        self.mesh = mesh
+        self.rules = rules
 
     # -- state -------------------------------------------------------------
 
     def create_state(self, params: Any) -> TrainState:
-        """Own copies of ``params`` (float32 leaves, detached) and zero
-        moments on their device."""
+        """Own copies of ``params`` (float32 leaves, detached; this rank's
+        shards under a mesh) and zero moments on their device."""
+        if self.mesh is not None:
+            params = shard_params(params, self.mesh, self.rules)
         params = map_tree(lambda t: t.detach().clone(), params)
         zeros = lambda tree: map_tree(torch.zeros_like, tree)  # noqa: E731
         return TrainState(params=params,
                           opt_state={"count": 0, "mu": zeros(params),
                                      "nu": zeros(params)},
                           step=0)
+
+    def shard_batch(self, *batch) -> Tuple:
+        """This rank's slice of each batch array's leading axis, split over
+        the mesh's data-parallel dimensions (``replica`` slowest); 0-dim
+        arrays whole. The batch itself without a mesh."""
+        n, idx = 1, 0
+        for name in DP_AXES:
+            size = axis_size(self.mesh, name)
+            n, idx = n * size, idx * size + axis_index(self.mesh, name)
+        if n == 1:
+            return batch
+        out = []
+        for b in batch:
+            if np.ndim(b) == 0:
+                out.append(b)
+                continue
+            if b.shape[0] % n:
+                raise ValueError(f"batch of {b.shape[0]} does not split over "
+                                 f"{n} data-parallel ranks")
+            size = b.shape[0] // n
+            out.append(b[idx * size:(idx + 1) * size])
+        return tuple(out)
+
+    def _grad_norm(self, paths: List[str],
+                   grads: List[torch.Tensor]) -> torch.Tensor:
+        """Norm of the whole gradient: a split leaf's squares summed over
+        ``model``, a whole leaf's counted once."""
+        if axis_size(self.mesh, "model") == 1:
+            return global_norm(grads)
+        split = torch.zeros((), device=grads[0].device)
+        whole = torch.zeros((), device=grads[0].device)
+        for path, g in zip(paths, grads):
+            spec = partition_spec_for(path, self.rules)
+            if len(spec) <= g.ndim and "model" in spec:
+                split = split + g.square().sum()
+            else:
+                whole = whole + g.square().sum()
+        return torch.sqrt(all_reduce(split, self.mesh, "model") + whole)
 
     def _lr(self, count: int) -> float:
         lr = self.learning_rate
@@ -150,17 +218,26 @@ class Trainer:
         batch = tuple(torch.from_numpy(np.ascontiguousarray(b)).to(device)
                       if isinstance(b, np.ndarray) else
                       b.to(device) if isinstance(b, torch.Tensor) else b
-                      for b in batch)
+                      for b in self.shard_batch(*batch))
         live = [p.detach().requires_grad_() for p in params]
-        loss, metrics = self._loss_fn(
-            unflatten_from_paths(dict(zip(paths, live))), *batch)
+        with use_mesh(self.mesh), data_parallel(self.mesh) as dp:
+            loss, metrics = self._loss_fn(
+                unflatten_from_paths(dict(zip(paths, live))), *batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         del live
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
 
         with torch.no_grad():
-            norm = global_norm(grads)
+            if dp.size > 1:
+                if not dp.used:
+                    raise ValueError(
+                        "under data parallelism the loss must reduce over "
+                        "the batch with dp_sum or dp_mean: each rank's "
+                        "gradient is then its share of the global loss's")
+                for name in DP_AXES:
+                    grads = [all_reduce(g, self.mesh, name) for g in grads]
+            norm = self._grad_norm(paths, grads)
             # (g / norm) * max_norm where the norm reaches max_norm, as
             # optax's select; g / 1 * 1 == g elsewhere
             keep = norm < self.grad_clip

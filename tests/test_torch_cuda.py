@@ -541,3 +541,28 @@ def test_janus_server_on_the_card(dev, tmp_path):
             assert ws.recv_json()["is_streaming"] is True
         finally:
             ws.close()
+
+
+def test_wrappers_record_their_least_work(dev):
+    """Each launch adds its least work to its kernel, which the scaling
+    rows read: attention 4 BH Tq Tk Dh, the YIN sums 2 rows lags hop, and
+    each kernel's inputs read and outputs written once."""
+    from janus_tpu_torch.ops.flash import KERNEL as FLASH, flash_attention
+    from janus_tpu_torch.ops.mel_fused import KERNEL as MEL, mel_log10
+    from janus_tpu_torch.ops.yin_blocksums import KERNEL as YIN, block_sums
+
+    def work(k, fn):
+        before = (k.launches, k.flops, k.bytes)
+        fn()
+        return k.launches - before[0], k.flops - before[1], k.bytes - before[2]
+
+    q = torch.randn(2, 4, 48, 64, device=dev)
+    assert work(FLASH, lambda: flash_attention(q, q, q)) == (
+        1, 4.0 * 8 * 48 * 48 * 64, 4 * 8 * 48 * 64 * 4)
+    x = torch.randn(3, 170 * 6 + 402, device=dev)
+    assert work(YIN, lambda: block_sums(x, 6, 170, 402)) == (
+        1, 2.0 * 3 * 6 * 402 * 170, 4 * (x.numel() + 3 * 6 * 402))
+    audio = torch.randn(2, 16_000, device=dev)
+    n, flops, nbytes = work(MEL, lambda: mel_log10(audio, n_mels=80))
+    assert n == 1 and flops > 2 * 100 * 2.5 * 400 * np.log2(400)
+    assert nbytes == 4 * (audio.numel() + 2 * 100 * 80)
