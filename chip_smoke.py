@@ -25,11 +25,16 @@ printing one JSON line per result:
 4. flagship — Whisper large-v3 (random weights from seed 0, bf16) encoding
    8 phrases of 10 s through ``SemanticEncoder.encode_batch``: per-stage
    and end-to-end times, launches of each kernel in that run, and the
-   encoder output against a plain-version pass;
+   encoder output against a plain-version pass. The greedy loop runs
+   replayed from its CUDA graph and eagerly (``eager=True``) in turns on
+   the same inputs: equal results and tokens; one step of each traced
+   (host calls, busy ms, idle share), the graphs' capture ms and pool;
 5. flagship int8 — the same model with dynamic-int8 weights and int8
    cross K/V (the analogue of CTranslate2 ``compute_type='int8'``): times,
-   launches (K4 once per decoder layer and forward), one decode step's
-   logits against the plain cross-attention, token agreement with phase 4;
+   launches (K4 once per decoder layer and forward, the replayed steps'
+   counted through the captured step's 32), one decode step's logits
+   against the plain cross-attention, token agreement with phase 4, and
+   the replayed loop against the eager one as in phase 4;
 6. receive_demo — the committed demo TTS, vocoder and speaker encoder
    through ``Synthesizer`` on the card and on the CPU (Morse bytes equal;
    TTS modes: the same sample count and the PCM within a stated bar),
@@ -37,10 +42,13 @@ printing one JSON line per result:
    round trip phrase → packet → speech → packet, card against CPU;
 7. receive_flagship — ``TTSConfig.flagship()`` (d 1280, 30 layers, random
    bf16 weights from seed 0) with the default vocoder: generate + vocode +
-   resample over the full budget of 256 groups at b = 8 and b = 1, stage
-   times, one traced AR step, and prefill + 4 groups against the CPU;
-8. receive_stream — ``StreamingSynthesizer`` at that width: seconds to
-   first audio and in all, and the stream against the fused path;
+   resample over the full budget of 256 groups at b = 8 and b = 1 with
+   the AR loop replayed from its graph and eagerly in turns (PCM equal
+   bit for bit), stage times, one traced AR step of each, and prefill +
+   4 groups against the CPU;
+8. receive_stream — ``StreamingSynthesizer`` at that width, replayed and
+   eager: seconds to first audio and in all, the two streams equal, and
+   the stream against the fused path;
 9. duplex_demo — the live link with the committed demo bundle: three
    rendered phrases through ``sender_main.main_loop`` (VAD, segmenter,
    encode, packet, link at 48000 baud) → localhost UDP →
@@ -53,13 +61,16 @@ printing one JSON line per result:
    phase 7 behind ``engine.receiver_loop`` with streaming playback, a
    three-turn conversation captured in real time, the energy VAD and the
    default 300 bps link: per-turn latencies, VAD time a chunk, the
-   capture queue and the kernels' launches;
+   capture queue and the kernels' launches; once with both loops
+   replayed from their graphs (captured up front by the ``warmup``
+   methods) and once eagerly, the packets of both synthesized alike;
 11. sessions_flagship — the multi-session serving runtime at large-v3
    width on phase 4's weights (2 s bucket, 24 decode tokens): encode
    batch scaling at b = 1, 8, 32, 64 with one traced decode step at
    b = 64, then ``SessionManager``'s tick loop over 32 sessions fed
    through ``push_audio`` one 32 ms chunk a tick, synchronous and
-   overlapped (``overlap_speedup``), on the native ring buffers;
+   overlapped (``overlap_speedup``), on the native ring buffers; the
+   scaling and the tick loop with the decode replayed and eager;
 12. server_demo — ``JanusServer`` with the demo bundle on the card and on
    the CPU: health, the WebSocket control plane through a stdlib client,
    a spoken phrase through the live duplex on loopback UDP, the phrase
@@ -103,7 +114,8 @@ printing one JSON line per result:
    from the flagship encode, the tick loop's overlapped run, the tools,
    the card's server run, the training phases, the gates and the two
    parallel phases; K4 from the int8 flagship encode and
-   ``flagship_check --int8``). The receive side runs no hand-written
+   ``flagship_check --int8``), the kernels inside replayed decode steps
+   counted. The receive side runs no hand-written
    kernel (the JAX package's has no Pallas kernel either), so its phases
    add no row there.
 
@@ -240,9 +252,13 @@ def profile_step(torch, step, steps: int = 3) -> dict:
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     launches = sum(1 for e in events if e.device_type == DeviceType.CPU
                    and e.name.startswith("cudaLaunchKernel"))
+    graph_launches = sum(1 for e in events if e.device_type == DeviceType.CPU
+                         and e.name.startswith("cudaGraphLaunch"))
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     return {"wall_ms": wall_ms, "wall_ms_all": walls,
             "device_events": len(device), "host_kernel_launches": launches,
+            "host_graph_launches": graph_launches,
+            "host_calls": launches + graph_launches,
             "device_busy_ms": busy_ms if device else None,
             "device_idle_share": (max(0.0, 1.0 - busy_ms / wall_ms)
                                   if device else None)}
@@ -260,6 +276,27 @@ def profile_decode_step(torch, asr_mod, params, acfg, enc, prompt,
     tok = prompt[:, -1]
     return profile_step(
         torch, lambda: asr_mod.decoder_step(params, acfg, tok, state), steps)
+
+
+def profile_graph_step(torch, holder) -> dict:
+    """One replayed decode step through :func:`profile_step`: the holder
+    (a ``GreedyGraph`` or an ``ARGraph``) is rewound to the end of its
+    prefill first, so the four steps profiled write inside its caches."""
+    if hasattr(holder, "pos"):
+        holder.pos.fill_(holder.prompt_len)
+        holder.fill = holder.prompt_len
+    else:
+        holder.group.zero_()
+        holder.steps = 0
+    return profile_step(torch, holder.advance)
+
+
+def graph_stats(graphs) -> dict:
+    """Capture ms and pool MiB of a caller's step graphs."""
+    gs = graphs.graphs()
+    return {"graphs": len(gs), "capture_ms": [g.capture_ms for g in gs],
+            "pool_mib": graphs.pool_bytes() / 2 ** 20,
+            "replays": graphs.replays}
 
 
 def synced_ms(torch, fn):
@@ -553,10 +590,15 @@ def receive_flagship(torch, dev):
     n_frames = max_groups * tcfg.reduction
     lane_seconds = n_frames * vcfg.hop_length / vcfg.sample_rate
 
-    def generate(text, emo):
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    graphs = StepGraphs()
+
+    def generate(text, emo, eager=False):
         return tts_mod.tts_generate(
             tts_params, tcfg, text, emo, max_groups=max_groups,
-            text_vocab=tok.vocab_size, stop_threshold=2.0)  # full budget
+            text_vocab=tok.vocab_size, stop_threshold=2.0,  # full budget
+            eager=eager, graphs=graphs)
 
     def vocode(mel):
         wav = voc_mod.vocoder_waveform(voc_params, vcfg, mel)
@@ -572,13 +614,20 @@ def receive_flagship(torch, dev):
         for b in RECEIVE_BATCHES:
             text = torch.zeros((b, 32), dtype=torch.long, device=dev)
             emo = torch.zeros((b,), dtype=torch.long, device=dev)
-            vocode(generate(text, emo)[0])  # warm-up
+            vocode(generate(text, emo)[0])  # warm-up, and the capture
             torch.cuda.reset_peak_memory_stats()
-            e2e = []
-            for _ in range(3):
+            # the AR loop replayed from its graph and eagerly, in turns:
+            # the same PCM bit for bit
+            e2e, e2e_eager, wavs = [], [], []
+            for eager in (False, True, False, False):
                 wav, ms = synced_ms(torch, lambda: vocode(
-                    generate(text, emo)[0]))
-                e2e.append(ms)
+                    generate(text, emo, eager)[0]))
+                (e2e_eager if eager else e2e).append(ms)
+                wavs.append(wav)
+            check(all(torch.equal(w, wavs[0]) for w in wavs),
+                  f"receive_flagship b={b}: the replayed and the eager "
+                  f"loop's PCM differ by "
+                  f"{float((wavs[1] - wavs[0]).abs().max())}")
             peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
             check(tuple(wav.shape) == (b, n_frames * vcfg.hop_length * up)
                   and bool(torch.isfinite(wav).all()),
@@ -586,11 +635,16 @@ def receive_flagship(torch, dev):
             # the same stages, one at a time, synchronised around each
             _, prefill_ms = synced_ms(torch, lambda: tts_mod.tts_prefill(
                 tts_params, tcfg, text, emo, max_groups=max_groups,
-                text_vocab=tok.vocab_size, stop_threshold=2.0))
+                text_vocab=tok.vocab_size, stop_threshold=2.0,
+                graphs=graphs))
             (mel, frames), gen_ms = synced_ms(torch,
                                               lambda: generate(text, emo))
             check(frames.tolist() == [n_frames] * b,
                   f"receive_flagship b={b}: n_frames {frames.tolist()}")
+            with graphs.lock:
+                ar_trace_graph = profile_graph_step(torch, tts_mod.ar_graph(
+                    graphs, tts_params, tcfg, b, 32 + 3, max_groups, 2.0,
+                    dev))
             spec, spectra_ms = synced_ms(torch, lambda: voc_mod.
                                          vocoder_spectra(voc_params, vcfg,
                                                          mel))
@@ -601,7 +655,7 @@ def receive_flagship(torch, dev):
             # one AR step, traced
             first, done, state = tts_mod.tts_prefill(
                 tts_params, tcfg, text, emo, max_groups=8,
-                text_vocab=tok.vocab_size, stop_threshold=2.0)
+                text_vocab=tok.vocab_size, stop_threshold=2.0, eager=True)
             at = [0]
 
             def ar_step():
@@ -612,8 +666,10 @@ def receive_flagship(torch, dev):
             ar_trace = profile_step(torch, ar_step)
             best = min(e2e)
             out["batches"][str(b)] = {
-                "e2e_ms": e2e, "rtf_per_lane_second": best / 1e3
+                "e2e_ms": e2e, "e2e_eager_ms": e2e_eager,
+                "rtf_per_lane_second": best / 1e3
                 / (b * lane_seconds), "peak_mem_gib": peak_gib,
+                "pcm_graph_equals_eager": True,
                 "stage_ms": {"prefill": prefill_ms, "generate": gen_ms,
                              "ar_loop": gen_ms - prefill_ms,
                              "ar_step": (gen_ms - prefill_ms)
@@ -622,6 +678,7 @@ def receive_flagship(torch, dev):
                              "istft": istft_ms, "resample_24k_48k":
                              resample_ms},
                 "ar_step_trace": ar_trace,
+                "ar_step_trace_graph": ar_trace_graph,
                 "wav_peak": float(wav.abs().max())}
 
         # prefill + 4 groups at b = 1, the card against the CPU, bf16
@@ -651,6 +708,8 @@ def receive_flagship(torch, dev):
         "bar_rel": 5e-2, "rel": rel,
         "max_abs": float((on_card - on_cpu).abs().max()),
         "ref_peak": float(on_cpu.abs().max()), "cpu_s": round(cpu_s, 2)}
+    out["graph"] = graph_stats(graphs)
+    out["nvidia_smi"] = nvidia_smi_line()
     emit(out)
     return tcfg, vcfg, tts_params, voc_params
 
@@ -672,14 +731,24 @@ def receive_stream(torch, dev, tcfg, vcfg, tts_params, voc_params) -> None:
     stop = tts_params["stop_head"]
     params = {**tts_params, "stop_head": {
         **stop, "b": torch.full_like(stop["b"], -5.0)}}
-    streamer = StreamingSynthesizer(scfg, tts_params=params,
-                                    vocoder_params=voc_params,
-                                    chunk_groups=16, device="cuda")
+    streamer, eager_streamer = (
+        StreamingSynthesizer(scfg, tts_params=params,
+                             vocoder_params=voc_params, chunk_groups=16,
+                             device="cuda", eager=eager)
+        for eager in (False, True))
     text = "status report follows all clear"
+    t0 = time.perf_counter()
+    streamer.warmup()
+    warmup_s = time.perf_counter() - t0
     chunks = list(streamer.stream(text))  # warm-up, and the comparison
     got = np.concatenate(chunks)
+    eager_chunks = list(eager_streamer.stream(text))
+    check(len(eager_chunks) == len(chunks) and all(
+        np.array_equal(a, b) for a, b in zip(chunks, eager_chunks)),
+        "receive_stream: the replayed and the eager stream differ")
     torch.cuda.synchronize()
     turns = [streamer.turnaround(text) for _ in range(2)]
+    eager_turn = eager_streamer.turnaround(text)
     first_s, total_s, n48 = min(turns, key=lambda t: t[0])
 
     # the fused path on the same prompt, as Synthesizer._run_tts runs it
@@ -715,10 +784,23 @@ def receive_stream(torch, dev, tcfg, vcfg, tts_params, voc_params) -> None:
           "max_mel_frames": scfg.tts.max_mel_frames, "chunks": len(chunks),
           "first_audio_s": first_s, "total_s": total_s,
           "audio_s": n48 / 48_000, "turnarounds": turns,
+          "eager_first_audio_s": eager_turn[0],
+          "eager_total_s": eager_turn[1], "stream_graph_equals_eager": True,
+          "warmup_s": warmup_s, "graph": graph_stats(streamer._graphs),
+          "nvidia_smi": nvidia_smi_line(),
           "fused_ms": {"generate": fused_gen_ms, "vocode_resample":
                        fused_voc_ms},
           "stream_vs_fused_max_abs": err, "bar": bar,
           "wav_peak": float(np.abs(ref).max())})
+
+
+def packet_key(payload: bytes) -> tuple:
+    """A received packet's content, its timestamp left out."""
+    from janus_tpu_torch.common.protocol import JanusPacket
+
+    p = JanusPacket.deserialize(payload)
+    return (p.text, str(p.mode), sorted((p.prosody or {}).items()),
+            p.override_emotion)
 
 
 def demo_phrases_stream() -> np.ndarray:
@@ -870,6 +952,7 @@ def run_duplex(cfg, encoder, synthesizer, audio, device, *,
         mine, writes = writes[:len(entry["chunks"])], writes[len(entry["chunks"]):]
         rx_t, payload = rec["rx"][i]
         turn = {"received_text": JanusPacket.deserialize(payload).text,
+                "payload": payload,
                 "packet_bytes": len(payload),
                 "synth_s": entry.get("end", t_end) - entry["start"],
                 "chunks": len(mine),
@@ -982,8 +1065,8 @@ def duplex_demo(torch, kernels) -> None:
 
     def brief(r):
         return {k: v for k, v in r.items() if k != "turns"} | {
-            "turns": [{k: v for k, v in t.items() if k != "pcm"}
-                      for t in r["turns"]]}
+            "turns": [{k: v for k, v in t.items()
+                       if k not in ("pcm", "payload")} for t in r["turns"]]}
 
     emit({"phase": "duplex_demo", "nvidia_smi": nvidia_smi_line(),
           "link_baud": cfg.link.baud_rate, "spoken": list(DEMO_TEXTS),
@@ -997,7 +1080,9 @@ def duplex_demo(torch, kernels) -> None:
 def duplex_flagship(torch, kernels, asr_params, tcfg, vcfg, tts_params,
                     voc_params) -> None:
     """The live link at full width on one card: the phase-4 recognizer
-    weights and the phase-7 TTS + vocoder weights, reused."""
+    weights and the phase-7 TTS + vocoder weights, reused; once with both
+    loops replayed from their graphs and once eagerly, on the same
+    capture."""
     from janus_tpu_torch.audio.synthetic import conversation
     from janus_tpu_torch.common.config import ASRConfig, JanusConfig
     from janus_tpu_torch.common.protocol import JanusPacket
@@ -1007,44 +1092,83 @@ def duplex_flagship(torch, kernels, asr_params, tcfg, vcfg, tts_params,
     cfg = dataclasses.replace(JanusConfig(), tts=tcfg, vocoder=vcfg,
                               asr=ASRConfig.large_v3())
     cfg = cfg.override(**{"asr.max_decode_tokens": 24})
-    # the default buckets, on the tensors phase 4 built (no copy)
-    enc = SemanticEncoder(cfg, asr_params=asr_params, device="cuda")
     # random-weight stop logits sit near 0; a hard negative bias makes each
     # packet play to its duration cap (0.35 s + 0.15 s a text token)
     stop = tts_params["stop_head"]
     params = {**tts_params, "stop_head": {
         **stop, "b": torch.full_like(stop["b"], -5.0)}}
-    syn = Synthesizer(cfg, tts_params=params, vocoder_params=voc_params,
-                      device="cuda")
     audio = conversation(turns=3, speech_seconds=2.0, silence_seconds=1.0)
-    t0 = time.perf_counter()
-    enc.warmup(bucket=48_000 * 4)  # the bucket of a 2 s turn
-    list(syn.synthesize_streaming(JanusPacket(text="warm up")))
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
 
     def fixed(n):
         return f"test message {n}"
 
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    r = run_duplex(cfg, enc, syn, audio, "cuda", realtime=True,
-                   streaming=True, fixed_text=fixed, timeout_s=180.0)
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(r["sent"] == 3 and r["played"] == 3 and len(r["turns"]) == 3,
-          f"duplex_flagship: {r['sent']} sent, {r['played']} played")
-    for i, t in enumerate(r["turns"]):
-        check(t.get("sent_text") == t["received_text"] == fixed(i + 1)
-              and t["audio_s"] > 0, f"duplex_flagship turn {i}: sent "
-              f"{t.get('sent_text')!r}, played {t['received_text']!r}, "
-              f"{t['audio_s']} s")
-    for name in ("mel_fused", "flash_attn", "yin_block_sums"):
-        check(launches[name] > 0, f"duplex_flagship never launched {name}: "
-              f"{launches}")
+    runs, syns = {}, {}
+    for mode in ("graph", "eager"):
+        eager = mode == "eager"
+        # the default buckets, on the tensors phase 4 built (no copy)
+        enc = SemanticEncoder(cfg, asr_params=asr_params, device="cuda",
+                              eager=eager)
+        syn = Synthesizer(cfg, tts_params=params, vocoder_params=voc_params,
+                          device="cuda", eager=eager)
+        t0 = time.perf_counter()
+        enc.warmup(bucket=48_000 * 4)  # the bucket of a 2 s turn
+        syn.warmup()
+        list(syn.synthesize_streaming(JanusPacket(text="warm up")))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        r = run_duplex(cfg, enc, syn, audio, "cuda", realtime=True,
+                       streaming=True, fixed_text=fixed, timeout_s=180.0)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(r["sent"] == 3 and r["played"] == 3 and len(r["turns"]) == 3,
+              f"duplex_flagship ({mode}): {r['sent']} sent, {r['played']} "
+              f"played")
+        for i, t in enumerate(r["turns"]):
+            check(t.get("sent_text") == t["received_text"] == fixed(i + 1)
+                  and t["audio_s"] > 0, f"duplex_flagship ({mode}) turn {i}:"
+                  f" sent {t.get('sent_text')!r}, played "
+                  f"{t['received_text']!r}, {t['audio_s']} s")
+        for name in ("mel_fused", "flash_attn", "yin_block_sums"):
+            check(launches[name] > 0, f"duplex_flagship ({mode}) never "
+                  f"launched {name}: {launches}")
+        runs[mode] = {
+            "warmup_s": warm_s,
+            "graph": {"encoder": graph_stats(enc._graphs),
+                      "synthesizer": graph_stats(syn.streamer()._graphs)},
+            "turns": [{k: v for k, v in t.items()
+                       if k not in ("pcm", "payload")} for t in r["turns"]],
+            **{k: v for k, v in r.items() if k != "turns"},
+            "launches": launches, "peak_mem_gib": peak_gib}
+        runs[mode]["played"] = [(packet_key(t["payload"]), t["pcm"])
+                                for t in r["turns"]]
+        runs[mode]["payloads"] = [t["payload"] for t in r["turns"]]
+        syns[mode] = syn
+        del enc
+        torch.cuda.empty_cache()
+    # the capture runs in real time, so the two runs may cut the phrases
+    # apart (a chunk dropped while the send loop blocks): a turn whose
+    # packet came out equal must have played equal PCM, and every packet
+    # of the graph run, synthesized again by both synthesizers, gives the
+    # same PCM bit for bit
+    same_packet = []
+    for (pa, a), (pb, b) in zip(runs["graph"].pop("played"),
+                                runs["eager"].pop("played")):
+        same_packet.append(pa == pb)
+        check(pa != pb or a == b, "duplex_flagship: one packet, different "
+              "PCM from the replayed and the eager loops")
+    for payload in runs["graph"].pop("payloads"):
+        pkt = JanusPacket.deserialize(payload)
+        check(b"".join(syns["graph"].synthesize_streaming(pkt))
+              == b"".join(syns["eager"].synthesize_streaming(pkt)),
+              f"duplex_flagship: {pkt} synthesized by the replayed and the "
+              f"eager loop differ")
+    del syns, runs["eager"]["payloads"]
     emit({"phase": "duplex_flagship", "nvidia_smi": nvidia_smi_line(),
           "asr": "whisper-large-v3 (random, seed 0; phase-4 weights), "
                  "bfloat16, max_decode_tokens 24, default buckets",
@@ -1052,12 +1176,10 @@ def duplex_flagship(torch, kernels, asr_params, tcfg, vcfg, tts_params,
                  "bfloat16), stop bias -5, streaming playback",
           "capture": "conversation(turns=3, speech 2.0 s, silence 1.0 s), "
                      "real time",
-          "link_baud": cfg.link.baud_rate, "warmup_s": warm_s,
-          "chunk_period_ms": CHUNK_MS,
-          "turns": [{k: v for k, v in t.items() if k != "pcm"}
-                    for t in r["turns"]],
-          **{k: v for k, v in r.items() if k != "turns"},
-          "launches": launches, "peak_mem_gib": peak_gib})
+          "link_baud": cfg.link.baud_rate, "chunk_period_ms": CHUNK_MS,
+          "packets_equal_by_turn": same_packet,
+          "pcm_graph_equals_eager": True, **runs["graph"],
+          "eager": runs["eager"]})
 
 
 def sessions_flagship(torch, kernels, asr_params) -> dict:
@@ -1097,20 +1219,30 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
               f"{batches} encode batches")
 
     # (a) batch scaling: ms per encode_batch, best of 2 after a warm-up
+    # (which captures the decode step), then once with the eager loop
     enc = SemanticEncoder(cfg, asr_params=asr_params,
                           buckets=(SESSION_BUCKET,), device="cuda")
+    enc_eager = SemanticEncoder(cfg, asr_params=asr_params,
+                                buckets=(SESSION_BUCKET,), device="cuda",
+                                eager=True)
     scaling = {}
     for b in SESSION_BATCHES:
         phrases = [voiced_phrase(f0=150.0 + 3 * i, seconds=2.0, amp=0.12,
                                  seed=i) for i in range(b)]
-        enc.encode_batch(phrases)  # warm-up
+        first = enc.encode_batch(phrases)  # warm-up
         reset_launches()
         times = [synced_ms(torch, lambda: enc.encode_batch(phrases))[1]
                  for _ in range(2)]
         launches = read_launches()
         check_launches(f"b={b}", launches, 2)
+        res, eager_ms = synced_ms(torch, lambda: enc_eager.encode_batch(
+            phrases))
+        check(res == first, f"sessions_flagship b={b}: the eager encode "
+              f"gives {res}, the replayed one {first}")
         scaling[str(b)] = {"encode_ms": times, "best_ms": min(times),
                            "audio_s_per_s": b * 2.0 / (min(times) / 1e3),
+                           "eager_ms": eager_ms,
+                           "eager_audio_s_per_s": b * 2.0 / (eager_ms / 1e3),
                            "launches": launches}
     # one decode step at b = 64, traced
     b = SESSION_BATCHES[-1]
@@ -1127,7 +1259,13 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
                             device=enc.device)
         step = profile_decode_step(torch, asr_mod, enc.params, acfg, encoded,
                                    prompt)
-    del enc, audio, mel, encoded
+        with enc._graphs.lock:
+            step_graph = profile_graph_step(torch, asr_mod.greedy_graph(
+                enc._graphs, enc.params, acfg, b, encoded.shape[-2],
+                encoded.dtype, 1, acfg.max_decode_tokens, torch.bfloat16,
+                False, enc.tokenizer.eot, enc.device))
+    scaling_graph = graph_stats(enc._graphs)
+    del enc, enc_eager, audio, mel, encoded
     torch.cuda.empty_cache()
 
     # (b) the serving tick loop: 32 sessions, one 32 ms chunk per session
@@ -1140,17 +1278,19 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
                 r["text"] = "status report follows"
             return out
 
-    serve_enc = FixedText(cfg, asr_params=asr_params,
-                          buckets=(SESSION_BUCKET,), device="cuda")
+    serve_encs = {mode: FixedText(cfg, asr_params=asr_params,
+                                  buckets=(SESSION_BUCKET,), device="cuda",
+                                  eager=mode == "eager")
+                  for mode in ("graph", "eager")}
     streams = [conversation(turns=2, speech_seconds=0.8 + 0.05 * (i % 8),
                             silence_seconds=0.7, f0=130.0 + 4 * i, amp=0.3,
                             seed=i) for i in range(SESSION_COUNT)]
     chunk = cfg.audio.chunk_samples
     total_audio_s = sum(len(a) for a in streams) / SR
     n_ticks = max(len(a) for a in streams) // chunk + 40
-    submit = serve_enc.encode_batch_submit
 
-    def run_mode(mode_cfg) -> dict:
+    def run_mode(mode_cfg, serve_enc) -> dict:
+        submit = serve_enc.encode_batch_submit
         mgr = SessionManager(mode_cfg, encoder=serve_enc)
         sizes, tick_vad_ms, vad_ms = [], [], [0.0]
         serve_enc.encode_batch_submit = lambda phrases: (
@@ -1207,20 +1347,26 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
                                "runtime.pipelined_vad": False})
     over_cfg = cfg.override(**{"runtime.max_inflight_encodes": 2,
                                "runtime.pipelined_vad": True})
-    run_mode(sync_cfg)  # warm-up
-    sync, over = run_mode(sync_cfg), run_mode(over_cfg)
+    graph_enc, eager_enc = serve_encs["graph"], serve_encs["eager"]
+    graph_enc.warmup()  # the decode steps of one phrase, captured
+    run_mode(sync_cfg, graph_enc)  # warm-up
+    sync, over = run_mode(sync_cfg, graph_enc), run_mode(over_cfg, graph_enc)
+    eager_sync = run_mode(sync_cfg, eager_enc)
+    eager_over = run_mode(over_cfg, eager_enc)
     sessions_log.removeHandler(errors)
     check(not errors.records, f"sessions_flagship logged errors: "
           f"{errors.records}")
-    for name, r in (("sync", sync), ("overlapped", over)):
+    runs = (("sync", sync), ("overlapped", over), ("eager sync", eager_sync),
+            ("eager overlapped", eager_over))
+    for name, r in runs:
         counts = {sid: len(v) for sid, v in r["per_session"].items()}
         check(r["packets"] > 0 and all(n == 2 for n in counts.values()),
               f"sessions_flagship {name}: packets per session {counts}")
-    check(sync["per_session"] == over["per_session"],
-          "sessions_flagship: the prosody codes per session and turn differ "
-          "between the synchronous and the overlapped runs")
+        check(r["per_session"] == sync["per_session"],
+              f"sessions_flagship: the prosody codes per session and turn of "
+              f"the {name} run differ from the synchronous replayed run's")
     # (c) the native ring buffers
-    check(HAVE_NATIVE and sync["native_rings"] and over["native_rings"],
+    check(HAVE_NATIVE and all(r["native_rings"] for _, r in runs),
           "sessions_flagship: the sessions did not ride the C++ ring buffer")
 
     def brief(r):
@@ -1230,6 +1376,8 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
           "asr": "whisper-large-v3 (random, seed 0; phase-4 weights), "
                  "bfloat16, max_decode_tokens 24, bucket 2 s",
           "scaling": scaling, "decode_step_b64": step,
+          "decode_step_b64_graph": step_graph, "scaling_graph": scaling_graph,
+          "tick_loop_graph": graph_stats(graph_enc._graphs),
           "tick_loop": {"sessions": SESSION_COUNT, "ticks": n_ticks,
                         "audio_s": total_audio_s,
                         "capture": "conversation(turns=2, speech 0.8 + "
@@ -1237,6 +1385,10 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
                                    "4 i), one 32 ms chunk a tick",
                         "sync": brief(sync), "overlapped": brief(over),
                         "overlap_speedup": sync["seconds"] / over["seconds"],
+                        "eager_sync": brief(eager_sync),
+                        "eager_overlapped": brief(eager_over),
+                        "eager_overlap_speedup": eager_sync["seconds"]
+                        / eager_over["seconds"],
                         "prosody_per_session": over["per_session"]},
           "have_native": HAVE_NATIVE})
     return over["launches"]
@@ -2678,13 +2830,17 @@ def main() -> None:
                   and r["f0"] > 0 for r in results),
           f"flagship results {results}")
 
-    e2e = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fenc.encode_batch(phrases)
-        torch.cuda.synchronize()
-        e2e.append(1e3 * (time.perf_counter() - t0))
+    # end to end with the decode replayed from its graph and eagerly, in
+    # turns on the same phrases: the same results
+    fenc_eager = SemanticEncoder(fcfg, fenc.params, buckets=(bucket,),
+                                 device="cuda", eager=True)
+    e2e, e2e_eager = [], []
+    for eager in (False, True, False, True, False):
+        res, ms = synced_ms(torch, lambda: (fenc_eager if eager else fenc)
+                            .encode_batch(phrases))
+        (e2e_eager if eager else e2e).append(ms)
+        check(res == results, f"flagship: the {'eager' if eager else 'graph'}"
+              f" encode gives {res}, the first {results}")
 
     # the same stages, one at a time, synchronised around each
     acfg, pcfg = fcfg.asr, fcfg.prosody
@@ -2718,10 +2874,22 @@ def main() -> None:
                             dtype=torch.long, device=dev)
         dense_tokens = stage("decode", lambda: asr_mod.greedy_decode(
             fenc.params, acfg, enc, prompt, fenc.tokenizer.eot,
-            max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16))
+            max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16,
+            graphs=fenc._graphs))
+    eager_tokens = stage("decode_eager", lambda: asr_mod.greedy_decode(
+        fenc.params, acfg, enc, prompt, fenc.tokenizer.eot,
+        max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16,
+        eager=True))
+    check(torch.equal(dense_tokens, eager_tokens), "flagship: the replayed "
+          "decode's tokens differ from the eager loop's")
 
     decode_step = profile_decode_step(torch, asr_mod, fenc.params, acfg, enc,
                                       prompt)
+    with fenc._graphs.lock:
+        decode_step_graph = profile_graph_step(torch, asr_mod.greedy_graph(
+            fenc._graphs, fenc.params, acfg, FLAGSHIP_BATCH, enc.shape[-2],
+            enc.dtype, 1, acfg.max_decode_tokens, torch.bfloat16, False,
+            fenc.tokenizer.eot, dev))
 
     # encoder output against a pass through the plain versions on the card
     with mock.patch.object(asr_mod, "log_mel_spectrogram_fused",
@@ -2747,11 +2915,15 @@ def main() -> None:
           "dtype": acfg.dtype, "batch": FLAGSHIP_BATCH,
           "seconds": FLAGSHIP_SECONDS, "max_decode_tokens": 24,
           "init_s": round(init_s, 3), "first_encode_ms": first_ms,
-          "e2e_ms": e2e, "rtf": best / 1e3 / audio_s,
+          "e2e_ms": e2e, "e2e_eager_ms": e2e_eager,
+          "rtf": best / 1e3 / audio_s,
           "stage_ms": {k: min(v) for k, v in stage_ms.items()},
           "peak_mem_gib": peak_gib, "launches": launches,
           "encoder_vs_plain_max_abs": float(diff.abs().max()),
           "encoder_vs_plain_rel": rel, "decode_step": decode_step,
+          "decode_step_graph": decode_step_graph,
+          "graph": graph_stats(fenc._graphs),
+          "graph_tokens_equal_eager": True, "nvidia_smi": nvidia_smi_line(),
           "texts": [r["text"] for r in results][:2],
           "f0": [r["f0"] for r in results]})
 
@@ -2760,7 +2932,7 @@ def main() -> None:
 
     eot = fenc.tokenizer.eot
     flagship_asr_params = fenc.params  # reused by duplex_flagship
-    del fenc
+    del fenc, fenc_eager
     torch.cuda.empty_cache()
     qcfg = fcfg.override(**{"asr.decode_cross_kv_int8": True})
     t0 = time.perf_counter()
@@ -2785,6 +2957,7 @@ def main() -> None:
     all_kernels = (MEL, FLASH, YIN, CROSS)
     for k in all_kernels:
         k.launches = 0
+    replays = qenc._graphs.replays
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2794,11 +2967,18 @@ def main() -> None:
     q_first_ms = 1e3 * (time.perf_counter() - t0)
     q_launches = {k.name: k.launches for k in all_kernels}
     q_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the prefill's forward runs eagerly (counted by the patch), every step
+    # is a replay of the captured one
+    forwards[0] += qenc._graphs.replays - replays
+    q_step_counts = {k.name: n[0] for g in qenc._graphs.graphs()
+                     for k, n in g.counts.items()}
     check(q_launches["mel_fused"] >= 1, f"int8 mel launches {q_launches}")
     check(q_launches["flash_attn"] == qcfg.asr.encoder_layers,
           f"int8 flash_attn launches {q_launches}")
     check(q_launches["yin_block_sums"] >= 1, f"int8 yin {q_launches}")
-    check(forwards[0] >= 1 and q_launches["cross_attn_int8"]
+    check(q_step_counts == {"cross_attn_int8": qcfg.asr.decoder_layers},
+          f"the captured int8 step launches {q_step_counts}")
+    check(forwards[0] > 1 and q_launches["cross_attn_int8"]
           == qcfg.asr.decoder_layers * forwards[0],
           f"cross_attn_int8 launches {q_launches} for {forwards[0]} "
           f"decoder forwards")
@@ -2806,13 +2986,17 @@ def main() -> None:
           and all(np.isfinite(r["f0"]) and np.isfinite(r["rms"])
                   for r in q_results), f"int8 flagship results {q_results}")
 
-    q_e2e = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        qenc.encode_batch(phrases)
-        torch.cuda.synchronize()
-        q_e2e.append(1e3 * (time.perf_counter() - t0))
+    qenc_eager = SemanticEncoder(qcfg, qenc.params, buckets=(bucket,),
+                                 device="cuda", eager=True)
+    q_e2e, q_e2e_eager = [], []
+    for eager in (False, True, False, False):
+        res, ms = synced_ms(torch, lambda: (qenc_eager if eager else qenc)
+                            .encode_batch(phrases))
+        (q_e2e_eager if eager else q_e2e).append(ms)
+        check(res == q_results, f"flagship_int8: the "
+              f"{'eager' if eager else 'graph'} encode gives {res}, the "
+              f"first {q_results}")
+    del qenc_eager
 
     # the two stages the int8 weights and K/V change, once each
     stage_ms = {}
@@ -2821,9 +3005,20 @@ def main() -> None:
     q_tokens = stage("decode", lambda: asr_mod.greedy_decode(
         qenc.params, acfg, q_enc, prompt, eot,
         max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16,
-        cross_kv_int8=True))
+        cross_kv_int8=True, graphs=qenc._graphs))
+    q_tokens_eager = stage("decode_eager", lambda: asr_mod.greedy_decode(
+        qenc.params, acfg, q_enc, prompt, eot,
+        max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16,
+        cross_kv_int8=True, eager=True))
+    check(torch.equal(q_tokens, q_tokens_eager), "flagship_int8: the "
+          "replayed decode's tokens differ from the eager loop's")
     q_decode_step = profile_decode_step(torch, asr_mod, qenc.params, acfg,
                                         q_enc, prompt, cross_kv_int8=True)
+    with qenc._graphs.lock:
+        q_decode_step_graph = profile_graph_step(torch, asr_mod.greedy_graph(
+            qenc._graphs, qenc.params, acfg, FLAGSHIP_BATCH,
+            q_enc.shape[-2], q_enc.dtype, 1, acfg.max_decode_tokens,
+            torch.bfloat16, True, eot, dev))
 
     def first_step_logits(cross=None) -> "torch.Tensor":
         """Prefill and one decode step of the int8 flagship; ``cross``
@@ -2907,7 +3102,12 @@ def main() -> None:
           "cross_kv": "int8 (QuantKVT)", "batch": FLAGSHIP_BATCH,
           "seconds": FLAGSHIP_SECONDS, "max_decode_tokens": 24,
           "init_s": round(q_init_s, 3), "first_encode_ms": q_first_ms,
-          "e2e_ms": q_e2e, "rtf": min(q_e2e) / 1e3 / audio_s,
+          "e2e_ms": q_e2e, "e2e_eager_ms": q_e2e_eager,
+          "rtf": min(q_e2e) / 1e3 / audio_s,
+          "captured_step_launches": q_step_counts,
+          "graph": graph_stats(qenc._graphs),
+          "graph_tokens_equal_eager": True, "nvidia_smi": nvidia_smi_line(),
+          "decode_step_graph": q_decode_step_graph,
           "stage_ms": {k: min(v) for k, v in stage_ms.items()},
           "peak_mem_gib": q_peak_gib, "launches": q_launches,
           "decoder_forwards": forwards[0],

@@ -130,7 +130,10 @@ def _encode_rank(n: int, tp: int, sp: int, bucket: int, cfg,
     data = n // (tp * sp)
     mesh = (build_mesh(MeshConfig(data=data, model=tp, seq=sp))
             if n > 1 else None)
-    enc = SemanticEncoder(cfg, buckets=(bucket,), device=device, mesh=mesh)
+    # the counting call runs the decode loop eagerly: a replayed step
+    # bypasses the dispatcher whose modes count the aten ops' work
+    enc = SemanticEncoder(cfg, buckets=(bucket,), device=device, mesh=mesh,
+                          eager=iters == 0)
     dev = enc.device
     batch = per_device_batch * data
     audio = torch.zeros((batch, bucket), dtype=torch.float32, device=dev)

@@ -30,11 +30,14 @@ from janus_tpu_torch.ops.layers import (conv1d, embedding_lookup, gelu,
                                         layer_norm, linear, row_linear,
                                         sinusoid_positions)
 from janus_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
-from janus_tpu_torch.ops.quant import quantize_kv_t
+from janus_tpu_torch.ops.quant import QuantKVT, quantize_kv_t
 from janus_tpu_torch.parallel.collectives import (all_gather, axis_index,
                                                   axis_size, enter_model,
                                                   local_heads)
 from janus_tpu_torch.parallel.ring_attention import ring_attention
+from janus_tpu_torch.runtime.step_graph import (DONE_CHECK_EVERY, StepGraph,
+                                                StepGraphs, default_graphs,
+                                                use_graphs)
 
 __all__ = [
     "encode_audio",
@@ -43,6 +46,8 @@ __all__ = [
     "decoder_prefill",
     "decoder_step",
     "greedy_decode",
+    "GreedyGraph",
+    "greedy_graph",
     "prepare_mel",
     "transcribe_mel",
 ]
@@ -150,11 +155,19 @@ def init_decode_state(params: Params, cfg: ASRConfig, enc: torch.Tensor,
     blocks = params["decoder"]["blocks"]
     heads = local_heads(cfg.num_heads, blocks[0]["cross"]["k"]["w"])
     head_dim = cfg.d_model // cfg.num_heads
+    caches = [KVCache.create(batch_shape, heads, max_len, head_dim,
+                             dtype=dtype, device=enc.device) for _ in blocks]
+    return DecodeState(caches, *_cross_kv(params, cfg, enc, cross_kv_int8))
+
+
+def _cross_kv(params: Params, cfg: ASRConfig, enc: torch.Tensor,
+              cross_kv_int8: bool) -> Tuple[List, List]:
+    """Each decoder layer's cross-attention K and V of ``enc``."""
+    blocks = params["decoder"]["blocks"]
+    heads = local_heads(cfg.num_heads, blocks[0]["cross"]["k"]["w"])
     enc = enter_model(enc)
-    caches, ks, vs = [], [], []
+    ks, vs = [], []
     for blk in blocks:
-        caches.append(KVCache.create(batch_shape, heads, max_len,
-                                     head_dim, dtype=dtype, device=enc.device))
         p = blk["cross"]
         ks.append(split_heads(linear(enc, p["k"]["w"], p["k"].get("b")),
                               heads))
@@ -162,7 +175,7 @@ def init_decode_state(params: Params, cfg: ASRConfig, enc: torch.Tensor,
     if cross_kv_int8:
         ks = [quantize_kv_t(k) for k in ks]
         vs = [quantize_kv_t(v) for v in vs]
-    return DecodeState(caches, ks, vs)
+    return ks, vs
 
 
 def _self_qkv(blk: Params, cfg: ASRConfig, x: torch.Tensor):
@@ -181,13 +194,17 @@ def _self_qkv(blk: Params, cfg: ASRConfig, x: torch.Tensor):
 
 
 def _decoder_layer(blk: Params, cfg: ASRConfig, x: torch.Tensor,
-                   cache: KVCache, cross_k, cross_v,
-                   t_new: int) -> torch.Tensor:
+                   cache: KVCache, cross_k, cross_v, t_new: int,
+                   pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cached self-attn → cross-attn → MLP (the cache is appended to in
-    place)."""
+    place; at the device position ``pos`` when one is given)."""
     q, k, v = _self_qkv(blk, cfg, x)
-    cache.append_lockstep(k, v)
-    mask = cache.valid_mask(t_new)
+    if pos is None:
+        cache.append_lockstep(k, v)
+        mask = cache.valid_mask(t_new)
+    else:
+        cache.write_at(k, v, pos)
+        mask = cache.mask_at(pos, t_new)
     p = blk["attn"]
     x = x + row_linear(merge_heads(attend(q, cache.k, cache.v, mask)),
                        p["out"]["w"], p["out"]["b"])
@@ -201,18 +218,24 @@ def _decoder_layer(blk: Params, cfg: ASRConfig, x: torch.Tensor,
 
 
 def _decoder_forward(params: Params, cfg: ASRConfig, tokens: torch.Tensor,
-                     pos_offset: int, state: DecodeState
+                     pos_offset, state: DecodeState
                      ) -> Tuple[torch.Tensor, DecodeState]:
     """``tokens[..., T_new]`` through the decoder, appending to the caches
-    in place. Returns fp32 logits ``[..., T_new, vocab]`` and the state."""
+    in place. Returns fp32 logits ``[..., T_new, vocab]`` and the state.
+
+    ``pos_offset`` is the caches' fill count: a Python int (the caches'
+    own ``length``, advanced here), or a 0-dim int64 device tensor for a
+    captured step, which writes there and leaves ``length`` to the
+    caller."""
     dec = params["decoder"]
     t_new = tokens.shape[-1]
+    pos = pos_offset if isinstance(pos_offset, torch.Tensor) else None
     positions = pos_offset + torch.arange(t_new, device=tokens.device)
     x = embedding_lookup(dec["token_emb"], tokens)
     x = x + embedding_lookup(dec["pos_emb"], positions)
     for i, blk in enumerate(dec["blocks"]):
         x = _decoder_layer(blk, cfg, x, state.self_caches[i],
-                           state.cross_k[i], state.cross_v[i], t_new)
+                           state.cross_k[i], state.cross_v[i], t_new, pos)
     x = layer_norm(x, **dec["ln"])
     # tied embedding, products accumulated in fp32
     logits = torch.matmul(x.float(), dec["token_emb"].float().T)
@@ -239,15 +262,30 @@ def greedy_decode(params: Params, cfg: ASRConfig, enc: torch.Tensor,
                   prompt: torch.Tensor, eot_id: int,
                   max_new: Optional[int] = None,
                   cache_dtype=torch.float32,
-                  cross_kv_int8: bool = False) -> torch.Tensor:
+                  cross_kv_int8: bool = False, *, eager: bool = False,
+                  graphs: Optional[StepGraphs] = None) -> torch.Tensor:
     """Batched greedy search: ``[B, max_new]`` int32 tokens, padded with
-    ``eot_id`` after each lane finishes; stops once every lane has
-    emitted eot (one host sync per step reads that flag).
-    ``cross_kv_int8`` as in :func:`init_decode_state`. Runs without
-    autograd: with parameters that require gradients, a graph over every
-    layer and step would otherwise be held until the tokens are read."""
+    ``eot_id`` after each lane finishes. ``cross_kv_int8`` as in
+    :func:`init_decode_state`. Runs without autograd: with parameters
+    that require gradients, a graph over every layer and step would
+    otherwise be held until the tokens are read.
+
+    On the card the prefill runs eagerly (its width is the prompt's) and
+    each step is a replay of one captured step (:class:`GreedyGraph`,
+    from ``graphs``, the caller's :class:`~janus_tpu_torch.runtime.
+    step_graph.StepGraphs`, or the module's own): the loop returns once
+    the last step is enqueued, having read the ``done`` flags back once
+    every ``DONE_CHECK_EVERY`` steps (a lane that is done writes
+    ``eot_id``, which is what the early exit leaves, so reading late
+    changes nothing). On the CPU, with ``eager=True``, or under a mesh of
+    more than one rank, the steps run eagerly from Python and the flags
+    are read back before every step."""
     if max_new is None:
         max_new = cfg.max_decode_tokens
+    if use_graphs(enc.device, eager):
+        return _greedy_graphed(params, cfg, enc, prompt, eot_id, max_new,
+                               cache_dtype, cross_kv_int8,
+                               graphs or default_graphs("asr"))
     cache_len = prompt.shape[-1] + max_new
     state = init_decode_state(params, cfg, enc, max_len=cache_len,
                               dtype=cache_dtype, cross_kv_int8=cross_kv_int8)
@@ -269,6 +307,126 @@ def greedy_decode(params: Params, cfg: ASRConfig, enc: torch.Tensor,
         out[:, step] = nxt
         done = done | (nxt == eot_id)
     return out
+
+
+def _greedy_graphed(params, cfg, enc, prompt, eot_id, max_new, cache_dtype,
+                    cross_kv_int8, graphs: StepGraphs) -> torch.Tensor:
+    """:func:`greedy_decode` through a :class:`GreedyGraph` of ``graphs``
+    (on the CPU its step runs eagerly over the static buffers)."""
+    with graphs.lock:
+        return greedy_graph(graphs, params, cfg, prompt.shape[0],
+                            enc.shape[-2], enc.dtype, prompt.shape[-1],
+                            max_new, cache_dtype, cross_kv_int8, eot_id,
+                            enc.device).decode(enc, prompt)
+
+
+class GreedyGraph:
+    """The greedy loop's static state for one shape and one tree, and its
+    step captured over it (:class:`~janus_tpu_torch.runtime.step_graph.
+    StepGraph`): the self caches, the cross K/V (dense, or int8
+    :class:`~janus_tpu_torch.ops.quant.QuantKVT` in the K4 kernel's
+    padded layout), the token fed to the step, the fill position (a
+    device counter the step advances), the ``done`` flags and the output
+    buffer (one column past ``max_new``). The static cross K/V are built
+    by :func:`init_decode_state` itself, so they have the eager path's
+    layout and strides.
+
+    :meth:`decode` fills it for one call (zeroes the self caches, copies
+    the new cross K/V in, prefills eagerly, sets the counters) and
+    replays the step; :meth:`advance` is one replay, which the host
+    refuses when it would write past the caches or read past the
+    position table."""
+
+    def __init__(self, graphs: StepGraphs, params: Params, cfg: ASRConfig,
+                 batch: int, enc_frames: int, enc_dtype, prompt_len: int,
+                 max_new: int, cache_dtype, cross_kv_int8: bool, eot_id: int,
+                 device: torch.device):
+        self.params, self.cfg = params, cfg
+        self.prompt_len, self.max_new = prompt_len, max_new
+        self.cross_kv_int8, self.eot_id = cross_kv_int8, eot_id
+        self.cache_len = prompt_len + max_new
+        enc = torch.zeros((batch, enc_frames, cfg.d_model), dtype=enc_dtype,
+                          device=device)
+        self.state = init_decode_state(params, cfg, enc,
+                                       max_len=self.cache_len,
+                                       dtype=cache_dtype,
+                                       cross_kv_int8=cross_kv_int8)
+        self.tok = torch.zeros((batch,), dtype=torch.long, device=device)
+        self.pos = torch.full((), prompt_len, dtype=torch.long, device=device)
+        self.done = torch.zeros((batch,), dtype=torch.bool, device=device)
+        # one column past max_new, so that a step may run to the caches'
+        # end
+        self.out = torch.full((batch, max_new + 1), eot_id,
+                              dtype=torch.int32, device=device)
+        self.fill = prompt_len
+        self.graph = StepGraph(self._step, device,
+                               **graphs.capture_args(device))
+
+    def _step(self) -> None:
+        logits, _ = _decoder_forward(self.params, self.cfg, self.tok[:, None],
+                                     self.pos, self.state)
+        nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+        nxt = torch.where(self.done, torch.full_like(nxt, self.eot_id), nxt)
+        col = (self.pos - (self.prompt_len - 1)).reshape(1)
+        self.out.index_copy_(1, col, nxt[:, None])
+        torch.logical_or(self.done, nxt == self.eot_id, out=self.done)
+        self.tok.copy_(nxt)
+        self.pos.add_(1)
+
+    def advance(self) -> None:
+        """One step: a replay (on the CPU, the step run eagerly)."""
+        rows = self.params["decoder"]["pos_emb"].shape[0]
+        if self.fill + 1 > self.cache_len:
+            raise ValueError(f"KV cache overflow: {self.fill} + 1 > "
+                             f"capacity {self.cache_len}")
+        if self.fill >= rows:
+            raise ValueError(f"position {self.fill} lies outside the "
+                             f"decoder's position table of {rows} rows")
+        self.graph.replay()
+        self.fill += 1
+
+    def decode(self, enc: torch.Tensor, prompt: torch.Tensor) -> torch.Tensor:
+        """:func:`greedy_decode` of ``enc`` on the static state."""
+        st = self.state
+        for c in st.self_caches:
+            c.k.zero_()
+            c.v.zero_()
+            c.length = 0
+        ks, vs = _cross_kv(self.params, self.cfg, enc, self.cross_kv_int8)
+        for dst, src in zip(st.cross_k + st.cross_v, ks + vs):
+            if isinstance(dst, QuantKVT):
+                dst.q.copy_(src.q)
+                dst.scale.copy_(src.scale)
+            else:
+                dst.copy_(src)
+        del ks, vs
+        first_logits, _ = decoder_prefill(self.params, self.cfg, prompt, st)
+        first = torch.argmax(first_logits, dim=-1).to(torch.int32)
+        self.out.fill_(self.eot_id)
+        self.out[:, 0] = first
+        self.done.copy_(first == self.eot_id)
+        self.tok.copy_(first)
+        self.pos.fill_(self.prompt_len)
+        self.fill = self.prompt_len
+        for step in range(1, self.max_new):
+            if step % DONE_CHECK_EVERY == 1 and bool(self.done.all()):
+                break
+            self.advance()
+        return self.out[:, :self.max_new].clone()
+
+
+def greedy_graph(graphs: StepGraphs, params: Params, cfg: ASRConfig,
+                 batch: int, enc_frames: int, enc_dtype, prompt_len: int,
+                 max_new: int, cache_dtype, cross_kv_int8: bool, eot_id: int,
+                 device: torch.device) -> GreedyGraph:
+    """The :class:`GreedyGraph` of ``graphs`` for this shape and tree,
+    captured at its first request (so an encoder can capture its buckets
+    up front). Call with ``graphs.lock`` held."""
+    key = ("greedy", cfg, batch, enc_frames, enc_dtype, prompt_len, max_new,
+           cache_dtype, cross_kv_int8, eot_id)
+    return graphs.holder(params, key, lambda: GreedyGraph(
+        graphs, params, cfg, batch, enc_frames, enc_dtype, prompt_len,
+        max_new, cache_dtype, cross_kv_int8, eot_id, device))
 
 
 # --------------------------------------------------------------------------

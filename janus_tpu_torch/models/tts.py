@@ -38,6 +38,9 @@ from janus_tpu_torch.ops.attention import (KVCache, attend, merge_heads,
 from janus_tpu_torch.ops.layers import (embedding_lookup, gelu, layer_norm,
                                         linear, row_linear)
 from janus_tpu_torch.parallel.collectives import enter_model, local_heads
+from janus_tpu_torch.runtime.step_graph import (DONE_CHECK_EVERY, StepGraph,
+                                                StepGraphs, default_graphs,
+                                                use_graphs)
 
 __all__ = [
     "EMOTIONS",
@@ -48,6 +51,8 @@ __all__ = [
     "tts_generate",
     "tts_prefill",
     "tts_decode_chunk",
+    "ARGraph",
+    "ar_graph",
     "prestack_tts",
     "TTSState",
     "audio_pos_base",
@@ -64,11 +69,6 @@ EMOTIONS = (
     "neutral", "excited", "joyful", "whispering", "shouting", "sad",
     "relaxed", "panicked", "serious", "calm", "angry", "auto",
 )
-
-# The sampling loops read their ``done`` flags back (a device -> host
-# wait) once every this many steps, not every step. A finished lane writes
-# zeros and keeps its count, so leaving the loop late changes nothing.
-_DONE_CHECK_EVERY = 8
 
 
 def emotion_id(tag: str) -> int:
@@ -135,18 +135,23 @@ def _embed_mel(params: Params, mel_groups: torch.Tensor) -> torch.Tensor:
 
 
 def _block(blk: Params, x: torch.Tensor, num_heads: int, cache: KVCache,
-           mask: Optional[torch.Tensor]):
+           mask: Optional[torch.Tensor],
+           fill: Optional[torch.Tensor] = None):
     """One pre-norm block over ``x[B, S, d]``, appending to ``cache`` in
-    place. ``mask`` is the causal mask of an earlier layer of this pass
-    (every layer's cache has the same capacity and fill) or None; the
-    mask used is returned beside the output."""
+    place (at the device position ``fill`` when one is given). ``mask``
+    is the causal mask of an earlier layer of this pass (every layer's
+    cache has the same capacity and fill) or None; the mask used is
+    returned beside the output."""
     h = enter_model(layer_norm(x, **blk["attn_ln"]))
     p = blk["attn"]
     heads = local_heads(num_heads, p["q"]["w"])
     q = split_heads(linear(h, p["q"]["w"], p["q"]["b"]), heads)
     k = split_heads(linear(h, p["k"]["w"], p["k"].get("b")), heads)
     v = split_heads(linear(h, p["v"]["w"], p["v"]["b"]), heads)
-    cache.append_lockstep(k, v)
+    if fill is None:
+        cache.append_lockstep(k, v)
+    else:
+        cache.write_at(k, v, fill)
     if mask is None:
         mask = cache.valid_mask(x.shape[-2])
     x = x + row_linear(merge_heads(attend(q, cache.k, cache.v, mask)),
@@ -159,9 +164,14 @@ def _block(blk: Params, x: torch.Tensor, num_heads: int, cache: KVCache,
 
 
 class TTSState(NamedTuple):
-    """Per-layer KV caches, written in place as generation advances."""
+    """Per-layer KV caches, written in place as generation advances. A
+    state that :func:`tts_prefill` filled on the card also names the
+    :class:`ARGraph` whose static caches it holds and that holder's
+    ``epoch`` at the prefill (a later prefill on the holder refills it)."""
 
     caches: Tuple[KVCache, ...]
+    graph: Optional["ARGraph"] = None
+    epoch: int = 0
 
     @property
     def fill(self) -> int:
@@ -222,15 +232,19 @@ def _pos_rows(params: Params, start: int, n: int) -> torch.Tensor:
 
 
 def _forward_embedded(params: Params, cfg: TTSConfig, x: torch.Tensor,
-                      pos: torch.Tensor, state: TTSState
+                      pos: torch.Tensor, state: TTSState,
+                      fill: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, TTSState]:
     """Shared trunk over already-embedded inputs ``[B, S, d]`` and their
     position rows ``pos[S, d]``. Returns (mel_out [B, S, r*n_mels],
-    stop_logit [B, S], state); the caches are appended to in place."""
+    stop_logit [B, S], state); the caches are appended to in place, at
+    their ``length`` or, for a captured step, at the 0-dim device tensor
+    ``fill`` (``length`` is then the caller's to keep)."""
     x = x + pos
-    mask = None
+    mask = (None if fill is None
+            else state.caches[0].mask_at(fill, x.shape[-2]))
     for blk, cache in zip(params["blocks"], state.caches):
-        x, mask = _block(blk, x, cfg.num_heads, cache, mask)
+        x, mask = _block(blk, x, cfg.num_heads, cache, mask, fill)
     x = layer_norm(x, **params["ln"])
     mel = linear(x, params["mel_head"]["w"], params["mel_head"]["b"])
     stop = linear(x, params["stop_head"]["w"], params["stop_head"]["b"])[..., 0]
@@ -294,38 +308,58 @@ def tts_forward(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
 def tts_prefill(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
                 emotion: torch.Tensor, speaker: Optional[torch.Tensor] = None,
                 max_groups: Optional[int] = None, text_vocab: int = 261,
-                stop_threshold: float = 0.5
+                stop_threshold: float = 0.5, *, eager: bool = False,
+                graphs: Optional[StepGraphs] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, TTSState]:
     """Prompt prefill: ``(group0[B, r*n_mels], done[B], state)``, the
     first step of :func:`tts_generate` with the KV state exposed, so that
     a caller can drive generation in chunks (streaming synthesis).
 
     The generation caches are in ``cfg.dtype`` whatever the parameters'
-    dtype (the fp32 caches are the teacher-forced pass's only)."""
+    dtype (the fp32 caches are the teacher-forced pass's only). On the
+    card (unless ``eager``, or under a mesh of more than one rank) the
+    prefill fills the static caches of an :class:`ARGraph` from
+    ``graphs`` (or the module's own), whose captured step
+    :func:`tts_decode_chunk` then replays."""
     if max_groups is None:
         max_groups = cfg.max_mel_frames // cfg.reduction
+    if use_graphs(text_ids.device, eager):
+        return _prefill_graphed(params, cfg, text_ids, emotion, speaker,
+                                max_groups, text_vocab, stop_threshold,
+                                graphs or default_graphs("tts"))
     b = text_ids.shape[0]
     prompt = _prompt_embedding(params, cfg, text_ids, emotion, speaker,
                                text_vocab)
     state = _make_state(params, cfg, b, prompt.shape[1] + max_groups,
                         dtype=getattr(torch, cfg.dtype), device=prompt.device)
-    mel0, stop0, state = _forward_embedded(
-        params, cfg, prompt, _pos_rows(params, 0, prompt.shape[1]), state)
-    first = mel0[:, -1, :]  # prediction for group 0
-    done = torch.sigmoid(stop0[:, -1]) > stop_threshold
+    first, done = _prefill(params, cfg, prompt, state, stop_threshold)
     return first, done, state
 
 
+def _prefill(params: Params, cfg: TTSConfig, prompt: torch.Tensor,
+             state: TTSState, stop_threshold: float):
+    mel0, stop0, _ = _forward_embedded(
+        params, cfg, prompt, _pos_rows(params, 0, prompt.shape[1]), state)
+    first = mel0[:, -1, :]  # prediction for group 0
+    return first, torch.sigmoid(stop0[:, -1]) > stop_threshold
+
+
 def _step(params: Params, cfg: TTSConfig, state: TTSState,
-          prev: torch.Tensor, done: torch.Tensor, group: int,
-          stop_threshold: float):
+          prev: torch.Tensor, done: torch.Tensor, group, stop_threshold: float,
+          fill: Optional[torch.Tensor] = None):
     """One AR step: ``prev[B, r*n_mels]`` (group ``group``) in, group
-    ``group + 1`` out (zeros for a finished lane), and the new flags."""
+    ``group + 1`` out (zeros for a finished lane), and the new flags. For
+    a captured step ``group`` and ``fill`` (the caches' fill point) are
+    0-dim device tensors."""
     x = _embed_mel(params, prev[:, None, :])
     # audio group g sits at the fixed position base + g, whatever the
     # prompt length (audio_pos_base)
-    pos = _pos_rows(params, audio_pos_base(cfg) + group, 1)
-    mel, stop, _ = _forward_embedded(params, cfg, x, pos, state)
+    if fill is None:
+        pos = _pos_rows(params, audio_pos_base(cfg) + group, 1)
+    else:
+        pos = params["pos_emb"].index_select(
+            0, (group + audio_pos_base(cfg)).reshape(1))
+    mel, stop, _ = _forward_embedded(params, cfg, x, pos, state, fill)
     nxt = mel[:, 0, :].float().masked_fill(done[:, None], 0.0)
     return nxt, done | (torch.sigmoid(stop[:, 0]) > stop_threshold)
 
@@ -333,7 +367,8 @@ def _step(params: Params, cfg: TTSConfig, state: TTSState,
 def tts_generate(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
                  emotion: torch.Tensor, speaker: Optional[torch.Tensor] = None,
                  max_groups: Optional[int] = None, text_vocab: int = 261,
-                 stop_threshold: float = 0.5
+                 stop_threshold: float = 0.5, *, eager: bool = False,
+                 graphs: Optional[StepGraphs] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KV-cached autoregressive sampling.
 
@@ -341,15 +376,24 @@ def tts_generate(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
     frames in float32 (zeros after a lane's stop) and the per-sequence
     valid frame count. Every step re-enters through the prenet from the
     float32 output buffer, so under bf16 parameters the steps run float32
-    activations against bf16 weights, as in the JAX package."""
+    activations against bf16 weights, as in the JAX package.
+
+    On the card each step is a replay of the captured step of an
+    :class:`ARGraph` (from ``graphs``, or the module's own), bit-equal to
+    the eager step; on the CPU, with ``eager=True`` or under a mesh of
+    more than one rank the steps run eagerly from Python."""
     if max_groups is None:
         max_groups = cfg.max_mel_frames // cfg.reduction
     b = text_ids.shape[0]
     r_mels = cfg.reduction * cfg.n_mels
+    if use_graphs(text_ids.device, eager):
+        return _generate_graphed(params, cfg, text_ids, emotion, speaker,
+                                 max_groups, text_vocab, stop_threshold,
+                                 graphs or default_graphs("tts"))
     first, done, state = tts_prefill(
         params, cfg, text_ids, emotion, speaker=speaker,
         max_groups=max_groups, text_vocab=text_vocab,
-        stop_threshold=stop_threshold)
+        stop_threshold=stop_threshold, eager=True)
 
     out = torch.zeros((b, max_groups, r_mels), dtype=torch.float32,
                       device=first.device)
@@ -357,8 +401,8 @@ def tts_generate(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
     n_groups = torch.ones((b,), dtype=torch.int32, device=first.device)
     for step in range(1, max_groups):
         # the JAX loop tests ``all(done)`` before every step; here the
-        # flags are read back every _DONE_CHECK_EVERY steps only
-        if step % _DONE_CHECK_EVERY == 1 and bool(done.all()):
+        # flags are read back every DONE_CHECK_EVERY steps only
+        if step % DONE_CHECK_EVERY == 1 and bool(done.all()):
             break
         was_done = done
         nxt, done = _step(params, cfg, state, out[:, step - 1, :], done,
@@ -367,6 +411,36 @@ def tts_generate(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
         n_groups = torch.where(was_done, n_groups, step + 1)
     mel = out.reshape(b, max_groups * cfg.reduction, cfg.n_mels)
     return mel, n_groups * cfg.reduction
+
+
+def _prefill_graphed(params, cfg, text_ids, emotion, speaker, max_groups,
+                     text_vocab, stop_threshold, graphs: StepGraphs):
+    """:func:`tts_prefill` into the static caches of an :class:`ARGraph`
+    of ``graphs`` (on the CPU its step runs eagerly over them)."""
+    with graphs.lock:
+        prompt = _prompt_embedding(params, cfg, text_ids, emotion, speaker,
+                                   text_vocab)
+        return ar_graph(graphs, params, cfg, text_ids.shape[0],
+                        prompt.shape[1], max_groups, stop_threshold,
+                        prompt.device).start(prompt)
+
+
+def _generate_graphed(params, cfg, text_ids, emotion, speaker, max_groups,
+                      text_vocab, stop_threshold, graphs: StepGraphs):
+    """:func:`tts_generate` through an :class:`ARGraph` of ``graphs``."""
+    b = text_ids.shape[0]
+    with graphs.lock:
+        _, _, state = _prefill_graphed(params, cfg, text_ids, emotion,
+                                       speaker, max_groups, text_vocab,
+                                       stop_threshold, graphs)
+        h = state.graph
+        for step in range(1, max_groups):
+            if step % DONE_CHECK_EVERY == 1 and bool(h.done.all()):
+                break
+            h.advance()
+        mel = h.out[:, :max_groups].reshape(
+            b, max_groups * cfg.reduction, cfg.n_mels).clone()
+        return mel, h.n_groups * cfg.reduction
 
 
 def tts_decode_chunk(params: Params, cfg: TTSConfig, state: TTSState,
@@ -381,7 +455,15 @@ def tts_decode_chunk(params: Params, cfg: TTSConfig, state: TTSState,
     zeros after each sequence's stop, matching what :func:`tts_generate`
     writes into its output buffer. ``dones[:, i]`` is the flag BEFORE
     group i was emitted (True: that group is padding zeros). No flag is
-    read back here: the caller reads ``dones`` once per chunk."""
+    read back here: the caller reads ``dones`` once per chunk. A state
+    that :func:`tts_prefill` filled on the card replays its
+    :class:`ARGraph`'s step (``start_group`` must then be the number of
+    steps taken since the prefill, as a streaming caller's is)."""
+    if state.graph is not None:
+        h = state.graph
+        with h.lock:
+            return h.chunk(state, prev_group, done, int(start_group),
+                           n_steps)
     prev = prev_group.float()
     groups, dones = [], []
     for step in range(n_steps):
@@ -391,3 +473,121 @@ def tts_decode_chunk(params: Params, cfg: TTSConfig, state: TTSState,
         groups.append(prev)
     return (torch.stack(groups, dim=1), torch.stack(dones, dim=1), prev,
             done, state)
+
+
+class ARGraph:
+    """The AR loop's static state for one batch, prompt width, budget and
+    tree, and its step captured over it (:class:`~janus_tpu_torch.runtime.
+    step_graph.StepGraph`): the KV caches (in ``cfg.dtype``), the group
+    fed to the step (float32, as the eager loop re-enters from its output
+    buffer), the ``done`` flags, the group index (a device counter the
+    step advances; the fill point is the prompt width past it), and the
+    output buffers every step writes: the groups (``out``, one column past
+    the budget so that a step may run to the caches' end), the flags
+    before each step (``dones``) and the valid group count.
+
+    :meth:`start` fills it for one prompt (zeroes the caches, prefills
+    eagerly, sets the counters); :meth:`advance` is one replay, which the
+    host refuses when it would write past the caches or read past the
+    position table; :meth:`chunk` serves :func:`tts_decode_chunk`."""
+
+    def __init__(self, graphs: StepGraphs, params: Params, cfg: TTSConfig,
+                 batch: int, prompt_len: int, max_groups: int,
+                 stop_threshold: float, device: torch.device):
+        self.params, self.cfg = params, cfg
+        self.prompt_len, self.max_groups = prompt_len, max_groups
+        self.stop_threshold = stop_threshold
+        self.lock = graphs.lock
+        self.caches = _make_state(params, cfg, batch, prompt_len + max_groups,
+                                  dtype=getattr(torch, cfg.dtype),
+                                  device=device).caches
+        r_mels = cfg.reduction * cfg.n_mels
+        self.prev = torch.zeros((batch, r_mels), device=device)
+        self.done = torch.zeros((batch,), dtype=torch.bool, device=device)
+        self.group = torch.zeros((), dtype=torch.long, device=device)
+        self.out = torch.zeros((batch, max_groups + 1, r_mels), device=device)
+        self.dones = torch.zeros((batch, max_groups), dtype=torch.bool,
+                                 device=device)
+        self.n_groups = torch.ones((batch,), dtype=torch.int32, device=device)
+        self.steps = 0   # steps taken since the prefill (the host's count)
+        self.epoch = 0   # prefills so far
+        self.graph = StepGraph(self._step, device,
+                               **graphs.capture_args(device))
+
+    def _step(self) -> None:
+        nxt, done = _step(self.params, self.cfg, TTSState(self.caches),
+                          self.prev, self.done, self.group,
+                          self.stop_threshold,
+                          fill=self.group + self.prompt_len)
+        self.out.index_copy_(1, (self.group + 1).reshape(1), nxt[:, None])
+        self.dones.index_copy_(1, self.group.reshape(1), self.done[:, None])
+        self.n_groups.copy_(torch.where(self.done, self.n_groups,
+                                        (self.group + 2).to(torch.int32)))
+        self.prev.copy_(nxt)
+        self.done.copy_(done)
+        self.group.add_(1)
+
+    def start(self, prompt: torch.Tensor):
+        """Prefill ``prompt[B, P, d]`` into the static caches; returns
+        :func:`tts_prefill`'s ``(group0, done, state)``."""
+        self.epoch += 1
+        for c in self.caches:
+            c.k.zero_()
+            c.v.zero_()
+            c.length = 0
+        state = TTSState(self.caches, self, self.epoch)
+        first, done = _prefill(self.params, self.cfg, prompt, state,
+                               self.stop_threshold)
+        self.out.zero_()
+        self.out[:, 0] = first
+        self.dones.zero_()
+        self.n_groups.fill_(1)
+        self.prev.copy_(first)
+        self.done.copy_(done)
+        self.group.zero_()
+        self.steps = 0
+        return first, done, state
+
+    def advance(self) -> None:
+        """One step: a replay (on the CPU, the step run eagerly)."""
+        g = self.steps
+        if g >= self.max_groups:
+            raise ValueError(f"KV cache overflow: {self.prompt_len + g} + 1 "
+                             f"> capacity {self.prompt_len + self.max_groups}")
+        row = audio_pos_base(self.cfg) + g
+        rows = self.params["pos_emb"].shape[0]
+        if row >= rows:
+            raise ValueError(
+                f"position {row} lies outside the position table of {rows} "
+                f"rows (max_text_tokens + max_mel_frames // reduction + 8)")
+        self.graph.replay()
+        self.steps += 1
+
+    def chunk(self, state: TTSState, prev_group: torch.Tensor,
+              done: torch.Tensor, start_group: int, n_steps: int):
+        if state.epoch != self.epoch:
+            raise RuntimeError("this generation state's caches were "
+                               "refilled by a later prefill")
+        if start_group != self.steps:
+            raise ValueError(f"start_group {start_group}: {self.steps} steps "
+                             f"were taken since the prefill")
+        self.prev.copy_(prev_group)
+        self.done.copy_(done)
+        for _ in range(n_steps):
+            self.advance()
+        lo = start_group
+        return (self.out[:, lo + 1:lo + 1 + n_steps].clone(),
+                self.dones[:, lo:lo + n_steps].clone(), self.prev.clone(),
+                self.done.clone(), state)
+
+
+def ar_graph(graphs: StepGraphs, params: Params, cfg: TTSConfig, batch: int,
+             prompt_len: int, max_groups: int, stop_threshold: float,
+             device: torch.device) -> ARGraph:
+    """The :class:`ARGraph` of ``graphs`` for this shape and tree,
+    captured at its first request (so a synthesizer can capture its text
+    buckets up front). Call with ``graphs.lock`` held."""
+    key = ("ar", cfg, batch, prompt_len, max_groups, float(stop_threshold))
+    return graphs.holder(params, key, lambda: ARGraph(
+        graphs, params, cfg, batch, prompt_len, max_groups, stop_threshold,
+        device))

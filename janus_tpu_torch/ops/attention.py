@@ -88,6 +88,27 @@ class KVCache:
         self.length = start + t_new
         return self
 
+    def write_at(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+        """Write ``[..., H, T_new, Dh]`` at the fill point ``pos``, a 0-dim
+        int64 tensor on the cache's device: the step variant that a CUDA
+        graph captures, which never reads the position back. ``length`` is
+        left alone; the caller keeps the count on the host and raises
+        before a write past ``T_max`` (on the card an index out of range
+        is caught only by the device)."""
+        idx = pos + torch.arange(k_new.shape[-2], device=self.k.device)
+        self.k.index_copy_(-2, idx, k_new.to(self.k.dtype))
+        self.v.index_copy_(-2, idx, v_new.to(self.v.dtype))
+
+    def mask_at(self, pos: torch.Tensor, q_len: int) -> torch.Tensor:
+        """:meth:`valid_mask` for queries written at the device position
+        ``pos`` (the fill point before :meth:`write_at`): the same
+        ``[1, q_len, T_max]`` values, with no host read."""
+        t_max = self.k.shape[-2]
+        kj = torch.arange(t_max, device=self.k.device)[None, :]
+        qi = pos + torch.arange(q_len, device=self.k.device)[:, None]
+        return ((kj <= qi) & (kj < pos + q_len))[None]
+
     def valid_mask(self, q_len: int) -> torch.Tensor:
         """Causal mask ``[1, q_len, T_max]`` for queries appended at the
         end of the filled region (post-append ``length``)."""

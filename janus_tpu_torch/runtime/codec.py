@@ -42,6 +42,7 @@ from janus_tpu_torch.parallel.collectives import (all_gather, axis_index,
                                                   axis_size, use_mesh)
 from janus_tpu_torch.parallel.sharding import (ASR_PARTITION_RULES,
                                                shard_params)
+from janus_tpu_torch.runtime.step_graph import StepGraphs, use_graphs
 
 __all__ = ["SemanticEncoder", "PendingEncode", "duration_bucket",
            "mel_frame_budget", "DEFAULT_BUCKETS"]
@@ -116,8 +117,12 @@ class SemanticEncoder:
 
     def __init__(self, cfg: Optional[JanusConfig] = None, asr_params=None,
                  tokenizer=None, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 device="cuda", mesh=None) -> None:
+                 device="cuda", mesh=None, eager: bool = False) -> None:
         self.device = resolve_device(device)
+        # the greedy loop's path on the card: its captured step (False) or
+        # the eager Python loop (True), see asr.greedy_decode
+        self.eager = eager
+        self._graphs = StepGraphs()
         self.cfg = cfg or JanusConfig()
         self.tokenizer = tokenizer or ByteTokenizer()
         if asr_params is None:
@@ -202,7 +207,8 @@ class SemanticEncoder:
                 self.params, acfg, enc, prompt, self.tokenizer.eot,
                 max_new=acfg.max_decode_tokens,
                 cache_dtype=self._compute_dtype,
-                cross_kv_int8=acfg.decode_cross_kv_int8)
+                cross_kv_int8=acfg.decode_cross_kv_int8, eager=self.eager,
+                graphs=self._graphs)
         out = (tokens, energy_code, pitch_code, f0, rms)
         if data > 1:
             out = tuple(all_gather(a, self.mesh, "data") for a in out)
@@ -217,8 +223,10 @@ class SemanticEncoder:
 
     def encode_batch_submit(self, phrases: Sequence[np.ndarray]) -> PendingEncode:
         """Launch the encode; harvest with :meth:`PendingEncode.result`.
-        (The greedy decode's early-exit test syncs once per token, so the
-        launch returns when the decode loop has finished enqueuing.)"""
+        Returns once the decode loop's last step is enqueued: on the card
+        a replay of its captured step, with the ``done`` flags read back
+        once every 8 steps (eagerly, once a step), so the loop's device
+        work is still running when the handle comes back."""
         if not phrases:
             return PendingEncode.done([])
         max_bucket = self.buckets[-1]
@@ -330,6 +338,20 @@ class SemanticEncoder:
         """Run one silent phrase of ``bucket`` samples (default the
         smallest bucket) through the whole encode: cuBLAS handles, the
         kernels' build and load, and the allocator's pools are set up
-        before the first real phrase."""
+        before the first real phrase. On the graph path the decode step of
+        one phrase in every bucket is captured too, so that no capture
+        happens inside a live turn."""
         b = bucket or self.buckets[0]
         self.encode_batch([np.zeros(b, dtype=np.float32)])
+        acfg = self.cfg.asr
+        with use_mesh(self.mesh), self._graphs.lock:
+            if not use_graphs(self.device, self.eager):
+                return
+            for bucket_ in self.buckets:
+                asr_mod.greedy_graph(
+                    self._graphs, self.params, acfg, 1,
+                    self.mel_frame_budget(bucket_) // 2, self._compute_dtype,
+                    len(self.tokenizer.sot_sequence()),
+                    acfg.max_decode_tokens, self._compute_dtype,
+                    acfg.decode_cross_kv_int8, self.tokenizer.eot,
+                    self.device)

@@ -1,0 +1,234 @@
+"""One step of a decode loop captured in a CUDA graph and replayed.
+
+The JAX package compiles each decode loop into one program: ``jit`` over
+a ``lax.while_loop`` (the recognizer's greedy search,
+``janus_tpu/models/asr.py``) or over the TTS's AR loop
+(``janus_tpu/models/tts.py``). The port's loops are Python. Issued op by op
+from Python, a step is ~1800-2600 launches, and the card idles most of the
+step while the host enqueues them. On the card the port captures one step
+into a CUDA graph, over static buffers (the KV caches, the cross K/V, the
+token or mel group, the device position counter, the output buffer), and
+replays it each step: one host call a step. The JAX package has no
+counterpart of this module: ``jit`` plays its role there.
+
+- :class:`StepGraph`: one step function, captured once after one eager
+  warm-up on the capture stream, replayed per step; on the CPU it runs the
+  step eagerly (the same ops over the same static buffers), which is how
+  the tests hold the device-position step to the eager loop.
+- :class:`StepGraphs`: the graphs of one caller (an encoder, a
+  synthesizer) by key, with one memory pool, one capture stream and one
+  lock, for one parameter tree at a time: a graph holds its weights'
+  addresses, so a call with another tree (any leaf replaced) drops the old
+  graphs and captures anew.
+- Kernel accounting: a replay bypasses the Python wrappers that count
+  their launches (:class:`~janus_tpu_torch.ops.cuda_build.Kernel`), so the
+  counts a capture records are taken back from the kernels and added again
+  at every replay.
+
+:func:`use_graphs` picks the path, with no fallback: the graph on the card,
+the eager loop on the CPU, when the caller asks for it (``eager=True``),
+and under a mesh of more than one rank (its collectives cannot be
+captured). A failed capture or replay raises.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Callable, Dict, Hashable, List, Optional, Tuple
+
+import torch
+
+from janus_tpu_torch.ops.cuda_build import KERNELS, Kernel
+from janus_tpu_torch.parallel.collectives import current_mesh, mesh_shape
+
+__all__ = ["StepGraph", "StepGraphs", "use_graphs", "default_graphs",
+           "DONE_CHECK_EVERY"]
+
+Counts = Dict[Kernel, Tuple[int, float, float]]
+
+# The decode loops read their ``done`` flags back (a device -> host wait)
+# once every this many steps, not every step. A finished lane writes eot
+# (the recognizer) or zeros and keeps its count (the TTS), so leaving the
+# loop late changes nothing.
+DONE_CHECK_EVERY = 8
+
+
+def use_graphs(device: torch.device, eager: bool = False) -> bool:
+    """Whether a decode loop replays a captured step: on a CUDA device,
+    unless ``eager`` asks for the Python loop or the current mesh has more
+    than one rank."""
+    if eager or device.type != "cuda":
+        return False
+    return math.prod(mesh_shape(current_mesh()).values()) == 1
+
+
+def _counts() -> Counts:
+    return {k: (k.launches, k.flops, k.bytes) for k in KERNELS.values()}
+
+
+def _restore(counts: Counts) -> None:
+    for k, (launches, flops, nbytes) in counts.items():
+        k.launches, k.flops, k.bytes = launches, flops, nbytes
+
+
+class StepGraph:
+    """``step()`` (which reads and writes only static tensors) captured in
+    a CUDA graph on a CUDA ``device``; on the CPU :meth:`replay` runs it
+    eagerly.
+
+    On the card: one eager warm-up of ``step`` on the capture stream sets
+    up what must not happen inside a capture (cuBLAS handles and
+    workspaces, kernel libraries, cached constants), then the capture, in
+    ``thread_local`` mode so that another thread may launch work and read
+    results meanwhile (the engine encodes on one thread while the receiver
+    synthesizes on another); a device-wide ``torch.cuda.synchronize()`` in
+    another thread during a capture still invalidates it, so callers
+    capture up front (the ``warmup`` methods) and captures take turns.
+    The warm-up launches count as launches; the capture's are recorded in
+    :attr:`counts` and added to the kernels at every replay.
+    ``capture_ms`` is the warm-up and capture's wall time."""
+
+    def __init__(self, step: Callable[[], None], device: torch.device,
+                 pool=None, stream=None):
+        self.step = step
+        self.device = device
+        self.replays = 0
+        self.counts: Counts = {}
+        self.capture_ms = 0.0
+        self._graph = None
+        if device.type == "cuda":
+            self._graph = self._capture(pool, stream)
+
+    def _capture(self, pool, stream):
+        dev = self.device
+        # one capture at a time in the process: entering a capture
+        # synchronises the device, which would invalidate another thread's
+        # capture under way
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            stream = stream or torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self.step()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            before = _counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.step()
+            after = _counts()
+            _restore(before)
+            self.counts = {k: (a[0] - before[k][0], a[1] - before[k][1],
+                               a[2] - before[k][2])
+                           for k, a in after.items() if a[0] != before[k][0]}
+            stream.synchronize()
+            self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        return graph
+
+    def replay(self) -> None:
+        if self._graph is None:
+            self.step()
+        else:
+            self._graph.replay()
+            for k, (launches, flops, nbytes) in self.counts.items():
+                k.launches += launches
+                k.flops += flops
+                k.bytes += nbytes
+        self.replays += 1
+
+
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _leaves(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _leaves(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    return out
+
+
+class StepGraphs:
+    """The step graphs of one caller: holders by key (each owning its
+    static buffers and its :class:`StepGraph`), one memory pool and one
+    capture stream shared by them, and one lock that a decode holds while
+    it fills and replays a holder (the holders of one caller share the
+    pool, so they never run at the same time). The graphs serve one
+    parameter tree at a time, whose leaves they keep alive."""
+
+    def __init__(self):
+        self.lock = threading.RLock()
+        self._holders: Dict[Hashable, object] = {}
+        self._leaves: Optional[List[torch.Tensor]] = None
+        self._pool = None
+        self._stream = None
+
+    def holder(self, params, key: Hashable, build: Callable[[], object]):
+        """The holder for ``key`` built by ``build()`` for this tree (the
+        first call captures). Call with :attr:`lock` held."""
+        leaves = _leaves(params, [])
+        old = self._leaves
+        if old is None or len(old) != len(leaves) or any(
+                a is not b for a, b in zip(old, leaves)):
+            self.clear()
+            self._leaves = leaves
+        h = self._holders.get(key)
+        if h is None:
+            h = self._holders[key] = build()
+        return h
+
+    def capture_args(self, device: torch.device) -> dict:
+        """The pool and stream a new :class:`StepGraph` of this caller
+        captures with."""
+        if device.type != "cuda":
+            return {}
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device)
+        return {"pool": self._pool, "stream": self._stream}
+
+    def graphs(self) -> List[StepGraph]:
+        return [h.graph for h in self._holders.values()]
+
+    @property
+    def replays(self) -> int:
+        return sum(g.replays for g in self.graphs())
+
+    def pool_bytes(self) -> int:
+        """Device memory the allocator holds in this caller's graph pool
+        (the captured steps' intermediates; the static buffers lie
+        outside it)."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def clear(self) -> None:
+        """Drop every graph and the tree they served (the pool's memory
+        goes back with the last graph)."""
+        with self.lock:
+            self._holders.clear()
+            self._leaves = None
+            self._pool = None
+
+
+_DEFAULT: Dict[str, StepGraphs] = {}
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_graphs(kind: str) -> StepGraphs:
+    """The graphs of the bare model functions called without a caller's
+    own :class:`StepGraphs` (one per loop ``kind``, so the recognizer's and
+    the TTS's do not evict each other)."""
+    with _DEFAULT_LOCK:
+        g = _DEFAULT.get(kind)
+        if g is None:
+            g = _DEFAULT[kind] = StepGraphs()
+        return g

@@ -41,6 +41,7 @@ from janus_tpu_torch.models import vocoder as voc_mod
 from janus_tpu_torch.models.params import tree_to
 from janus_tpu_torch.models.tokenizer import ByteTokenizer
 from janus_tpu_torch.ops.resample import resample_poly
+from janus_tpu_torch.runtime.step_graph import StepGraphs, use_graphs
 
 __all__ = ["StreamingSynthesizer"]
 
@@ -59,8 +60,12 @@ class StreamingSynthesizer:
     def __init__(self, cfg: Optional[JanusConfig] = None, tts_params=None,
                  vocoder_params=None, chunk_groups: int = 16,
                  rng_seed: int = 0, stop_threshold: float = 0.5,
-                 device="cuda") -> None:
+                 device="cuda", eager: bool = False) -> None:
         self.device = resolve_device(device)
+        # the AR loop's path on the card: its captured step (False) or the
+        # eager Python loop (True), see tts.tts_prefill
+        self.eager = eager
+        self._graphs = StepGraphs()
         self.cfg = cfg or JanusConfig()
         self.tokenizer = ByteTokenizer()
 
@@ -112,7 +117,8 @@ class StreamingSynthesizer:
         first, done, state = tts_mod.tts_prefill(
             self.tts_params, tcfg, torch.from_numpy(padded).to(dev), emo,
             speaker=spk, text_vocab=self.tokenizer.vocab_size,
-            stop_threshold=self.stop_threshold)
+            stop_threshold=self.stop_threshold, eager=self.eager,
+            graphs=self._graphs)
 
         # buffers over the FULL budget (like tts_generate's zero-filled
         # output buffer, so parity holds after the stop)
@@ -221,6 +227,19 @@ class StreamingSynthesizer:
             if emitted48 >= n48:
                 break
             a = b
+
+    def warmup(self) -> None:
+        """On the graph path, capture the AR step of one prompt in every
+        text bucket, so that no capture happens inside a live turn."""
+        tcfg = self.cfg.tts
+        with self._graphs.lock:
+            if not use_graphs(self.device, self.eager):
+                return
+            for bucket in tts_mod.text_buckets(tcfg.max_text_tokens):
+                tts_mod.ar_graph(self._graphs, self.tts_params, tcfg, 1,
+                                 bucket + 3, tcfg.max_mel_frames
+                                 // tcfg.reduction, self.stop_threshold,
+                                 self.device)
 
     def stream_pcm16(self, text: str, emotion_tag: str = "neutral",
                      speaker=None) -> Iterator[bytes]:

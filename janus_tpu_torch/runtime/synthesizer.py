@@ -43,6 +43,7 @@ from janus_tpu_torch.parallel.sharding import (TTS_PARTITION_RULES,
                                                VOCODER_PARTITION_RULES,
                                                shard_params)
 from janus_tpu_torch.runtime.emotion import tts_emotion_tag
+from janus_tpu_torch.runtime.step_graph import StepGraphs, use_graphs
 
 logger = logging.getLogger(__name__)
 
@@ -77,8 +78,13 @@ class Synthesizer:
         default_speaker_vec=None,
         device="cuda",
         mesh=None,
+        eager: bool = False,
     ) -> None:
         self.device = resolve_device(device)
+        # the AR loop's path on the card: its captured step (False) or the
+        # eager Python loop (True), see tts.tts_generate
+        self.eager = eager
+        self._graphs = StepGraphs()
         self.cfg = cfg or JanusConfig()
         self.tokenizer = ByteTokenizer()
 
@@ -160,7 +166,8 @@ class Synthesizer:
         with use_mesh(self.mesh):
             mel, n_frames = tts_mod.tts_generate(
                 self.tts_params, self.cfg.tts, text_ids, emotion,
-                speaker=speaker, text_vocab=self.tokenizer.vocab_size)
+                speaker=speaker, text_vocab=self.tokenizer.vocab_size,
+                eager=self.eager, graphs=self._graphs)
             wav = voc_mod.vocoder_waveform(self.vocoder_params,
                                            self.cfg.vocoder, mel)
         # vocoder rate -> 48 kHz playback
@@ -223,16 +230,10 @@ class Synthesizer:
                    and packet.override_emotion != "Auto" else "neutral")
         else:
             tag = self._resolve_emotion(packet)
-        if self._streamer is None:
-            from janus_tpu_torch.runtime.streaming_tts import (
-                StreamingSynthesizer)
-
-            self._streamer = StreamingSynthesizer(
-                self.cfg, tts_params=self.tts_params,
-                vocoder_params=self.vocoder_params, device=self.device)
+        streamer = self.streamer()
         emitted = False
         try:
-            chunks = self._streamer.stream_pcm16(packet.text, tag,
+            chunks = streamer.stream_pcm16(packet.text, tag,
                                                  speaker=self._speaker_arg())
             while True:
                 # the mesh is set while a chunk is computed, not while the
@@ -250,6 +251,35 @@ class Synthesizer:
                                                    packet.override_emotion)
                 if fallback:
                     yield fallback
+
+    def streamer(self):
+        """The :class:`~janus_tpu_torch.runtime.streaming_tts.
+        StreamingSynthesizer` of :meth:`synthesize_streaming`, made at the
+        first request on this synthesizer's weights."""
+        if self._streamer is None:
+            from janus_tpu_torch.runtime.streaming_tts import (
+                StreamingSynthesizer)
+
+            self._streamer = StreamingSynthesizer(
+                self.cfg, tts_params=self.tts_params,
+                vocoder_params=self.vocoder_params, device=self.device,
+                eager=self.eager)
+        return self._streamer
+
+    def warmup(self) -> None:
+        """On the graph path, capture the AR step of one prompt in every
+        text bucket, for :meth:`synthesize` and for
+        :meth:`synthesize_streaming`, so that no capture happens inside a
+        live turn."""
+        tcfg = self.cfg.tts
+        with use_mesh(self.mesh), self._graphs.lock:
+            if not use_graphs(self.device, self.eager):
+                return
+            for bucket in tts_mod.text_buckets(tcfg.max_text_tokens):
+                tts_mod.ar_graph(self._graphs, self.tts_params, tcfg, 1,
+                                 bucket + 3, tcfg.max_mel_frames
+                                 // tcfg.reduction, 0.5, self.device)
+            self.streamer().warmup()
 
     # -- public API (reference: synthesizer.py:106-255) --------------------
 

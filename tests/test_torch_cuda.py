@@ -566,3 +566,166 @@ def test_wrappers_record_their_least_work(dev):
     n, flops, nbytes = work(MEL, lambda: mel_log10(audio, n_mels=80))
     assert n == 1 and flops > 2 * 100 * 2.5 * 400 * np.log2(400)
     assert nbytes == 4 * (audio.numel() + 2 * 100 * 80)
+
+
+# -- the decode loops replayed from CUDA graphs -----------------------------
+
+_GRAPH_ASR = dict(n_mels=80, d_model=128, encoder_layers=2, decoder_layers=2,
+                  num_heads=2, vocab_size=261, max_source_positions=64,
+                  max_target_positions=32, max_decode_tokens=12,
+                  dtype="bfloat16")
+_GRAPH_TTS = dict(d_model=64, layers=2, num_heads=4, n_mels=16, reduction=2,
+                  max_text_tokens=32, max_mel_frames=48)
+
+
+def _graph_asr(dev, seed=0, int8=False):
+    """A small recognizer on the card (head dim 64, K4's), bf16, with its
+    random weights scaled up so that the logits separate; an encoder
+    output of it and the prompt."""
+    from janus_tpu_torch.common.config import ASRConfig
+    from janus_tpu_torch.models.asr import encode_audio
+    from janus_tpu_torch.models.params import (cast_floating, init_asr,
+                                               map_tree,
+                                               prepare_decode_params)
+    from janus_tpu_torch.ops.quant import quantize_tree
+
+    cfg = ASRConfig(**_GRAPH_ASR)
+    tree = map_tree(lambda a: a * 4.0 if a.ndim > 1 else a, init_asr(
+        torch.Generator(device=dev).manual_seed(seed), cfg))
+    tree = cast_floating(tree, torch.bfloat16)
+    if int8:
+        tree = quantize_tree(tree, mode="dynamic")
+    params = prepare_decode_params(tree)
+    mel = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (4, 64, 80)).astype(np.float32)).to(dev, torch.bfloat16)
+    enc = encode_audio(params, cfg, mel)
+    prompt = torch.full((4, 1), 256, dtype=torch.long, device=dev)
+    return cfg, params, enc, prompt
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+def test_greedy_graph_equals_eager_on_the_card(dev, int8):
+    """The replayed step gives the eager loop's tokens bit for bit, two
+    calls on one holder; under int8 cross K/V the step runs K4 inside the
+    graph, and the replays count its launches: one a decoder layer and
+    forward (the prefill's and every replayed step's)."""
+    from janus_tpu_torch.models.asr import greedy_decode
+    from janus_tpu_torch.ops.cross_attn import KERNEL as CROSS
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    cfg, params, enc, prompt = _graph_asr(dev, int8=int8)
+    graphs = StepGraphs()
+    kw = dict(max_new=12, cache_dtype=torch.bfloat16, cross_kv_int8=int8)
+    for e in (enc, enc * 0.5):
+        eager = greedy_decode(params, cfg, e, prompt, 257, eager=True, **kw)
+        greedy_decode(params, cfg, e, prompt, 257, graphs=graphs, **kw)
+        torch.cuda.synchronize()
+        before, replays = CROSS.launches, graphs.replays
+        graphed = greedy_decode(params, cfg, e, prompt, 257, graphs=graphs,
+                                **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(graphed, eager)
+        steps = graphs.replays - replays
+        assert steps >= 7
+        assert CROSS.launches - before == (
+            cfg.decoder_layers * (1 + steps) if int8 else 0)
+    assert len(graphs.graphs()) == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tts_graph_equals_eager_on_the_card(dev, dtype):
+    """bf16 weights, fp32 or bf16 caches: the replayed AR step gives the
+    eager loop's mel and ``n_frames`` bit for bit, and the chunked path
+    (``tts_prefill`` + ``tts_decode_chunk``) the eager chunks."""
+    from janus_tpu_torch.common.config import TTSConfig
+    from janus_tpu_torch.models.params import cast_floating
+    from janus_tpu_torch.models.tts import (init_tts, tts_decode_chunk,
+                                            tts_generate, tts_prefill)
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    cfg = TTSConfig(**_GRAPH_TTS, dtype=dtype)
+    params = cast_floating(init_tts(torch.Generator(device=dev).manual_seed(0),
+                                    cfg), torch.bfloat16)
+    rng = np.random.default_rng(1)
+    text = torch.from_numpy(rng.integers(0, 256, (3, 8))).to(dev)
+    emo = torch.tensor([1, 4, 0], device=dev)
+    spk = torch.from_numpy(rng.standard_normal((3, 64)).astype(
+        np.float32)).to(dev)
+    graphs = StepGraphs()
+    for thr in (2.0, 0.5):
+        eager = tts_generate(params, cfg, text, emo, speaker=spk,
+                             stop_threshold=thr, eager=True)
+        graphed = tts_generate(params, cfg, text, emo, speaker=spk,
+                               stop_threshold=thr, graphs=graphs)
+        assert torch.equal(graphed[0], eager[0])
+        assert torch.equal(graphed[1], eager[1])
+    *a, graph_state = tts_prefill(params, cfg, text, emo, speaker=spk,
+                                  graphs=graphs)
+    *b, eager_state = tts_prefill(params, cfg, text, emo, speaker=spk,
+                                  eager=True)
+    assert graph_state.graph is not None and eager_state.graph is None
+    for lo, n in ((0, 10), (10, 10), (20, 3)):
+        got = tts_decode_chunk(params, cfg, graph_state, *a, lo, n)
+        want = tts_decode_chunk(params, cfg, eager_state, *b, lo, n)
+        for x, y in zip(got[:4], want[:4]):
+            assert torch.equal(x, y)
+        a, b = got[2:4], want[2:4]
+
+
+def test_a_replaced_tree_is_recaptured_on_the_card(dev):
+    """Two trees through one caller's graphs: each call gives its own
+    tree's eager tokens (a graph holds the weights' addresses, so the
+    second tree is captured anew)."""
+    from janus_tpu_torch.models.asr import greedy_decode
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    graphs = StepGraphs()
+    kw = dict(max_new=12, cache_dtype=torch.bfloat16)
+    seen = []
+    for seed in (0, 1, 0):
+        cfg, params, enc, prompt = _graph_asr(dev, seed=seed)
+        graphed = greedy_decode(params, cfg, enc, prompt, 257, graphs=graphs,
+                                **kw)
+        eager = greedy_decode(params, cfg, enc, prompt, 257, eager=True, **kw)
+        assert torch.equal(graphed, eager)
+        seen.append(graphs.graphs()[0])
+    assert seen[0] is not seen[1] and seen[1] is not seen[2]
+
+
+def test_capture_beside_another_threads_work(dev):
+    """A capture (thread-local mode) while a second thread keeps launching
+    products on its stream and reading results back, as the receiver's
+    thread does beside the encoder's: it succeeds and the replayed loop
+    still equals the eager one."""
+    import threading
+    import time
+
+    from janus_tpu_torch.models.asr import greedy_decode
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    cfg, params, enc, prompt = _graph_asr(dev)
+    stop, done = threading.Event(), []
+
+    def busy():
+        a = torch.randn(1024, 1024, device=dev)
+        while not stop.is_set():
+            for _ in range(20):
+                a = torch.tanh(a @ a)
+            done.append(float(a[0, 0]))
+            torch.cuda.current_stream(dev).synchronize()
+
+    t = threading.Thread(target=busy)
+    t.start()
+    try:
+        while not done:
+            time.sleep(0.01)
+        graphs = StepGraphs()
+        graphed = greedy_decode(params, cfg, enc, prompt, 257, graphs=graphs,
+                                max_new=12, cache_dtype=torch.bfloat16)
+    finally:
+        stop.set()
+        t.join()
+    eager = greedy_decode(params, cfg, enc, prompt, 257, eager=True,
+                          max_new=12, cache_dtype=torch.bfloat16)
+    assert graphs.graphs()[0].capture_ms > 0
+    assert torch.equal(graphed, eager)
