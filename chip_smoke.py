@@ -29,6 +29,17 @@ printing one JSON line per result:
    replayed from its CUDA graph and eagerly (``eager=True``) in turns on
    the same inputs: equal results and tokens; one step of each traced
    (host calls, busy ms, idle share), the graphs' capture ms and pool;
+4b. whisper_dropin — the drop-in path of a Whisper checkpoint on phase
+   4's weights: a synthetic large-v3-shaped ``vocab.json`` /
+   ``merges.txt`` (51,866 ids, the specials at large-v3's ids) through
+   ``BpeTokenizer.from_files`` (round trips, host µs of encode and
+   decode); the tree as an HF-named fp32 state dict back through
+   ``params_from_hf_state_dict`` (host seconds and memory; every leaf
+   bit-equal after the encoder's fusion); ``SemanticEncoder(tokenizer=
+   bpe)`` with the four-token ``sot_sequence``, captured by ``warmup``
+   at ``prompt_len`` 4 and replayed against eager in turns (equal tokens
+   and packets, ``encode_batch_submit`` at b = 8, K1-K3 launched), then
+   the same under the int8 configuration (K4 launched);
 5. flagship int8 — the same model with dynamic-int8 weights and int8
    cross K/V (the analogue of CTranslate2 ``compute_type='int8'``): times,
    launches (K4 once per decoder layer and forward, the replayed steps'
@@ -111,7 +122,8 @@ printing one JSON line per result:
    resource tracker are stopped, and no child process of the script may
    be left running;
 19. the ``kernels`` summary line: each kernel's launches by phase (K1-K3
-   from the flagship encode, the tick loop's overlapped run, the tools,
+   from the flagship encode, the drop-in encodes, the tick loop's
+   overlapped run, the tools,
    the card's server run, the training phases, the gates and the two
    parallel phases; K4 from the int8 flagship encode and
    ``flagship_check --int8``), the kernels inside replayed decode steps
@@ -186,6 +198,12 @@ GLOO_P2P_REFUSAL = ("RuntimeError: [/pytorch/third_party/gloo/gloo/transport"
                     "/tcp/pair.cc:339] writev [127.0.0.1]:36177: Bad address")
 UPLOAD_TYPES = {"wav": "audio/wav", "webm": "audio/webm;codecs=opus",
                 "ogg": "audio/ogg;codecs=opus"}
+# Whisper large-v3's language tokens (<|en|> first): only their count
+# and the first one's id matter to the synthetic pair
+WHISPER_LANGUAGE_COUNT = 100
+DROPIN_TEXTS = ("hello world", " The quick brown fox jumps over the lazy dog.",
+                "naïve café — 日本語 🙂", "  two  spaces", "")
+DROPIN_TRANSCRIPT_TOKENS = 24
 
 
 def emit(obj) -> None:
@@ -2313,6 +2331,398 @@ def profile_tools(torch, kernels, params, fcfg) -> dict:
     return by_phase
 
 
+def write_large_v3_pair(directory: str, seed: int = 0):
+    """A synthetic ``vocab.json`` / ``merges.txt`` pair shaped like Whisper
+    large-v3's: ids 0-255 the GPT-2 byte symbols, 256-50256 merges drawn
+    from ``seed``, then the specials at large-v3's ids and the 1,501
+    timestamps. Each merge joins two existing tokens into a new one: first
+    every pair of the lowercase letters and the space symbol in a seeded
+    order (so that merges reach real text), then pairs drawn three times
+    in four from the first 4096 tokens made of those symbols, else from
+    all tokens toward the short early ones. No merge starts with ``#``,
+    which the loader reads as a comment. Returns the two paths."""
+    from janus_tpu_torch.models.tokenizer import _bytes_to_unicode
+
+    b2u = _bytes_to_unicode()
+    tokens = list(b2u.values())
+    check(not any(ch.isspace() for t in tokens for ch in t),
+          "a byte symbol is whitespace")
+    vocab = {t: i for i, t in enumerate(tokens)}
+    letters = [b2u[b] for b in b" abcdefghijklmnopqrstuvwxyz"]
+    rng = np.random.default_rng(seed)
+    pairs = [(a, b) for a in letters for b in letters]
+    merges = [pairs[i] for i in rng.permutation(len(pairs))]
+    for a, b in merges:
+        vocab[a + b] = len(tokens)
+        tokens.append(a + b)
+    texty = letters + [a + b for a, b in merges]
+    while len(tokens) < 50_257:
+        which = rng.random((4096, 2)) < 0.75
+        frac = rng.random((4096, 2))
+        for w, f in zip(which, frac):
+            n = len(tokens)
+            if n == 50_257:
+                break
+            a, b = (texty[int(fj * min(len(texty), 4096))] if wj
+                    else tokens[int(fj * fj * n)] for wj, fj in zip(w, f))
+            if a[0] == "#" or a + b in vocab:
+                continue
+            vocab[a + b] = n
+            tokens.append(a + b)
+            merges.append((a, b))
+            if w.all():
+                texty.append(a + b)
+    specials = (["<|endoftext|>", "<|startoftranscript|>"]
+                + ["<|en|>"] + [f"<|lang{i}|>" for i in
+                                range(1, WHISPER_LANGUAGE_COUNT)]
+                + ["<|translate|>", "<|transcribe|>", "<|startoflm|>",
+                   "<|startofprev|>", "<|nospeech|>", "<|notimestamps|>"]
+                + [f"<|{i // 50}.{2 * (i % 50):02d}|>" for i in range(1501)])
+    for s in specials:
+        vocab[s] = len(vocab)
+    vocab_path = os.path.join(directory, "vocab.json")
+    merges_path = os.path.join(directory, "merges.txt")
+    with open(vocab_path, "w") as f:
+        json.dump(vocab, f)
+    with open(merges_path, "w") as f:
+        f.write("#version: 0.2\n")
+        f.writelines(f"{a} {b}\n" for a, b in merges)
+    return vocab_path, merges_path
+
+
+def hf_state_dict(params) -> dict:
+    """An ASR tree of the port (decoder q/k/v fused or not, any dtype, on
+    any device) as a HuggingFace ``WhisperModel`` state dict of float32
+    host arrays: the inverse of ``models/import_whisper.py``'s mapping
+    (``Linear`` weights ``[out, in]``, ``Conv1d`` ``[out, in, k]``). A
+    fused K bias must be zero: Whisper's ``k_proj`` has none."""
+    sd = {}
+
+    def put(name, t):
+        sd[f"model.{name}"] = t.float().contiguous().cpu().numpy()
+
+    def linear(name, p):
+        put(f"{name}.weight", p["w"].t())
+        if "b" in p:
+            put(f"{name}.bias", p["b"])
+
+    def norm(name, p):
+        put(f"{name}.weight", p["scale"])
+        put(f"{name}.bias", p["bias"])
+
+    def attn(name, p):
+        if "qkv" in p:
+            d = p["qkv"]["w"].shape[0]
+            w = p["qkv"]["w"].split(d, dim=-1)
+            b = p["qkv"]["b"].split(d)
+            check(not bool(b[1].any()), f"{name}: a nonzero fused K bias")
+            p = {"q": {"w": w[0], "b": b[0]}, "k": {"w": w[1]},
+                 "v": {"w": w[2], "b": b[2]}, "out": p["out"]}
+        for proj in ("q", "k", "v", "out"):
+            linear(f"{name}.{proj}_proj", p[proj])
+
+    def mlp(name, p):
+        linear(f"{name}.fc1", p["fc1"])
+        linear(f"{name}.fc2", p["fc2"])
+
+    enc, dec = params["encoder"], params["decoder"]
+    for conv in ("conv1", "conv2"):
+        put(f"encoder.{conv}.weight", enc[conv]["w"].permute(2, 1, 0))
+        put(f"encoder.{conv}.bias", enc[conv]["b"])
+    for i, blk in enumerate(enc["blocks"]):
+        p = f"encoder.layers.{i}"
+        norm(f"{p}.self_attn_layer_norm", blk["attn_ln"])
+        attn(f"{p}.self_attn", blk["attn"])
+        norm(f"{p}.final_layer_norm", blk["mlp_ln"])
+        mlp(p, blk["mlp"])
+    norm("encoder.layer_norm", enc["ln_post"])
+    put("decoder.embed_tokens.weight", dec["token_emb"])
+    put("decoder.embed_positions.weight", dec["pos_emb"])
+    for i, blk in enumerate(dec["blocks"]):
+        p = f"decoder.layers.{i}"
+        norm(f"{p}.self_attn_layer_norm", blk["attn_ln"])
+        attn(f"{p}.self_attn", blk["attn"])
+        norm(f"{p}.encoder_attn_layer_norm", blk["cross_ln"])
+        attn(f"{p}.encoder_attn", blk["cross"])
+        norm(f"{p}.final_layer_norm", blk["mlp_ln"])
+        mlp(p, blk["mlp"])
+    norm("decoder.layer_norm", dec["ln"])
+    return sd
+
+
+def first_step_logits(torch, params, acfg, enc, prompt, cross=None):
+    """Prefill ``prompt`` and take one decode step of a recognizer with
+    int8 cross K/V; ``cross`` replaces the decoder's cross-attention."""
+    from janus_tpu_torch.models import asr as asr_mod
+
+    with mock.patch.object(asr_mod, "cross_attention_kv",
+                           cross or asr_mod.cross_attention_kv):
+        state = asr_mod.init_decode_state(
+            params, acfg, enc, max_len=prompt.shape[-1] + 1,
+            dtype=torch.bfloat16, cross_kv_int8=True)
+        _, state = asr_mod.decoder_prefill(params, acfg, prompt, state)
+        logits, _ = asr_mod.decoder_step(params, acfg, prompt[:, -1], state)
+    return logits.float()
+
+
+def checked_cross_attention():
+    """A stand-in for the decoder's cross-attention that launches K4 and
+    holds every call against the plain version on the same inputs, at the
+    kernel phase's bf16 bar (one bf16 ulp). Returns it and its tally (the
+    query rows ``tq`` it saw)."""
+    from janus_tpu_torch.ops.cross_attn import (cross_attention_int8,
+                                                cross_attention_int8_plain)
+
+    tally = {"calls": 0, "elements": 0, "differing": 0, "worst": 0.0,
+             "tq": []}
+
+    def checked(q, k, v):
+        out = cross_attention_int8(q, k, v)
+        ref = cross_attention_int8_plain(q, k, v).float()
+        tally["calls"] += 1
+        tally["elements"] += out.numel()
+        tally["differing"] += int((out.float() != ref).sum())
+        tally["worst"] = max(tally["worst"], float(
+            ((out.float() - ref).abs() / (1e-5 + 2 ** -7 * ref.abs())).max()))
+        tally["tq"] = sorted(set(tally["tq"]) | {q.shape[-2]})
+        return out
+
+    return checked, tally
+
+
+def peak_rss_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def whisper_dropin(torch, kernels, params, fcfg, phrases) -> dict:
+    """The drop-in path of a Whisper checkpoint at large-v3 width: a
+    synthetic large-v3-shaped BPE pair through ``BpeTokenizer.from_files``;
+    phase 4's tree (``params``, bf16, decoder q/k/v fused) as an HF-named
+    state dict through ``params_from_hf_state_dict``, bit-equal after the
+    encoder's fusion; then ``SemanticEncoder(tokenizer=bpe)`` on the
+    phrases with the four-token ``sot_sequence``: captured by ``warmup``
+    and replayed against eager, dense and under int8. Returns each
+    configuration's kernel launches."""
+    import shutil
+
+    from janus_tpu_torch.common.config import ASRConfig
+    from janus_tpu_torch.common.device import resolve_device
+    from janus_tpu_torch.models import asr as asr_mod
+    from janus_tpu_torch.models.import_whisper import params_from_hf_state_dict
+    from janus_tpu_torch.models.params import (cast_floating,
+                                               flatten_with_paths, tree_to)
+    from janus_tpu_torch.models.tokenizer import BpeTokenizer
+    from janus_tpu_torch.ops.quant import quantize_tree
+    from janus_tpu_torch.ops.resample import decimate_48k_to_16k
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+
+    t_phase = time.perf_counter()
+
+    # -- the pair -----------------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="janus_bpe_")
+    try:
+        t0 = time.perf_counter()
+        vocab_path, merges_path = write_large_v3_pair(tmp)
+        pair_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bpe = BpeTokenizer.from_files(vocab_path, merges_path)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    sot = bpe.sot_sequence()
+    check(bpe.vocab_size == 51_866 == ASRConfig.large_v3().vocab_size
+          and fcfg.asr.vocab_size == bpe.vocab_size,
+          f"the pair's vocab_size {bpe.vocab_size}")
+    check(len(bpe.bpe_ranks) == 50_001, f"{len(bpe.bpe_ranks)} merges")
+    check(sot == [50258, 50259, 50360, 50364] and bpe.eot == 50257,
+          f"sot_sequence {sot}, eot {bpe.eot}")
+    for text in DROPIN_TEXTS:
+        check(bpe.decode(bpe.encode(text)) == text,
+              f"BPE round trip of {text!r}")
+    words = "the quick brown fox jumps over the lazy dog again".split()
+    transcript, ids = "", []
+    while len(ids) < DROPIN_TRANSCRIPT_TOKENS:
+        transcript += " " + words[len(transcript) % len(words)]
+        ids = bpe.encode(transcript)
+    ids = ids[:DROPIN_TRANSCRIPT_TOKENS]
+    line = bpe.decode(ids)
+    t0 = time.perf_counter()
+    check(bpe.encode(line) == ids, "the transcript's ids")
+    encode_first_us = 1e6 * (time.perf_counter() - t0)
+
+    def host_us(fn, calls: int = 200) -> float:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return 1e6 * (time.perf_counter() - t0) / calls
+
+    tokenizer = {"vocab_size": bpe.vocab_size, "merges": len(bpe.bpe_ranks),
+                 "sot_sequence": sot, "eot": bpe.eot,
+                 "write_s": pair_s, "from_files_s": load_s,
+                 "round_trips": len(DROPIN_TEXTS),
+                 "transcript_tokens": len(ids),
+                 "transcript_chars": len(line),
+                 "encode_first_us": encode_first_us,
+                 "encode_us": host_us(lambda: bpe.encode(line)),
+                 "decode_us": host_us(lambda: bpe.decode(ids))}
+
+    # -- the importer at full width ----------------------------------------
+    rss0 = peak_rss_gib()
+    t0 = time.perf_counter()
+    sd = hf_state_dict(params)
+    to_hf_s = time.perf_counter() - t0
+    sd_gib = sum(a.nbytes for a in sd.values()) / 2 ** 30
+    t0 = time.perf_counter()
+    tree = params_from_hf_state_dict(sd)
+    import_s = time.perf_counter() - t0
+    del sd
+    t0 = time.perf_counter()
+    imported = tree_to(cast_floating(tree, torch.bfloat16),
+                       resolve_device("cuda"))
+    del tree
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t0
+    importer = {"state_dict_gib": sd_gib, "to_hf_s": to_hf_s,
+                "params_from_hf_state_dict_s": import_s,
+                "bf16_to_card_s": to_card_s,
+                "peak_rss_gib_before": rss0, "peak_rss_gib": peak_rss_gib()}
+
+    # -- the encode ---------------------------------------------------------
+    bucket = int(SR * FLAGSHIP_SECONDS)
+    benc = SemanticEncoder(fcfg, imported, tokenizer=bpe, buckets=(bucket,),
+                           device="cuda")
+    ref = dict(flatten_with_paths(params))
+    got = dict(flatten_with_paths(benc.params))
+    check(sorted(got) == sorted(ref)
+          and all(got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k])
+                  for k in ref),
+          "the imported tree differs from phase 4's")
+    importer["leaves_bit_equal"] = len(ref)
+    del ref, got
+    benc_eager = SemanticEncoder(fcfg, benc.params, tokenizer=bpe,
+                                 buckets=(bucket,), device="cuda", eager=True)
+
+    _, warmup_ms = synced_ms(torch, benc.warmup)
+    keys = list(benc._graphs._holders)
+    check(len(keys) == 1 and keys[0][2] == 1 and keys[0][5] == len(sot),
+          f"warmup captured {[(k[2], k[5]) for k in keys]} (batch, "
+          f"prompt_len)")
+    benc_eager.warmup()
+
+    def run(enc):
+        """(packets, tokens) of one ``encode_batch_submit`` of the
+        phrases, and its ms."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = enc.encode_batch_submit(phrases)
+        tokens = pending._arrays[0]
+        res = pending.result()
+        ms = 1e3 * (time.perf_counter() - t0)
+        return [packet_bytes(r) for r in res], tokens.cpu(), res, ms
+
+    def graph_and_eager(enc, enc_eager, name):
+        """The first graph encode (the b = 8 capture inside it), with the
+        launches counted from 0; then eager and graph in turns: equal
+        tokens and packets throughout."""
+        acfg = enc.cfg.asr
+        reset_launches(kernels)
+        packets, tokens, res, first_ms = run(enc)
+        launches = read_launches(kernels)
+        ms = {"graph": [], "eager": []}
+        for eager in (True, False, True, False):
+            p, t, _, m = run(enc_eager if eager else enc)
+            ms["eager" if eager else "graph"].append(m)
+            check(torch.equal(t, tokens) and p == packets,
+                  f"{name}: the {'eager' if eager else 'graph'} encode "
+                  f"differs from the first graph encode")
+        _, sync_ms = synced_ms(torch, lambda: enc.encode_batch(phrases))
+        check(enc.encode_batch(phrases) == res, f"{name}: encode_batch")
+        check(tokens.shape == (FLAGSHIP_BATCH, acfg.max_decode_tokens)
+              and len(packets) == FLAGSHIP_BATCH
+              and all(np.isfinite(r["f0"]) and np.isfinite(r["rms"])
+                      for r in res), f"{name}: results {res}")
+        keys = list(enc._graphs._holders)
+        check(all(k[5] == len(sot) for k in keys)
+              and any(k[2] == FLAGSHIP_BATCH for k in keys),
+              f"{name}: holders {[(k[2], k[5]) for k in keys]}")
+        with enc._graphs.lock:
+            holder = asr_mod.greedy_graph(
+                enc._graphs, enc.params, acfg, FLAGSHIP_BATCH,
+                enc.mel_frame_budget(bucket) // 2, torch.bfloat16, len(sot),
+                acfg.max_decode_tokens, torch.bfloat16,
+                acfg.decode_cross_kv_int8, bpe.eot, enc.device)
+            check(holder.graph.replays > 0 and len(enc._graphs._holders)
+                  == len(keys), f"{name}: the b = 8 holder was not replayed")
+            step = profile_graph_step(torch, holder)
+        return launches, {
+            "first_encode_ms": first_ms, "submit_ms": ms,
+            "encode_batch_ms": sync_ms,
+            "holders": [{"batch": k[2], "prompt_len": k[5]} for k in keys],
+            "decode_step_graph": step, "graph": graph_stats(enc._graphs),
+            "tokens_equal_eager": True, "packets_byte_equal_eager": True,
+            "texts": [r["text"][:80] for r in res][:2],
+            "tokens_row0": tokens[0].tolist()}
+
+    launches, dense = graph_and_eager(benc, benc_eager, "whisper_dropin")
+    check(all(launches[k] > 0 for k in
+              ("mel_fused", "flash_attn", "yin_block_sums"))
+          and launches["flash_attn"] == fcfg.asr.encoder_layers,
+          f"whisper_dropin launches {launches}")
+    del benc, benc_eager
+    torch.cuda.empty_cache()
+
+    # -- the int8 configuration -------------------------------------------
+    qcfg = fcfg.override(**{"asr.decode_cross_kv_int8": True})
+    qenc = SemanticEncoder(qcfg, quantize_tree(imported, mode="dynamic"),
+                           tokenizer=bpe, buckets=(bucket,), device="cuda")
+    del imported
+    qenc_eager = SemanticEncoder(qcfg, qenc.params, tokenizer=bpe,
+                                 buckets=(bucket,), device="cuda", eager=True)
+    qenc.warmup()
+    qenc_eager.warmup()
+    q_launches, int8 = graph_and_eager(qenc, qenc_eager,
+                                       "whisper_dropin_int8")
+    check(all(n > 0 for n in q_launches.values()),
+          f"whisper_dropin_int8 launches {q_launches}")
+
+    # every K4 call of the prefill (four query rows) and of the first step
+    # against the plain version, at the shapes the encode gives it
+    acfg, dev = qcfg.asr, qenc.device
+    a16 = decimate_48k_to_16k(torch.from_numpy(np.stack(phrases)).to(dev)
+                              .float())
+    q_enc = asr_mod.encode_audio(qenc.params, acfg, asr_mod.prepare_mel(
+        a16, acfg, pad_to_frames=qenc.mel_frame_budget(bucket)).to(
+            torch.bfloat16))
+    prompt = torch.tensor(sot, device=dev).expand(FLAGSHIP_BATCH, len(sot))
+    checked_cross, on_path = checked_cross_attention()
+    logits_k = first_step_logits(torch, qenc.params, acfg, q_enc, prompt)
+    logits_c = first_step_logits(torch, qenc.params, acfg, q_enc, prompt,
+                                 checked_cross)
+    check(bool(torch.isfinite(logits_k).all())
+          and torch.equal(logits_k, logits_c)
+          and on_path["calls"] == 2 * acfg.decoder_layers
+          and on_path["tq"] == [1, len(sot)] and on_path["worst"] <= 1.0,
+          f"whisper_dropin_int8: K4 on the {len(sot)}-token prefill and "
+          f"first step outside one bf16 ulp of plain {on_path}")
+    int8["k4_on_path"] = on_path
+    del q_enc
+    del qenc, qenc_eager
+    torch.cuda.empty_cache()
+    emit({"phase": "whisper_dropin", "nvidia_smi": nvidia_smi_line(),
+          "phase_s": time.perf_counter() - t_phase,
+          "model": "whisper-large-v3 (phase 4's random weights, seed 0) "
+                   "through an HF-named state dict",
+          "tokenizer": tokenizer, "importer": importer,
+          "warmup_ms": warmup_ms, "batch": FLAGSHIP_BATCH,
+          "seconds": FLAGSHIP_SECONDS,
+          "max_decode_tokens": fcfg.asr.max_decode_tokens,
+          "dense": {**dense, "launches": launches},
+          "int8": {**int8, "launches": q_launches}})
+    return {"whisper_dropin": launches, "whisper_dropin_int8": q_launches}
+
+
 def main() -> None:
     import torch
 
@@ -2714,14 +3124,17 @@ def main() -> None:
                 summary["cross_attn_int8"] = row
 
     # other shapes and layouts: a T that is no multiple of 4 or 16, a prompt
-    # of several rows, two blocks and one block per (batch, head), rows
-    # packed densely (4-byte and 1-byte loads)
-    for t, tq_ in ((499, 1), (499, 3), (500, 5), (200, 1), (77, 1)):
+    # of several rows (the whisper_dropin prefill's four rows at full
+    # width), two blocks and one block per (batch, head), rows packed
+    # densely (4-byte and 1-byte loads)
+    for b_, h_, t, tq_ in ((2, 5, 499, 1), (2, 5, 499, 3), (2, 5, 500, 5),
+                           (FLAGSHIP_BATCH, h, CROSS_T[0], 4),
+                           (2, 5, 200, 1), (2, 5, 77, 1)):
         for dtype, rtol, atol in cross_bars:
-            q = torch.randn((2, 5, tq_, dh), generator=gen,
+            q = torch.randn((b_, h_, tq_, dh), generator=gen,
                             device=dev).to(dtype)
-            kq, vq = (quantize_kv_t(torch.randn((2, 5, t, dh), generator=gen,
-                                                device=dev))
+            kq, vq = (quantize_kv_t(torch.randn((b_, h_, t, dh),
+                                                generator=gen, device=dev))
                       for _ in range(2))
             ref = cross_attention_int8_plain(q, kq, vq)
             packed = tuple(QuantKVT(x.q.contiguous(), x.scale)
@@ -2731,7 +3144,7 @@ def main() -> None:
                 tol_ratio = worst_ratio(cross_attention_int8(q, kk, vv), ref,
                                         rtol, atol)
                 emit({"phase": "kernel", "name": "cross_attn_int8",
-                      "batch": 2, "heads": 5, "tq": tq_, "t": t,
+                      "batch": b_, "heads": h_, "tq": tq_, "t": t,
                       "head_dim": dh, "dtype": str(dtype).split(".")[-1],
                       "layout": layout, "splits": plan_splits(t),
                       "load_bytes": k4_load_bytes(kk, vv),
@@ -2927,6 +3340,10 @@ def main() -> None:
           "texts": [r["text"] for r in results][:2],
           "f0": [r["f0"] for r in results]})
 
+    # -- 4b. whisper_dropin: a BPE pair, the importer, a 4-token prompt ---
+    dropin_launches = whisper_dropin(torch, kernels, fenc.params, fcfg,
+                                     phrases)
+
     # -- 5. flagship int8: dynamic-int8 weights, int8 cross K/V ------------
     from janus_tpu_torch.models.params import cast_floating, init_asr
 
@@ -3020,33 +3437,9 @@ def main() -> None:
             q_enc.shape[-2], q_enc.dtype, 1, acfg.max_decode_tokens,
             torch.bfloat16, True, eot, dev))
 
-    def first_step_logits(cross=None) -> "torch.Tensor":
-        """Prefill and one decode step of the int8 flagship; ``cross``
-        replaces the decoder's cross-attention."""
-        with mock.patch.object(asr_mod, "cross_attention_kv",
-                               cross or asr_mod.cross_attention_kv):
-            state = asr_mod.init_decode_state(
-                qenc.params, acfg, q_enc, max_len=prompt.shape[-1] + 1,
-                dtype=torch.bfloat16, cross_kv_int8=True)
-            _, state = asr_mod.decoder_prefill(qenc.params, acfg, prompt,
-                                               state)
-            logits, _ = asr_mod.decoder_step(qenc.params, acfg,
-                                             prompt[:, -1], state)
-        return logits.float()
-
     # every K4 call of that step against the plain version on the same
     # inputs, at the kernel phase's bf16 bar (one bf16 ulp)
-    on_path = {"calls": 0, "elements": 0, "differing": 0, "worst": 0.0}
-
-    def checked_cross(q, k, v):
-        out = cross_attention_int8(q, k, v)
-        ref = cross_attention_int8_plain(q, k, v).float()
-        on_path["calls"] += 1
-        on_path["elements"] += out.numel()
-        on_path["differing"] += int((out.float() != ref).sum())
-        on_path["worst"] = max(on_path["worst"], float(
-            ((out.float() - ref).abs() / (1e-5 + 2 ** -7 * ref.abs())).max()))
-        return out
+    checked_cross, on_path = checked_cross_attention()
 
     def plain_fp64(q, k, v):
         """The plain version's arithmetic in float64: the control."""
@@ -3058,10 +3451,14 @@ def main() -> None:
                          v.q.double().transpose(-1, -2))
         return (o / p.sum(-1, keepdim=True)).to(q.dtype)
 
-    logits_k = first_step_logits()
-    logits_c = first_step_logits(checked_cross)
-    logits_p = first_step_logits(cross_attention_int8_plain)
-    logits_64 = first_step_logits(plain_fp64)
+    def step_logits(cross=None):
+        return first_step_logits(torch, qenc.params, acfg, q_enc, prompt,
+                                 cross)
+
+    logits_k = step_logits()
+    logits_c = step_logits(checked_cross)
+    logits_p = step_logits(cross_attention_int8_plain)
+    logits_64 = step_logits(plain_fp64)
     torch.cuda.synchronize()
 
     def rel(a, b) -> float:
@@ -3148,7 +3545,8 @@ def main() -> None:
     # -- 11-12. the serving surface ----------------------------------------
     by_phase = {"flagship": launches,
                 "flagship_int8": {"cross_attn_int8":
-                                  q_launches["cross_attn_int8"]}}
+                                  q_launches["cross_attn_int8"]},
+                **dropin_launches}
     by_phase["sessions_flagship"] = sessions_flagship(
         torch, all_kernels, flagship_asr_params)
     by_phase.update(profile_tools(torch, all_kernels, flagship_asr_params,

@@ -729,3 +729,54 @@ def test_capture_beside_another_threads_work(dev):
                           max_new=12, cache_dtype=torch.bfloat16)
     assert graphs.graphs()[0].capture_ms > 0
     assert torch.equal(graphed, eager)
+
+
+def _byte_order_bpe(tmp_path):
+    """A ``BpeTokenizer`` over the demo recognizer's 261 ids: id ``b`` is
+    the GPT-2 symbol of byte ``b``, then the specials, whose
+    ``sot_sequence`` is four ids (256, 258, 259, 260)."""
+    import json
+
+    from janus_tpu_torch.models.tokenizer import (BpeTokenizer,
+                                                  _bytes_to_unicode)
+
+    b2u = _bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    vocab.update({"<|startoftranscript|>": 256, "<|endoftext|>": 257,
+                  "<|en|>": 258, "<|transcribe|>": 259,
+                  "<|notimestamps|>": 260})
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "merges.txt").write_text("#version: 0.2\n")
+    return BpeTokenizer.from_files(str(tmp_path / "vocab.json"),
+                                   str(tmp_path / "merges.txt"))
+
+
+def test_bpe_encoder_four_token_prompt_on_the_card(dev, tmp_path):
+    """``SemanticEncoder(tokenizer=bpe)`` with the committed demo
+    recognizer: the four-token prompt's packets on the card (the decode
+    replayed from a graph keyed on ``prompt_len`` 4, and eagerly) equal
+    the CPU's byte for byte."""
+    from janus_tpu_torch.audio.synthetic import render_text
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.models.zoo import load_demo
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+
+    bpe = _byte_order_bpe(tmp_path)
+    assert bpe.sot_sequence() == [256, 258, 259, 260] and bpe.eot == 257
+    b = load_demo(base=JanusConfig())
+    phrases = [render_text(t, 48_000, seed=s) for s, t in
+               enumerate(("alpha bravo", "fox golf hotel", "kilo lima"))]
+
+    def packets(device, eager=False):
+        enc = SemanticEncoder(b.config, b.asr_params, tokenizer=bpe,
+                              buckets=(96_000,), device=device, eager=eager)
+        pkts = [enc.encode_packet(p, timestamp=1.0) for p in phrases]
+        return enc, [None if p is None else p.serialize() for p in pkts]
+
+    card, graphed = packets("cuda")
+    keys = list(card._graphs._holders)
+    assert keys and all(k[5] == 4 for k in keys) and card._graphs.replays > 0
+    _, eager = packets("cuda", eager=True)
+    _, cpu = packets("cpu")
+    assert graphed == eager == cpu
+    assert sum(p is not None for p in cpu) >= 2
