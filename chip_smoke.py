@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the four hand-written CUDA
+Run from the root of a checkout. It builds the six hand-written CUDA
 kernels from ``janus_tpu_torch/csrc`` (one ``nvcc`` per source, all at
 once, into ``build/janus_tpu_torch/``) and runs these phases, each
 printing one JSON line per result:
@@ -17,7 +17,9 @@ printing one JSON line per result:
    CUDA graph) and as an eager loop (``eager_ms``, which the host bounds
    when the kernel is shorter than its wrapper call, ``host_us``); K1, K2
    and K3 also through their earlier kernel on the same inputs
-   (``dense_ms``, ``simt_ms``, ``simple_ms``);
+   (``dense_ms``, ``simt_ms``, ``simple_ms``); the decode steps' layer
+   norm and decode attention (the port's own kernels) at the steps' and
+   the encoder's shapes, against ``F.layer_norm`` and SDPA at bf16;
 3. demo    — the committed demo recognizer through ``SemanticEncoder`` on
    the card and on the CPU: the packets must be byte-equal; then the same
    under the int8 configuration (``quantize_tree`` weights in each mode,
@@ -28,7 +30,9 @@ printing one JSON line per result:
    encoder output against a plain-version pass. The greedy loop runs
    replayed from its CUDA graph and eagerly (``eager=True``) in turns on
    the same inputs: equal results and tokens; one step of each traced
-   (host calls, busy ms, idle share), the graphs' capture ms and pool;
+   (host calls, busy ms, idle share, and the top device kernels by time
+   and by count: ``by_op``), the graphs' capture ms and pool; the
+   captured step's launches (97 layer norms, 64 decode attentions);
 4b. whisper_dropin — the drop-in path of a Whisper checkpoint on phase
    4's weights: a synthetic large-v3-shaped ``vocab.json`` /
    ``merges.txt`` (51,866 ids, the specials at large-v3's ids) through
@@ -55,8 +59,9 @@ printing one JSON line per result:
    bf16 weights from seed 0) with the default vocoder: generate + vocode +
    resample over the full budget of 256 groups at b = 8 and b = 1 with
    the AR loop replayed from its graph and eagerly in turns (PCM equal
-   bit for bit), stage times, one traced AR step of each, and prefill +
-   4 groups against the CPU;
+   bit for bit), stage times, one traced AR step of each, prefill + 4
+   groups against the CPU, the captured AR step's launches (61 layer
+   norms, 30 decode attentions) and the size of its once-widened weights;
 8. receive_stream — ``StreamingSynthesizer`` at that width, replayed and
    eager: seconds to first audio and in all, the two streams equal, and
    the stream against the fused path;
@@ -122,14 +127,12 @@ printing one JSON line per result:
    resource tracker are stopped, and no child process of the script may
    be left running;
 19. the ``kernels`` summary line: each kernel's launches by phase (K1-K3
-   from the flagship encode, the drop-in encodes, the tick loop's
-   overlapped run, the tools,
-   the card's server run, the training phases, the gates and the two
-   parallel phases; K4 from the int8 flagship encode and
-   ``flagship_check --int8``), the kernels inside replayed decode steps
-   counted. The receive side runs no hand-written
-   kernel (the JAX package's has no Pallas kernel either), so its phases
-   add no row there.
+   from the flagship encode, the drop-in encodes, the receive phases, the
+   tick loop's overlapped run, the tools, the card's server run, the
+   training phases, the gates and the two parallel phases; K4 from the
+   int8 flagship encode and ``flagship_check --int8``; the layer norm and
+   the decode attention wherever they ran), the kernels inside replayed
+   decode steps counted.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -279,7 +282,22 @@ def profile_step(torch, step, steps: int = 3) -> dict:
             "host_calls": launches + graph_launches,
             "device_busy_ms": busy_ms if device else None,
             "device_idle_share": (max(0.0, 1.0 - busy_ms / wall_ms)
-                                  if device else None)}
+                                  if device else None),
+            "by_op": by_op(device)}
+
+
+def by_op(device_events, top: int = 12) -> dict:
+    """The traced step's device kernels by name: the ``top`` by total
+    device time and the ``top`` by count, each as ``[name, count in the
+    step, total ms]`` (names cut to 120 characters)."""
+    ops: dict = {}
+    for e in device_events:
+        n, us = ops.get(e.name, (0, 0.0))
+        ops[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    rows = [[name[:120], n, us / 1e3] for name, (n, us) in ops.items()]
+    return {"kinds": len(rows),
+            "by_time": sorted(rows, key=lambda r: -r[2])[:top],
+            "by_count": sorted(rows, key=lambda r: (-r[1], -r[2]))[:top]}
 
 
 def profile_decode_step(torch, asr_mod, params, acfg, enc, prompt,
@@ -727,6 +745,24 @@ def receive_flagship(torch, dev):
         "max_abs": float((on_card - on_cpu).abs().max()),
         "ref_peak": float(on_cpu.abs().max()), "cpu_s": round(cpu_s, 2)}
     out["graph"] = graph_stats(graphs)
+    # every replayed AR step: 2 layer norms a layer and the final one, the
+    # self-attention of each layer; the step's fp32 weights made once
+    ar_counts = [{k.name: n[0] for k, n in g.counts.items()}
+                 for g in graphs.graphs()]
+    check(ar_counts and all(c == {"layer_norm": 2 * tcfg.layers + 1,
+                                  "decode_attn": tcfg.layers}
+                            for c in ar_counts),
+          f"receive_flagship: the captured AR steps launch {ar_counts}")
+    out["captured_step_launches"] = ar_counts[0]
+    wide = dict(flatten_with_paths(graphs.derived("tts_step_fp32", None)))
+    orig = dict(flatten_with_paths(tts_params))
+    out["step_tree_fp32_gib"] = sum(
+        t.numel() * t.element_size() for p, t in wide.items()
+        if t is not orig[p]) / 2 ** 30
+    trace8 = out["batches"][str(RECEIVE_BATCHES[0])]["ar_step_trace_graph"]
+    check(trace8["device_events"] is None or trace8["device_events"] <= 900,
+          f"receive_flagship: the replayed AR step ran "
+          f"{trace8['device_events']} kernels")
     out["nvidia_smi"] = nvidia_smi_line()
     emit(out)
     return tcfg, vcfg, tts_params, voc_params
@@ -3152,6 +3188,202 @@ def main() -> None:
                 check(tol_ratio <= 1.0, f"cross_attn_int8 t={t} tq={tq_} "
                       f"{dtype} {layout} beyond rtol {rtol} atol {atol}")
 
+    # -- the decode steps' two kernels (the port's own: no Pallas kernel) ---
+    from janus_tpu_torch.ops.decode_attention import KERNEL as DECODE
+    from janus_tpu_torch.ops.decode_attention import (decode_attention,
+                                                      decode_attention_plain,
+                                                      plan_splits as
+                                                      da_splits)
+    from janus_tpu_torch.ops.layers import LN_KERNEL as LNORM
+    from janus_tpu_torch.ops.layers import layer_norm_fused, layer_norm_plain
+
+    def ln_check(out, ref) -> dict:
+        """fp32: atol 1e-5. bf16: one bf16 ulp of |ref| beyond the fp32
+        bar (an output where scale * n cancels the bias keeps few of its
+        bits, and there the two row sums' orders decide the last ones)."""
+        diff = (out.float() - ref.float()).abs()
+        r = ref.float().abs()
+        if out.dtype == torch.float32:
+            return {"atol": 1e-5, "max_err": float(diff.max()),
+                    "ok": bool((diff <= 1e-5).all()),
+                    "n_differ": int((out != ref).sum())}
+        ulp = torch.exp2(torch.floor(torch.log2(r.clamp_min(2.0 ** -126)))
+                         - 7)
+        ulps = diff / ulp
+        return {"bar": "one bf16 ulp + 1e-5", "max_err": float(diff.max()),
+                "ok": bool((diff <= ulp + 1e-5).all()),
+                "n_differ": int((out != ref).sum()),
+                "n_beyond_one_ulp": int((ulps > 1).sum()),
+                "max_ulps": float(ulps.max()), "numel": out.numel()}
+
+    # the decoder step's and the encoder's widths in bf16, the TTS step's
+    # fp32 activations against bf16 parameters
+    ln_rows = (((FLAGSHIP_BATCH, 1, 1280), torch.bfloat16, torch.bfloat16),
+               ((FLAGSHIP_BATCH, 1500, 1280), torch.bfloat16, torch.bfloat16),
+               ((FLAGSHIP_BATCH, 1, 1280), torch.float32, torch.bfloat16))
+    for shape, x_dtype, p_dtype in ln_rows:
+        d = shape[-1]
+        x = (3 * torch.randn(shape, generator=gen, device=dev) + 1).to(x_dtype)
+        sc = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(p_dtype)
+        bi = (0.1 * torch.randn(d, generator=gen, device=dev)).to(p_dtype)
+        out = layer_norm_fused(x, sc, bi)
+        ref = layer_norm_plain(x, sc, bi)
+        torch.cuda.synchronize()
+        got = ln_check(out, ref)
+        nbytes = (2 * x.numel() * x.element_size()
+                  + 2 * d * sc.element_size())
+        b_ms, b_by = bound_ms(8.0 * x.numel(), PEAK_FP32, nbytes)
+        xb, sb, bb = (t.to(torch.bfloat16) for t in (x, sc, bi))
+        row = {"phase": "kernel", "name": "layer_norm", "shape": list(shape),
+               "x_dtype": str(x_dtype).split(".")[-1],
+               "param_dtype": str(p_dtype).split(".")[-1], **got,
+               "kernel_ms": graph_ms(lambda: layer_norm_fused(x, sc, bi),
+                                     iters=50),
+               "eager_ms": time_ms(lambda: layer_norm_fused(x, sc, bi),
+                                   iters=50),
+               "host_us": wrapper_us(lambda: layer_norm_fused(x, sc, bi)),
+               "plain_ms": graph_ms(lambda: layer_norm_plain(x, sc, bi)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               # F.layer_norm at bf16: a yardstick only
+               "library_ms": graph_ms(lambda: torch.nn.functional.layer_norm(
+                   xb, (d,), sb, bb), iters=50)}
+        emit(row)
+        check(got["ok"], f"layer_norm {shape} {x_dtype}/{p_dtype}: {got}")
+        check(torch.equal(out, layer_norm_fused(x, sc, bi)),
+              f"layer_norm {shape}: two launches differ")
+        if shape[1] == 1 and x_dtype == torch.bfloat16:
+            summary["layer_norm"] = row
+    # widths that are no multiple of a 16-byte chunk, rows a block wide, the
+    # widest row, and the vocoder's width
+    for shape, x_dtype, p_dtype in (((5, 77), torch.float32, torch.float32),
+                                    ((4, 1001), torch.bfloat16,
+                                     torch.float32),
+                                    ((3, 4096), torch.bfloat16,
+                                     torch.bfloat16),
+                                    ((2, 8192), torch.float32, torch.float32),
+                                    ((9, 512), torch.float32,
+                                     torch.bfloat16)):
+        d = shape[-1]
+        x = (3 * torch.randn(shape, generator=gen, device=dev) + 1).to(x_dtype)
+        sc = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(p_dtype)
+        bi = (0.1 * torch.randn(d, generator=gen, device=dev)).to(p_dtype)
+        got = ln_check(layer_norm_fused(x, sc, bi),
+                       layer_norm_plain(x, sc, bi))
+        emit({"phase": "kernel", "name": "layer_norm", "shape": list(shape),
+              "x_dtype": str(x_dtype).split(".")[-1],
+              "param_dtype": str(p_dtype).split(".")[-1], **got})
+        check(got["ok"], f"layer_norm {shape} {x_dtype}/{p_dtype}: {got}")
+
+    def da_case(b, h, tq, t, dh, q_dtype, kv_dtype, view):
+        """q, and K/V: a cache whose slots all hold values (those past the
+        fill are an earlier prompt's), or the cross K/V as the heads of the
+        encoder's projection split them (a strided view)."""
+        q = torch.randn((b, h, tq, dh), generator=gen, device=dev).to(q_dtype)
+        if view:
+            k, v = (torch.randn((b, t, h * dh), generator=gen, device=dev)
+                    .to(kv_dtype).reshape(b, t, h, dh).movedim(-2, -3)
+                    for _ in range(2))
+        else:
+            k = (2 * torch.randn((b, h, t, dh), generator=gen,
+                                 device=dev)).to(kv_dtype)
+            v = torch.randn((b, h, t, dh), generator=gen,
+                            device=dev).to(kv_dtype)
+        return q, k, v
+
+    # the recognizer's self-attention (step at the 1- and 4-token prompts'
+    # caches, the 4-row prefill) and cross-attention (10 s bucket, step and
+    # prefill; the 2 s bucket at b = 64), the TTS step's fp32 queries over
+    # its bf16 cache (35-position prompt + 256 groups) at b = 8 and 1
+    bf, f32 = torch.bfloat16, torch.float32
+    da_rows = (("self_step", 8, 20, 1, 25, 64, bf, bf, 12, False),
+               ("self_step_prompt4", 8, 20, 1, 28, 64, bf, bf, 15, False),
+               ("self_prefill4", 8, 20, 4, 28, 64, bf, bf, 0, False),
+               ("cross_step", 8, 20, 1, 500, 64, bf, bf, None, True),
+               ("cross_prefill4", 8, 20, 4, 500, 64, bf, bf, None, True),
+               ("cross_step_b64_2s", 64, 20, 1, 100, 64, bf, bf, None, True),
+               ("tts_step", 8, 20, 1, 291, 64, f32, bf, 35 + 128, False),
+               ("tts_step_b1", 1, 20, 1, 291, 64, f32, bf, 35 + 128, False))
+    da_bars = {f32: (0.0, 2e-5), bf: (2 ** -6, 5e-3)}
+    for (case, b, h, tq, t, dh, q_dtype, kv_dtype, fill,
+         view) in da_rows:
+        q, k, v = da_case(b, h, tq, t, dh, q_dtype, kv_dtype, view)
+        pos = None if fill is None else torch.tensor(fill, device=dev)
+        out = decode_attention(q, k, v, pos)
+        ref = decode_attention_plain(q, k, v, pos)
+        torch.cuda.synchronize()
+        rtol, atol = da_bars[torch.bfloat16 if bf in (q_dtype, kv_dtype)
+                             else f32]
+        tol_ratio = worst_ratio(out, ref, rtol, atol)
+        # the keys this run needs: those up to the last row's fill point
+        seen = t if fill is None else min(t, fill + tq)
+        keys = tq * seen if fill is None else sum(
+            min(t, fill + r + 1) for r in range(tq))
+        ops = b * h * (4.0 * dh * keys + 5.0 * keys)
+        nbytes = b * h * (2 * tq * dh * q.element_size()
+                          + 2 * seen * dh * k.element_size())
+        b_ms, b_by = bound_ms(ops, PEAK_FP32, nbytes)
+        mask = (None if fill is None else
+                torch.arange(t, device=dev)[None, :]
+                <= fill + torch.arange(tq, device=dev)[:, None])
+        qb_, kb_, vb_ = (x.to(torch.bfloat16) for x in (q, k, v))
+        row = {"phase": "kernel", "name": "decode_attn", "case": case,
+               "batch": b, "heads": h, "tq": tq, "t": t, "head_dim": dh,
+               "fill": fill, "q_dtype": str(q_dtype).split(".")[-1],
+               "kv_dtype": str(kv_dtype).split(".")[-1],
+               "kv_strided_view": view, "splits": da_splits(t, kv_dtype, dh),
+               "rtol": rtol, "atol": atol, "max_err": max_abs(out, ref),
+               "tol_ratio": tol_ratio,
+               "kernel_ms": graph_ms(lambda: decode_attention(q, k, v, pos),
+                                     iters=50),
+               "eager_ms": time_ms(lambda: decode_attention(q, k, v, pos),
+                                   iters=50),
+               "host_us": wrapper_us(lambda: decode_attention(q, k, v, pos)),
+               "plain_ms": graph_ms(lambda: decode_attention_plain(
+                   q, k, v, pos), iters=20),
+               "bound_ms": b_ms, "bound_by": b_by,
+               # SDPA at bf16 with the same mask: a yardstick only
+               "library_ms": graph_ms(lambda: sdpa(
+                   qb_, kb_, vb_, attn_mask=mask), iters=50)}
+        emit(row)
+        check(tol_ratio <= 1.0, f"decode_attn {case} beyond rtol {rtol} "
+              f"atol {atol}: {tol_ratio}")
+        check(torch.equal(out, decode_attention(q, k, v, pos)),
+              f"decode_attn {case}: two launches differ")
+        if fill is not None:
+            # stale slots past the fill never enter
+            k2, v2 = k.clone(), v.clone()
+            k2[..., fill + tq:, :] = 3e4
+            v2[..., fill + tq:, :] = float("nan")
+            check(torch.equal(decode_attention(q, k2, v2, pos), out),
+                  f"decode_attn {case}: slots past the fill changed it")
+        if case == "cross_step":
+            summary["decode_attn"] = row
+    # other head dims and types, the widest query block, the 30 s window
+    for b, h, tq, t, dh, q_dtype, kv_dtype, fill in (
+            (3, 4, 1, 48, 32, f32, f32, 5), (3, 4, 11, 48, 32, f32, f32, 0),
+            (2, 3, 3, 77, 128, f32, f32, 60),
+            (2, 3, 16, 200, 128, bf, f32, 100),
+            (8, 20, 1, 1500, 64, bf, bf, None),
+            (2, 5, 2, 999, 32, bf, bf, None)):
+        q, k, v = da_case(b, h, tq, t, dh, q_dtype, kv_dtype, False)
+        rtol, atol = da_bars[torch.bfloat16 if bf in (q_dtype, kv_dtype)
+                             else f32]
+        for pos in ((None,) if fill is None
+                    else (fill, torch.tensor(fill, device=dev))):
+            tol_ratio = worst_ratio(decode_attention(q, k, v, pos),
+                                    decode_attention_plain(q, k, v, pos),
+                                    rtol, atol)
+            emit({"phase": "kernel", "name": "decode_attn", "batch": b,
+                  "heads": h, "tq": tq, "t": t, "head_dim": dh,
+                  "fill": fill, "fill_on_device": isinstance(
+                      pos, torch.Tensor),
+                  "q_dtype": str(q_dtype).split(".")[-1],
+                  "kv_dtype": str(kv_dtype).split(".")[-1],
+                  "splits": da_splits(t, kv_dtype, dh),
+                  "tol_ratio": tol_ratio})
+            check(tol_ratio <= 1.0, f"decode_attn b={b} tq={tq} t={t} "
+                  f"dh={dh} {q_dtype}/{kv_dtype}: {tol_ratio}")
+
     # -- 3. demo checkpoint: card and CPU give the same packets ------------
     from janus_tpu_torch.audio.synthetic import render_text, voiced_phrase
     from janus_tpu_torch.common.config import ASRConfig, JanusConfig
@@ -3223,7 +3455,7 @@ def main() -> None:
                for i in range(FLAGSHIP_BATCH)]
     fenc.encode_batch(phrases)  # warm-up: cuBLAS/cuDNN handles, allocator
 
-    kernels = (MEL, FLASH, YIN, CROSS)
+    kernels = (MEL, FLASH, YIN, CROSS, LNORM, DECODE)
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3238,6 +3470,17 @@ def main() -> None:
     check(launches["flash_attn"] == fcfg.asr.encoder_layers,
           f"flash_attn launches {launches}")
     check(launches["yin_block_sums"] >= 1, f"yin launches {launches}")
+    # every replayed step: 3 layer norms a layer and the final one, the
+    # self- and the cross-attention of each layer
+    n_dec = fcfg.asr.decoder_layers
+    step_counts = [{k.name: n[0] for k, n in g.counts.items()}
+                   for g in fenc._graphs.graphs()]
+    check(step_counts and all(c == {"layer_norm": 3 * n_dec + 1,
+                                    "decode_attn": 2 * n_dec}
+                              for c in step_counts),
+          f"flagship: the captured steps launch {step_counts}")
+    check(launches["layer_norm"] > 0 and launches["decode_attn"] > 0,
+          f"flagship launches {launches}")
     check(len(results) == FLAGSHIP_BATCH
           and all(np.isfinite(r["f0"]) and np.isfinite(r["rms"])
                   and r["f0"] > 0 for r in results),
@@ -3304,12 +3547,23 @@ def main() -> None:
             enc.dtype, 1, acfg.max_decode_tokens, torch.bfloat16, False,
             fenc.tokenizer.eot, dev))
 
+    # the captured step issues at most 1000 kernels (2551 before the decode
+    # steps' kernels); the tied head's fp32 table, made once for the tree
+    check(decode_step_graph["device_events"] is None
+          or decode_step_graph["device_events"] <= 1000,
+          f"flagship: the replayed step ran "
+          f"{decode_step_graph['device_events']} kernels")
+    head = fenc._graphs.derived("asr_head_fp32", None)
+    head_gib = (head.numel() * head.element_size() / 2 ** 30
+                if head is not fenc.params["decoder"]["token_emb"] else 0.0)
+
     # encoder output against a pass through the plain versions on the card
     with mock.patch.object(asr_mod, "log_mel_spectrogram_fused",
                            lambda audio, **kw: log_mel_spectrogram(audio,
                                                                    **kw)), \
             mock.patch.object(asr_mod, "flash_attention",
-                              lambda q, k, v: attend(q, k, v)):
+                              lambda q, k, v: attend(q, k, v)), \
+            mock.patch.object(asr_mod, "layer_norm", layer_norm_plain):
         mel_p = asr_mod.prepare_mel(a16, acfg, pad_to_frames=n16)
         enc_p = asr_mod.encode_audio(fenc.params, acfg,
                                      mel_p.to(torch.bfloat16))
@@ -3335,6 +3589,8 @@ def main() -> None:
           "encoder_vs_plain_max_abs": float(diff.abs().max()),
           "encoder_vs_plain_rel": rel, "decode_step": decode_step,
           "decode_step_graph": decode_step_graph,
+          "captured_step_launches": step_counts[0],
+          "head_fp32_gib": head_gib,
           "graph": graph_stats(fenc._graphs),
           "graph_tokens_equal_eager": True, "nvidia_smi": nvidia_smi_line(),
           "texts": [r["text"] for r in results][:2],
@@ -3371,7 +3627,7 @@ def main() -> None:
         forwards[0] += 1
         return decoder_forward(*args, **kwargs)
 
-    all_kernels = (MEL, FLASH, YIN, CROSS)
+    all_kernels = kernels
     for k in all_kernels:
         k.launches = 0
     replays = qenc._graphs.replays
@@ -3393,7 +3649,10 @@ def main() -> None:
     check(q_launches["flash_attn"] == qcfg.asr.encoder_layers,
           f"int8 flash_attn launches {q_launches}")
     check(q_launches["yin_block_sums"] >= 1, f"int8 yin {q_launches}")
-    check(q_step_counts == {"cross_attn_int8": qcfg.asr.decoder_layers},
+    # K4 takes the cross-attention: the decode kernel the self-attention
+    check(q_step_counts == {"cross_attn_int8": qcfg.asr.decoder_layers,
+                            "layer_norm": 3 * qcfg.asr.decoder_layers + 1,
+                            "decode_attn": qcfg.asr.decoder_layers},
           f"the captured int8 step launches {q_step_counts}")
     check(forwards[0] > 1 and q_launches["cross_attn_int8"]
           == qcfg.asr.decoder_layers * forwards[0],
@@ -3524,9 +3783,22 @@ def main() -> None:
     errors = ErrorRecords()
     for name in ("synthesizer", "streaming_tts"):
         logging.getLogger(f"janus_tpu_torch.runtime.{name}").addHandler(errors)
-    receive_demo(torch, dev)
-    flagship_tts = receive_flagship(torch, dev)
-    receive_stream(torch, dev, *flagship_tts)
+    # the receive side runs the decode steps' kernels (layer norm, decode
+    # attention) in its prefill and AR steps
+    receive_launches = {}
+    for name, run in (("receive_demo", lambda: receive_demo(torch, dev)),
+                      ("receive_flagship", lambda: receive_flagship(
+                          torch, dev)),
+                      ("receive_stream", lambda: receive_stream(
+                          torch, dev, *flagship_tts))):
+        reset_launches(all_kernels)
+        got = run()
+        if name == "receive_flagship":
+            flagship_tts = got
+        receive_launches[name] = read_launches(all_kernels)
+        check(receive_launches[name]["layer_norm"] > 0
+              and receive_launches[name]["decode_attn"] > 0,
+              f"{name} launches {receive_launches[name]}")
     check(not errors.records, f"the synthesizer logged errors: "
           f"{errors.records}")
     torch.cuda.empty_cache()
@@ -3544,9 +3816,9 @@ def main() -> None:
 
     # -- 11-12. the serving surface ----------------------------------------
     by_phase = {"flagship": launches,
-                "flagship_int8": {"cross_attn_int8":
-                                  q_launches["cross_attn_int8"]},
-                **dropin_launches}
+                "flagship_int8": {k: q_launches[k] for k in (
+                    "cross_attn_int8", "layer_norm", "decode_attn")},
+                **dropin_launches, **receive_launches}
     by_phase["sessions_flagship"] = sessions_flagship(
         torch, all_kernels, flagship_asr_params)
     by_phase.update(profile_tools(torch, all_kernels, flagship_asr_params,
@@ -3575,10 +3847,11 @@ def main() -> None:
           f"processes left running: {child_processes()}")
 
     # -- 19. kernels summary -----------------------------------------------
-    # launches: K1-K3 from the flagship run, the tick loop's overlapped run,
-    # the two tools, the card's server run, the training phases, the gates
-    # and the parallel phases; K4 from the int8 flagship run and
-    # flagship_check --int8
+    # launches: K1-K3 from the flagship run, the receive phases, the tick
+    # loop's overlapped run, the two tools, the card's server run, the
+    # training phases, the gates and the parallel phases; K4 from the int8
+    # flagship run and flagship_check --int8; the layer norm and the decode
+    # attention from every phase that ran them
     line = []
     for k in all_kernels:
         row = summary[k.name]

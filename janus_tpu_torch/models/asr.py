@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from janus_tpu_torch.common.config import ASRConfig
-from janus_tpu_torch.ops.attention import KVCache, attend, merge_heads, split_heads
+from janus_tpu_torch.ops.attention import KVCache, merge_heads, split_heads
 from janus_tpu_torch.ops.cross_attn import cross_attention_kv
+from janus_tpu_torch.ops.decode_attention import decode_attention
 from janus_tpu_torch.ops.flash import flash_attention
 from janus_tpu_torch.ops.layers import (conv1d, embedding_lookup, gelu,
                                         layer_norm, linear, row_linear,
@@ -195,18 +196,20 @@ def _self_qkv(blk: Params, cfg: ASRConfig, x: torch.Tensor):
 
 def _decoder_layer(blk: Params, cfg: ASRConfig, x: torch.Tensor,
                    cache: KVCache, cross_k, cross_v, t_new: int,
-                   pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   pos: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cached self-attn → cross-attn → MLP (the cache is appended to in
-    place; at the device position ``pos`` when one is given)."""
+    place; at the device position ``pos`` when one is given, its slots
+    ``positions``)."""
     q, k, v = _self_qkv(blk, cfg, x)
     if pos is None:
         cache.append_lockstep(k, v)
-        mask = cache.valid_mask(t_new)
+        at = cache.length - t_new
     else:
-        cache.write_at(k, v, pos)
-        mask = cache.mask_at(pos, t_new)
+        cache.write_at(k, v, pos, positions)
+        at = pos
     p = blk["attn"]
-    x = x + row_linear(merge_heads(attend(q, cache.k, cache.v, mask)),
+    x = x + row_linear(merge_heads(decode_attention(q, cache.k, cache.v, at)),
                        p["out"]["w"], p["out"]["b"])
     h = enter_model(layer_norm(x, **blk["cross_ln"]))
     pc = blk["cross"]
@@ -218,7 +221,8 @@ def _decoder_layer(blk: Params, cfg: ASRConfig, x: torch.Tensor,
 
 
 def _decoder_forward(params: Params, cfg: ASRConfig, tokens: torch.Tensor,
-                     pos_offset, state: DecodeState
+                     pos_offset, state: DecodeState,
+                     head: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, DecodeState]:
     """``tokens[..., T_new]`` through the decoder, appending to the caches
     in place. Returns fp32 logits ``[..., T_new, vocab]`` and the state.
@@ -226,7 +230,8 @@ def _decoder_forward(params: Params, cfg: ASRConfig, tokens: torch.Tensor,
     ``pos_offset`` is the caches' fill count: a Python int (the caches'
     own ``length``, advanced here), or a 0-dim int64 device tensor for a
     captured step, which writes there and leaves ``length`` to the
-    caller."""
+    caller. ``head`` is the tied embedding in fp32 where the caller keeps
+    one (a captured step's, made once); by default it is widened here."""
     dec = params["decoder"]
     t_new = tokens.shape[-1]
     pos = pos_offset if isinstance(pos_offset, torch.Tensor) else None
@@ -235,10 +240,13 @@ def _decoder_forward(params: Params, cfg: ASRConfig, tokens: torch.Tensor,
     x = x + embedding_lookup(dec["pos_emb"], positions)
     for i, blk in enumerate(dec["blocks"]):
         x = _decoder_layer(blk, cfg, x, state.self_caches[i],
-                           state.cross_k[i], state.cross_v[i], t_new, pos)
+                           state.cross_k[i], state.cross_v[i], t_new, pos,
+                           positions)
     x = layer_norm(x, **dec["ln"])
     # tied embedding, products accumulated in fp32
-    logits = torch.matmul(x.float(), dec["token_emb"].float().T)
+    if head is None:
+        head = dec["token_emb"].float()
+    logits = torch.matmul(x.float(), head.T)
     return logits, state
 
 
@@ -359,12 +367,16 @@ class GreedyGraph:
         self.out = torch.full((batch, max_new + 1), eot_id,
                               dtype=torch.int32, device=device)
         self.fill = prompt_len
+        # the tied head's table widened once for the tree, not every step
+        # (the same fp32 values the eager step widens per call)
+        self.head = graphs.derived("asr_head_fp32", lambda: params[
+            "decoder"]["token_emb"].float())
         self.graph = StepGraph(self._step, device,
                                **graphs.capture_args(device))
 
     def _step(self) -> None:
         logits, _ = _decoder_forward(self.params, self.cfg, self.tok[:, None],
-                                     self.pos, self.state)
+                                     self.pos, self.state, self.head)
         nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
         nxt = torch.where(self.done, torch.full_like(nxt, self.eot_id), nxt)
         col = (self.pos - (self.prompt_len - 1)).reshape(1)

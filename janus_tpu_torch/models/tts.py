@@ -33,8 +33,8 @@ import torch
 from janus_tpu_torch.common.config import TTSConfig
 from janus_tpu_torch.models.params import (_init_attn, _init_ln, _init_mlp,
                                            _normal, _zeros)
-from janus_tpu_torch.ops.attention import (KVCache, attend, merge_heads,
-                                           split_heads)
+from janus_tpu_torch.ops.attention import KVCache, merge_heads, split_heads
+from janus_tpu_torch.ops.decode_attention import decode_attention
 from janus_tpu_torch.ops.layers import (embedding_lookup, gelu, layer_norm,
                                         linear, row_linear)
 from janus_tpu_torch.parallel.collectives import enter_model, local_heads
@@ -53,6 +53,7 @@ __all__ = [
     "tts_decode_chunk",
     "ARGraph",
     "ar_graph",
+    "step_tree",
     "prestack_tts",
     "TTSState",
     "audio_pos_base",
@@ -135,13 +136,13 @@ def _embed_mel(params: Params, mel_groups: torch.Tensor) -> torch.Tensor:
 
 
 def _block(blk: Params, x: torch.Tensor, num_heads: int, cache: KVCache,
-           mask: Optional[torch.Tensor],
-           fill: Optional[torch.Tensor] = None):
+           fill: Optional[torch.Tensor] = None,
+           slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One pre-norm block over ``x[B, S, d]``, appending to ``cache`` in
-    place (at the device position ``fill`` when one is given). ``mask``
-    is the causal mask of an earlier layer of this pass (every layer's
-    cache has the same capacity and fill) or None; the mask used is
-    returned beside the output."""
+    place (at the device position ``fill`` when one is given, its slots
+    ``slots``). The attention sees the caches' causal mask at the fill
+    point (the decode kernel on the card for a step, ``attend`` for a wide
+    prompt)."""
     h = enter_model(layer_norm(x, **blk["attn_ln"]))
     p = blk["attn"]
     heads = local_heads(num_heads, p["q"]["w"])
@@ -150,17 +151,17 @@ def _block(blk: Params, x: torch.Tensor, num_heads: int, cache: KVCache,
     v = split_heads(linear(h, p["v"]["w"], p["v"]["b"]), heads)
     if fill is None:
         cache.append_lockstep(k, v)
+        at = cache.length - x.shape[-2]
     else:
-        cache.write_at(k, v, fill)
-    if mask is None:
-        mask = cache.valid_mask(x.shape[-2])
-    x = x + row_linear(merge_heads(attend(q, cache.k, cache.v, mask)),
+        cache.write_at(k, v, fill, slots)
+        at = fill
+    x = x + row_linear(merge_heads(decode_attention(q, cache.k, cache.v, at)),
                        p["out"]["w"], p["out"]["b"])
     h = enter_model(layer_norm(x, **blk["mlp_ln"]))
     h = row_linear(gelu(linear(h, blk["mlp"]["fc1"]["w"],
                                blk["mlp"]["fc1"]["b"])),
                    blk["mlp"]["fc2"]["w"], blk["mlp"]["fc2"]["b"])
-    return x + h, mask
+    return x + h
 
 
 class TTSState(NamedTuple):
@@ -241,14 +242,45 @@ def _forward_embedded(params: Params, cfg: TTSConfig, x: torch.Tensor,
     their ``length`` or, for a captured step, at the 0-dim device tensor
     ``fill`` (``length`` is then the caller's to keep)."""
     x = x + pos
-    mask = (None if fill is None
-            else state.caches[0].mask_at(fill, x.shape[-2]))
+    slots = (None if fill is None
+             else fill + torch.arange(x.shape[-2], device=x.device))
     for blk, cache in zip(params["blocks"], state.caches):
-        x, mask = _block(blk, x, cfg.num_heads, cache, mask, fill)
+        x = _block(blk, x, cfg.num_heads, cache, fill, slots)
     x = layer_norm(x, **params["ln"])
     mel = linear(x, params["mel_head"]["w"], params["mel_head"]["b"])
     stop = linear(x, params["stop_head"]["w"], params["stop_head"]["b"])[..., 0]
     return mel, stop, state
+
+
+def _widened(t):
+    """A bf16 (or fp16) tensor as fp32; anything else as it is (an fp32 or
+    fp64 tensor, a quantized weight)."""
+    if (isinstance(t, torch.Tensor) and t.is_floating_point()
+            and t.dtype != torch.float32
+            and torch.promote_types(t.dtype, torch.float32) == torch.float32):
+        return t.float()
+    return t
+
+
+def step_tree(params: Params) -> Params:
+    """The tree the AR step runs: every weight and bias of a linear that
+    the step multiplies by its fp32 activations (the prenet, each block's
+    attention and MLP, the mel and stop heads), widened once to fp32 where
+    the tree holds it in bf16; the other leaves as they are. ``linear``
+    then runs one fp32 ``addmm`` on the operand values its mixed-dtype
+    branch would widen on every call: bit-equal results, no per-step
+    copy. With fp32 parameters it is the tree itself, leaf for leaf."""
+    def wide(group):
+        return {name: {k: _widened(t) for k, t in lin.items()}
+                for name, lin in group.items()}
+
+    out = dict(params)
+    out["prenet"] = wide(params["prenet"])
+    out["blocks"] = [dict(blk, attn=wide(blk["attn"]), mlp=wide(blk["mlp"]))
+                     for blk in params["blocks"]]
+    for name in ("mel_head", "stop_head"):
+        out[name] = {k: _widened(t) for k, t in params[name].items()}
+    return out
 
 
 def _prompt_embedding(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
@@ -511,11 +543,15 @@ class ARGraph:
         self.n_groups = torch.ones((batch,), dtype=torch.int32, device=device)
         self.steps = 0   # steps taken since the prefill (the host's count)
         self.epoch = 0   # prefills so far
+        # the step's weights widened to fp32 once for the tree (kept by
+        # ``graphs`` for all its holders), not on every step
+        self.step_params = graphs.derived("tts_step_fp32",
+                                          lambda: step_tree(params))
         self.graph = StepGraph(self._step, device,
                                **graphs.capture_args(device))
 
     def _step(self) -> None:
-        nxt, done = _step(self.params, self.cfg, TTSState(self.caches),
+        nxt, done = _step(self.step_params, self.cfg, TTSState(self.caches),
                           self.prev, self.done, self.group,
                           self.stop_threshold,
                           fill=self.group + self.prompt_len)

@@ -12,7 +12,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["split_heads", "merge_heads", "attend", "KVCache", "causal_mask"]
+__all__ = ["split_heads", "merge_heads", "attend", "KVCache", "causal_mask",
+           "fill_mask"]
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -33,6 +34,16 @@ def causal_mask(q_len: int, k_len: int, device="cpu") -> torch.Tensor:
     qi = torch.arange(q_len, device=device)[:, None]
     kj = torch.arange(k_len, device=device)[None, :]
     return kj <= qi
+
+
+def fill_mask(pos, q_len: int, t_max: int, device) -> torch.Tensor:
+    """The decode caches' mask ``[1, q_len, t_max]`` for ``q_len`` queries
+    written at the fill point ``pos`` (an int, or a 0-dim device tensor,
+    never read back): query i attends keys j <= pos + i, the values of
+    :meth:`KVCache.valid_mask` after the write."""
+    kj = torch.arange(t_max, device=device)[None, :]
+    qi = pos + torch.arange(q_len, device=device)[:, None]
+    return ((kj <= qi) & (kj < pos + q_len))[None]
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,25 +100,19 @@ class KVCache:
         return self
 
     def write_at(self, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: torch.Tensor) -> None:
+                 pos: torch.Tensor,
+                 idx: Optional[torch.Tensor] = None) -> None:
         """Write ``[..., H, T_new, Dh]`` at the fill point ``pos``, a 0-dim
         int64 tensor on the cache's device: the step variant that a CUDA
-        graph captures, which never reads the position back. ``length`` is
-        left alone; the caller keeps the count on the host and raises
-        before a write past ``T_max`` (on the card an index out of range
-        is caught only by the device)."""
-        idx = pos + torch.arange(k_new.shape[-2], device=self.k.device)
+        graph captures, which never reads the position back. ``idx`` is
+        ``pos + arange(T_new)`` where the caller has it already (one for
+        every layer of a step). ``length`` is left alone; the caller keeps
+        the count on the host and raises before a write past ``T_max`` (on
+        the card an index out of range is caught only by the device)."""
+        if idx is None:
+            idx = pos + torch.arange(k_new.shape[-2], device=self.k.device)
         self.k.index_copy_(-2, idx, k_new.to(self.k.dtype))
         self.v.index_copy_(-2, idx, v_new.to(self.v.dtype))
-
-    def mask_at(self, pos: torch.Tensor, q_len: int) -> torch.Tensor:
-        """:meth:`valid_mask` for queries written at the device position
-        ``pos`` (the fill point before :meth:`write_at`): the same
-        ``[1, q_len, T_max]`` values, with no host read."""
-        t_max = self.k.shape[-2]
-        kj = torch.arange(t_max, device=self.k.device)[None, :]
-        qi = pos + torch.arange(q_len, device=self.k.device)[:, None]
-        return ((kj <= qi) & (kj < pos + q_len))[None]
 
     def valid_mask(self, q_len: int) -> torch.Tensor:
         """Causal mask ``[1, q_len, T_max]`` for queries appended at the

@@ -36,6 +36,7 @@ import torch
 
 from janus_tpu_torch.ops import cuda_build
 from janus_tpu_torch.ops.attention import attend
+from janus_tpu_torch.ops.decode_attention import decode_attention
 from janus_tpu_torch.ops.quant import QuantKV, QuantKVT, dequant_kv
 
 __all__ = ["cross_attention_kv", "cross_attention_int8",
@@ -165,11 +166,13 @@ def cross_attention_int8(q: torch.Tensor, k: QuantKVT,
 
 def cross_attention_kv(q: torch.Tensor, k, v) -> torch.Tensor:
     """Cross-attention ``[..., H, tq, Dh]`` over dense ``[..., H, T, Dh]``
-    K/V (:func:`attend`), :class:`QuantKV` (``attend`` over the K/V
-    dequantized to ``q.dtype``) or :class:`QuantKVT` (K4), as the JAX
-    package dispatches them."""
+    K/V (:func:`attend`'s arithmetic, through
+    :func:`~janus_tpu_torch.ops.decode_attention.decode_attention`: its
+    kernel at decode widths on the card), :class:`QuantKV` (``attend`` over
+    the K/V dequantized to ``q.dtype``) or :class:`QuantKVT` (K4), as the
+    JAX package dispatches them."""
     if isinstance(k, QuantKVT):
         return cross_attention_int8(q, k, v)
     if isinstance(k, QuantKV):
         return attend(q, dequant_kv(k, q.dtype), dequant_kv(v, q.dtype))
-    return attend(q, k, v)
+    return decode_attention(q, k, v)

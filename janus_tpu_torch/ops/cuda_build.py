@@ -67,13 +67,18 @@ class Kernel:
         return not so.exists() or so.stat().st_mtime < self.source.stat().st_mtime
 
 
-# every kernel of the port, by source name, with the Pallas kernel it
-# replaces (file:line of its ``_kernel``)
+# every kernel of the port, by source name, with what it replaces: the
+# Pallas kernel (file:line of its ``_kernel``), or for the port's own
+# kernels the JAX function that XLA compiles on the TPU
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("mel_fused", "janus_tpu/ops/mel_pallas.py:68 (_kernel)"),
     Kernel("flash_attn", "janus_tpu/ops/flash.py:41 (_kernel)"),
     Kernel("yin_block_sums", "janus_tpu/ops/yin_pallas.py:42 (_kernel)"),
     Kernel("cross_attn_int8", "janus_tpu/ops/cross_attn.py:50 (_kernel)"),
+    Kernel("layer_norm", "janus_tpu/ops/layers.py:46 layer_norm (one XLA "
+           "fusion; no Pallas kernel)"),
+    Kernel("decode_attn", "janus_tpu/ops/attention.py:43 attend at decode "
+           "widths (XLA; no Pallas kernel)"),
 )}
 
 

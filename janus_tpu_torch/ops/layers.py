@@ -1,14 +1,22 @@
 """Functional NN primitives with the JAX package's layouts and numerics:
-fp32 accumulation, layer norm in fp32, exact-erf GELU, NWC/WIO convs."""
+fp32 accumulation, layer norm in fp32, exact-erf GELU, NWC/WIO convs.
+
+:func:`layer_norm` launches the fused kernel of ``csrc/layer_norm.cu`` on a
+CUDA tensor (the JAX package's ``layer_norm`` is one XLA fusion on the TPU;
+in PyTorch its plain body is about 12 launches) and runs the plain body,
+:func:`layer_norm_plain`, on a CPU tensor; under autograd the kernel's
+gradient is the plain body's."""
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from janus_tpu_torch.ops import cuda_build
 from janus_tpu_torch.ops.quant import (DynQuantizedWeight, QuantizedWeight,
                                        dequant, linear_int8_dynamic)
 from janus_tpu_torch.parallel.collectives import exit_model, model_size
@@ -17,6 +25,8 @@ __all__ = [
     "linear",
     "row_linear",
     "layer_norm",
+    "layer_norm_plain",
+    "layer_norm_fused",
     "gelu",
     "conv1d",
     "embedding_lookup",
@@ -71,14 +81,104 @@ def row_linear(x: torch.Tensor, w,
     return y if b is None else (y.float() + b.float()).to(y.dtype)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+LN_KERNEL = cuda_build.KERNELS["layer_norm"]
+_LN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LN_MAX_WIDTH = 8192
+# layer_norm_fwd(x, scale, bias, y, rows, d, x_dtype, p_dtype, eps, vec,
+#                stream)
+_LN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                + [ctypes.c_int] + [ctypes.c_void_p])
+
+
+def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """The JAX package's layer norm: x widened to fp32 (fp64 stays fp64),
+    a two-pass mean and variance, the scale and bias in that dtype, one
+    rounding to ``x.dtype``."""
     ct = torch.promote_types(x.dtype, torch.float32)  # fp32, or fp64
     xf = x.to(ct)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale.to(ct) + bias.to(ct)).to(x.dtype)
+
+
+def layer_norm_fused(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """The kernel on a CUDA tensor: fp32 or bf16 ``x`` of width up to
+    :data:`LN_MAX_WIDTH`, fp32 or bf16 ``scale`` and ``bias`` (one dtype);
+    anything else raises."""
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm kernel: {x.device} is not a CUDA device")
+    d = x.shape[-1]
+    if x.dtype not in _LN_DTYPES or scale.dtype not in _LN_DTYPES:
+        raise TypeError(f"layer_norm kernel takes float32 or bfloat16 x and "
+                        f"parameters, got {x.dtype}, {scale.dtype}")
+    if bias.dtype != scale.dtype:
+        raise TypeError(f"layer_norm kernel: scale {scale.dtype} and bias "
+                        f"{bias.dtype} differ")
+    if tuple(scale.shape) != (d,) or tuple(bias.shape) != (d,):
+        raise ValueError(f"layer_norm kernel: scale {tuple(scale.shape)} and "
+                         f"bias {tuple(bias.shape)} for width {d}")
+    if not 1 <= d <= LN_MAX_WIDTH:
+        raise ValueError(f"layer_norm kernel takes widths up to "
+                         f"{LN_MAX_WIDTH}, got {d}")
+    if not (scale.device == bias.device == x.device):
+        raise ValueError(f"layer_norm: parameters are not on {x.device}")
+    x = x.contiguous()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    y = torch.empty_like(x)
+    rows = x.numel() // d
+    if rows == 0:
+        return y
+    wide = 16 // x.element_size()
+    vec = (wide if d % wide == 0 and x.data_ptr() % 16 == 0
+           and y.data_ptr() % 16 == 0 else 1)
+    fn = cuda_build.entry(LN_KERNEL, "layer_norm_fwd", _LN_ARGTYPES)
+    # a sum, a deviation, its square and sum, then a subtraction and three
+    # roundings' worth of multiply and add a value; a reciprocal root a row
+    LN_KERNEL.launched(8.0 * x.numel() + rows,
+                       2 * x.numel() * x.element_size()
+                       + 2 * d * scale.element_size())
+    code = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+              rows, d, _LN_DTYPES[x.dtype], _LN_DTYPES[scale.dtype], eps, vec,
+              torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check_launch(LN_KERNEL, code)
+    return y
+
+
+class _LayerNorm(torch.autograd.Function):
+    """The kernel forward; the backward is the plain body's autograd
+    gradient, as ``_FlashAttention`` does for K2."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps = eps
+        return layer_norm_fused(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            xx, ss, bb = (t.detach().requires_grad_() for t in (x, scale,
+                                                               bias))
+            ref = layer_norm_plain(xx, ss, bb, ctx.eps)
+            dx, ds, db = torch.autograd.grad(ref, (xx, ss, bb), g)
+        return dx, ds, db, None
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last axis: the plain body for a CPU tensor, the
+    kernel for a CUDA one (through :class:`_LayerNorm` where a gradient is
+    asked for)."""
+    if x.device.type == "cpu":
+        return layer_norm_plain(x, scale, bias, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _LayerNorm.apply(x, scale, bias, eps)
+    return layer_norm_fused(x, scale, bias, eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

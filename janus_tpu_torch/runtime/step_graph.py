@@ -19,7 +19,9 @@ counterpart of this module: ``jit`` plays its role there.
   synthesizer) by key, with one memory pool, one capture stream and one
   lock, for one parameter tree at a time: a graph holds its weights'
   addresses, so a call with another tree (any leaf replaced) drops the old
-  graphs and captures anew.
+  graphs and captures anew. What the steps derive from the tree once (the
+  TTS step's fp32 copy of its bf16 weights, the recognizer head's fp32
+  table: :meth:`StepGraphs.derived`) is kept beside it, for all holders.
 - Kernel accounting: a replay bypasses the Python wrappers that count
   their launches (:class:`~janus_tpu_torch.ops.cuda_build.Kernel`), so the
   counts a capture records are taken back from the kernels and added again
@@ -165,6 +167,7 @@ class StepGraphs:
     def __init__(self):
         self.lock = threading.RLock()
         self._holders: Dict[Hashable, object] = {}
+        self._derived: Dict[Hashable, object] = {}
         self._leaves: Optional[List[torch.Tensor]] = None
         self._pool = None
         self._stream = None
@@ -182,6 +185,15 @@ class StepGraphs:
         if h is None:
             h = self._holders[key] = build()
         return h
+
+    def derived(self, name: Hashable, build: Callable[[], object]):
+        """``build()`` of the current tree (the one the last
+        :meth:`holder` call served), made at the first request and shared
+        by every holder until the tree is replaced. Call with :attr:`lock`
+        held, from a holder's constructor."""
+        if name not in self._derived:
+            self._derived[name] = build()
+        return self._derived[name]
 
     def capture_args(self, device: torch.device) -> dict:
         """The pool and stream a new :class:`StepGraph` of this caller
@@ -215,6 +227,7 @@ class StepGraphs:
         goes back with the last graph)."""
         with self.lock:
             self._holders.clear()
+            self._derived.clear()
             self._leaves = None
             self._pool = None
 

@@ -780,3 +780,169 @@ def test_bpe_encoder_four_token_prompt_on_the_card(dev, tmp_path):
     _, cpu = packets("cpu")
     assert graphed == eager == cpu
     assert sum(p is not None for p in cpu) >= 2
+
+
+# -- the decode steps' kernels: layer norm and decode attention -------------
+
+@pytest.mark.parametrize("shape,x_dtype,p_dtype", [
+    ((8, 1, 1280), torch.bfloat16, torch.bfloat16),   # the decode step
+    ((8, 1, 1280), torch.float32, torch.bfloat16),    # the TTS step
+    ((2, 300, 1280), torch.bfloat16, torch.bfloat16),
+    ((3, 7, 128), torch.float32, torch.float32),      # the demo width
+    ((5, 77), torch.float32, torch.float32),          # no 16-byte chunks
+    ((3, 4096), torch.bfloat16, torch.float32),       # a block a row
+    ((2, 8192), torch.float32, torch.float32),        # the widest row
+])
+def test_layer_norm_kernel_matches_plain(dev, shape, x_dtype, p_dtype):
+    """fp32 within 1e-5; bf16 within one bf16 ulp of the plain version
+    beyond that fp32 bar (where scale * n cancels the bias, the two row
+    sums' orders decide the last bits)."""
+    from janus_tpu_torch.ops.layers import (LN_KERNEL, layer_norm,
+                                            layer_norm_plain)
+
+    rng = np.random.default_rng(shape[-1])
+    d = shape[-1]
+    x = torch.from_numpy((3 * rng.standard_normal(shape) + 1).astype(
+        np.float32)).to(dev, x_dtype)
+    sc, bi = (torch.from_numpy((m + 0.1 * rng.standard_normal(d)).astype(
+        np.float32)).to(dev, p_dtype) for m in (1.0, 0.0))
+    before = LN_KERNEL.launches
+    out = layer_norm(x, sc, bi)
+    torch.cuda.synchronize()
+    assert LN_KERNEL.launches == before + 1
+    ref = layer_norm_plain(x, sc, bi)
+    assert out.dtype == x_dtype and out.shape == x.shape
+    diff = (out.float() - ref.float()).abs()
+    if x_dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5
+    else:
+        r = ref.float().abs().clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(r)) - 7)
+        assert bool((diff <= ulp + 1e-5).all())
+    assert torch.equal(out, layer_norm(x, sc, bi))
+
+
+def test_layer_norm_kernel_gradient_is_the_plain_one(dev):
+    """Under autograd the forward is the kernel's and the gradient the
+    plain body's, as ``_FlashAttention`` does for K2."""
+    from janus_tpu_torch.ops.layers import (LN_KERNEL, layer_norm,
+                                            layer_norm_plain)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((4, 5, 64), generator=g, device=dev, requires_grad=True)
+    sc = torch.randn(64, generator=g, device=dev, requires_grad=True)
+    bi = torch.randn(64, generator=g, device=dev, requires_grad=True)
+    before = LN_KERNEL.launches
+    out = layer_norm(x, sc, bi)
+    assert LN_KERNEL.launches == before + 1
+    gy = torch.randn_like(out)
+    got = torch.autograd.grad(out, (x, sc, bi), gy)
+    want = torch.autograd.grad(layer_norm_plain(x, sc, bi), (x, sc, bi), gy)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,h,tq,t,dh,q_dtype,kv_dtype,fill", [
+    (8, 20, 1, 25, 64, torch.bfloat16, torch.bfloat16, 12),   # self step
+    (8, 20, 4, 28, 64, torch.bfloat16, torch.bfloat16, 0),    # prefill
+    (8, 20, 1, 500, 64, torch.bfloat16, torch.bfloat16, None),  # cross
+    (8, 20, 4, 500, 64, torch.bfloat16, torch.bfloat16, None),
+    (8, 20, 1, 291, 64, torch.float32, torch.bfloat16, 163),  # TTS step
+    (3, 4, 1, 48, 32, torch.float32, torch.float32, 5),       # the demo
+    (2, 3, 3, 77, 128, torch.float32, torch.float32, 60),
+    (2, 3, 16, 200, 128, torch.bfloat16, torch.float32, 100),
+])
+def test_decode_attention_kernel_matches_plain(dev, b, h, tq, t, dh, q_dtype,
+                                               kv_dtype, fill):
+    """Within K2's bars of the plain version (fp32 2e-5; bf16 rtol 2^-6 +
+    5e-3), the fill point on the device or the host alike, and slots past
+    the fill (an earlier prompt's, here NaN) never read."""
+    from janus_tpu_torch.ops.decode_attention import (KERNEL,
+                                                      decode_attention,
+                                                      decode_attention_plain)
+
+    rng = np.random.default_rng(t + tq)
+
+    def arr(shape, s=1.0):
+        return torch.from_numpy((s * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev)
+
+    q = arr((b, h, tq, dh)).to(q_dtype)
+    k, v = arr((b, h, t, dh), 2.0).to(kv_dtype), arr((b, h, t, dh)).to(
+        kv_dtype)
+    bf = torch.bfloat16 in (q_dtype, kv_dtype)
+    rtol, atol = (2 ** -6, 5e-3) if bf else (0.0, 2e-5)
+    ref = decode_attention_plain(q, k, v, fill)
+    for pos in ((None,) if fill is None
+                else (fill, torch.tensor(fill, device=dev))):
+        before = KERNEL.launches
+        out = decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        assert KERNEL.launches == before + 1
+        assert out.dtype == q_dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                   atol=atol)
+        if fill is not None:
+            k2, v2 = k.clone(), v.clone()
+            k2[..., fill + tq:, :] = float("nan")
+            v2[..., fill + tq:, :] = float("nan")
+            assert torch.equal(decode_attention(q, k2, v2, pos), out)
+
+
+def test_decode_attention_replays_with_the_fill_it_finds(dev):
+    """Captured once, replayed with the device fill point moved: each
+    replay equals a direct launch at that fill."""
+    from janus_tpu_torch.ops.decode_attention import decode_attention
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+               for s in ((4, 6, 1, 64), (4, 6, 30, 64), (4, 6, 30, 64)))
+    pos = torch.tensor(2, device=dev)
+    out = torch.empty_like(q)
+    out.copy_(decode_attention(q, k, v, pos))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(decode_attention(q, k, v, pos))
+    for fill in (0, 7, 29):
+        pos.fill_(fill)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, decode_attention(q, k, v, fill))
+
+
+def test_decode_steps_launch_the_new_kernels_in_their_graphs(dev):
+    """The captured recognizer and TTS steps run the layer norm and the
+    decode attention (3 norms a decoder layer and the final one, self and
+    cross attention; 2 norms a TTS layer and the final one, its
+    self-attention), and replay bit-equal to the eager loops."""
+    from janus_tpu_torch.common.config import TTSConfig
+    from janus_tpu_torch.models.asr import greedy_decode
+    from janus_tpu_torch.models.params import cast_floating
+    from janus_tpu_torch.models.tts import init_tts, tts_generate
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    cfg, params, enc, prompt = _graph_asr(dev)
+    graphs = StepGraphs()
+    kw = dict(max_new=12, cache_dtype=torch.bfloat16)
+    got = greedy_decode(params, cfg, enc, prompt, 257, graphs=graphs, **kw)
+    want = greedy_decode(params, cfg, enc, prompt, 257, eager=True, **kw)
+    assert torch.equal(got, want)
+    counts = {k.name: n[0] for k, n in graphs.graphs()[0].counts.items()}
+    assert counts == {"layer_norm": 3 * cfg.decoder_layers + 1,
+                      "decode_attn": 2 * cfg.decoder_layers}
+
+    tcfg = TTSConfig(**{**_GRAPH_TTS, "num_heads": 2}, dtype="bfloat16")
+    tparams = cast_floating(init_tts(torch.Generator(device=dev).manual_seed(
+        0), tcfg), torch.bfloat16)
+    text = torch.zeros((2, 8), dtype=torch.long, device=dev)
+    emo = torch.zeros((2,), dtype=torch.long, device=dev)
+    tgraphs = StepGraphs()
+    got = tts_generate(tparams, tcfg, text, emo, stop_threshold=2.0,
+                       graphs=tgraphs)
+    want = tts_generate(tparams, tcfg, text, emo, stop_threshold=2.0,
+                        eager=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    counts = {k.name: n[0] for k, n in tgraphs.graphs()[0].counts.items()}
+    assert counts == {"layer_norm": 2 * tcfg.layers + 1,
+                      "decode_attn": tcfg.layers}

@@ -25,7 +25,7 @@ from janus_tpu_torch.models import asr as t_asr
 from janus_tpu_torch.models import tts as t_tts
 from janus_tpu_torch.models.params import (params_from_jax,
                                            prepare_decode_params)
-from janus_tpu_torch.ops.attention import KVCache
+from janus_tpu_torch.ops.attention import KVCache, fill_mask
 from janus_tpu_torch.ops.cuda_build import KERNELS
 from janus_tpu_torch.runtime import step_graph
 from janus_tpu_torch.runtime.step_graph import (StepGraph, StepGraphs,
@@ -310,8 +310,8 @@ def test_device_position_write_and_mask_equal_the_host_ones():
                                  .astype(np.float32)) for _ in range(2))
         pos = torch.tensor(host.length)
         dev.write_at(k, v, pos)
-        assert torch.equal(dev.mask_at(pos, t_new), host.append_lockstep(
-            k, v).valid_mask(t_new))
+        assert torch.equal(fill_mask(pos, t_new, 10, "cpu"),
+                           host.append_lockstep(k, v).valid_mask(t_new))
         assert torch.equal(dev.k, host.k) and torch.equal(dev.v, host.v)
     assert dev.length == 0
 

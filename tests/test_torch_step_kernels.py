@@ -1,0 +1,507 @@
+"""What the CPU can hold of the decode steps' two kernels and the weights
+widened once: the plain layer norm and the plain decode attention against
+the JAX package at the steps' shapes (fp32, bf16, fp32 activations over
+bf16 parameters and caches, a device fill position, stale slots past the
+fill), numpy emulations of each kernel's order of sums against the plain
+versions, the route function, and the TTS step's once-widened tree and the
+recognizer's once-widened head against the per-call casts, bit for bit.
+The kernels run only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from janus_tpu.ops.attention import KVCache as JKVCache
+from janus_tpu.ops.attention import attend as j_attend
+from janus_tpu.ops.layers import layer_norm as j_layer_norm
+from janus_tpu_torch.ops.decode_attention import (MAX_ROWS, decode_attention,
+                                                  decode_attention_plain,
+                                                  decode_route,
+                                                  lanes_per_position,
+                                                  plan_splits, tile_positions)
+from janus_tpu_torch.ops.layers import layer_norm, layer_norm_plain
+
+BF16_BAR = (2 ** -6, 5e-3)   # K2's bf16 bar: rtol, atol
+FP32_BAR = (0.0, 2e-5)       # K2's fp32 bar
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy()
+
+
+def _j(t: torch.Tensor):
+    """The tensor for JAX, in its own dtype."""
+    a = jnp.asarray(t.float().numpy())
+    return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+
+
+def _ratio(out, ref, rtol, atol) -> float:
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    return float((np.abs(out - ref) / (atol + rtol * np.abs(ref))).max())
+
+
+def _bf16_ulps(out, ref) -> np.ndarray:
+    """|out - ref| in units of ref's bf16 ulp."""
+    ref = np.asarray(ref, np.float64)
+    ulp = np.where(ref != 0, 2.0 ** (np.floor(np.log2(np.abs(ref)
+                                                      + 1e-300)) - 7),
+                   2.0 ** -133)
+    return np.abs(np.asarray(out, np.float64) - ref) / ulp
+
+
+def _round_bf16(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+# -- (a) the plain layer norm against the JAX package ------------------------
+
+def _ln_inputs(shape, x_dtype, p_dtype, seed):
+    rng = np.random.default_rng(seed)
+    d = shape[-1]
+    x = torch.from_numpy((3 * rng.standard_normal(shape) + 1).astype(
+        np.float32)).to(x_dtype)
+    scale = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(
+        np.float32)).to(p_dtype)
+    bias = torch.from_numpy((0.1 * rng.standard_normal(d)).astype(
+        np.float32)).to(p_dtype)
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("x_dtype,p_dtype", [
+    (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16),     # the TTS step's mixed case
+], ids=["fp32", "bf16", "fp32-x-bf16-params"])
+@pytest.mark.parametrize("shape", [(8, 1, 256), (3, 17, 96)])
+def test_plain_layer_norm_matches_jax(shape, x_dtype, p_dtype):
+    x, scale, bias = _ln_inputs(shape, x_dtype, p_dtype, seed=shape[-1])
+    got = layer_norm_plain(x, scale, bias)
+    want = np.asarray(j_layer_norm(_j(x), _j(scale), _j(bias)), np.float32)
+    assert got.dtype == x_dtype and got.shape == x.shape
+    if x_dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), want, rtol=0, atol=1e-5)
+    else:  # both round once from fp32: at most one bf16 ulp apart
+        assert _bf16_ulps(_np(got), want).max() <= 1.0
+    # on a CPU tensor the routed function is the plain body, bit for bit
+    assert torch.equal(layer_norm(x, scale, bias), got)
+
+
+# -- (b) the plain decode attention against the JAX package ------------------
+
+def _cache_case(b, h, tq, t, dh, q_dtype, kv_dtype, fill, seed):
+    """q, and a cache whose first ``fill + tq`` slots hold this step's keys
+    and every slot past them a stale non-zero value (an earlier prompt's)."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, h, tq, dh)).astype(
+        np.float32)).to(q_dtype)
+    k, v = (torch.from_numpy((s * rng.standard_normal((b, h, t, dh)))
+                             .astype(np.float32)).to(kv_dtype)
+            for s in (2.0, 1.0))
+    return q, k, v
+
+
+@pytest.mark.parametrize("tq,fill,q_dtype,kv_dtype", [
+    (1, 9, torch.bfloat16, torch.bfloat16),    # the recognizer's step
+    (4, 0, torch.bfloat16, torch.bfloat16),    # its 4-token prompt prefill
+    (1, 20, torch.float32, torch.bfloat16),    # the TTS step: fp32 q
+    (1, 5, torch.float32, torch.float32),      # the demo's fp32 step
+    (4, 3, torch.bfloat16, torch.float32),     # bf16 q over an fp32 cache
+])
+def test_plain_decode_attention_matches_jax_with_the_cache_mask(
+        tq, fill, q_dtype, kv_dtype):
+    b, h, t, dh = 2, 3, 28, 64
+    q, k, v = _cache_case(b, h, tq, t, dh, q_dtype, kv_dtype, fill, seed=tq)
+    pos = torch.tensor(fill)  # the device fill point, before the write
+    got = decode_attention_plain(q, k, v, pos)
+    jcache = JKVCache(k=_j(k), v=_j(v),
+                      length=jnp.full((b,), fill + tq, jnp.int32))
+    want = np.asarray(j_attend(_j(q), jcache.k, jcache.v,
+                               jcache.valid_mask(tq)), np.float32)
+    rtol, atol = FP32_BAR if kv_dtype == torch.float32 else BF16_BAR
+    assert got.dtype == q_dtype and got.shape == q.shape
+    assert _ratio(_np(got), want, rtol, atol) <= 1.0
+    # a host int fill point and the routed function on the CPU give the same
+    assert torch.equal(decode_attention_plain(q, k, v, fill), got)
+    assert torch.equal(decode_attention(q, k, v, pos), got)
+    # the stale slots past the fill change nothing
+    k2, v2 = k.clone(), v.clone()
+    k2[..., fill + tq:, :] = 1e3
+    v2[..., fill + tq:, :] = -7.0
+    assert torch.equal(decode_attention_plain(q, k2, v2, pos), got)
+
+
+@pytest.mark.parametrize("tq", [1, 4])
+def test_plain_cross_attention_matches_jax(tq):
+    """No mask: the recognizer's dense cross-attention (bf16 K/V as the
+    encoder's heads split them, a strided view)."""
+    b, h, t, dh = 2, 3, 100, 64
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((b, h, tq, dh)).astype(
+        np.float32)).to(torch.bfloat16)
+    kv = [torch.from_numpy(rng.standard_normal((b, t, h * dh)).astype(
+        np.float32)).to(torch.bfloat16).reshape(b, t, h, dh).movedim(-2, -3)
+        for _ in range(2)]
+    got = decode_attention(q, *kv)
+    want = np.asarray(j_attend(_j(q), _j(kv[0]), _j(kv[1])), np.float32)
+    assert _ratio(_np(got), want, *BF16_BAR) <= 1.0
+
+
+# -- (c) the route ---------------------------------------------------------
+
+CUDA = torch.device("cuda")
+
+
+@pytest.mark.parametrize("device,tq,t,dh,grad,dtypes,route", [
+    (CUDA, 1, 25, 64, False, (torch.bfloat16, torch.bfloat16), "kernel"),
+    (CUDA, 4, 500, 64, False, (torch.bfloat16, torch.bfloat16), "kernel"),
+    (CUDA, 1, 1500, 64, False, (torch.bfloat16, torch.bfloat16), "kernel"),
+    (CUDA, 1, 291, 64, False, (torch.float32, torch.bfloat16), "kernel"),
+    (CUDA, 16, 48, 32, False, (torch.float32, torch.float32), "kernel"),
+    (CUDA, 1, 77, 128, False, (torch.float32, torch.float32), "kernel"),
+    (CUDA, 17, 48, 64, False, (torch.bfloat16, torch.bfloat16), "attend"),
+    (CUDA, 35, 291, 64, False, (torch.bfloat16, torch.bfloat16), "attend"),
+    (CUDA, 1, 25, 64, True, (torch.bfloat16, torch.bfloat16), "attend"),
+    (CUDA, 1, 40, 48, False, (torch.float32, torch.bfloat16), "kernel"),
+    (CUDA, 1, 25, 40, False, (torch.bfloat16, torch.bfloat16), "attend"),
+    (CUDA, 1, 25, 64, False, (torch.float16, torch.float16), "attend"),
+    (CUDA, 4, 100_000, 64, False, (torch.bfloat16, torch.bfloat16),
+     "attend"),
+    (torch.device("cpu"), 1, 25, 64, False,
+     (torch.bfloat16, torch.bfloat16), "plain"),
+])
+def test_decode_route(device, tq, t, dh, grad, dtypes, route):
+    assert decode_route(device, tq, t, dh, grad, dtypes) == route
+    assert MAX_ROWS == 16
+
+
+@pytest.mark.parametrize("t,kv_dtype,dh,tile,splits", [
+    (25, torch.bfloat16, 64, 128, 1),
+    (100, torch.bfloat16, 64, 128, 1),
+    (291, torch.bfloat16, 64, 128, 2),
+    (500, torch.bfloat16, 64, 128, 2),
+    (1500, torch.bfloat16, 64, 128, 2),
+    (48, torch.float32, 32, 128, 1),
+    (77, torch.float32, 128, 32, 2),
+    (40, torch.bfloat16, 48, 128, 1),
+    (300, torch.float32, 48, 64, 2),
+])
+def test_tiles_and_splits(t, kv_dtype, dh, tile, splits):
+    assert tile_positions(kv_dtype, dh) == tile
+    assert plan_splits(t, kv_dtype, dh) == splits
+
+
+# -- (d) the kernels' order of sums, emulated in numpy ----------------------
+
+def _butterfly(a: np.ndarray, offsets) -> np.ndarray:
+    """``__shfl_xor_sync`` sums over the last axis (every lane ends with
+    the total, each summed in its own order; lane 0's is returned)."""
+    lanes = np.arange(a.shape[-1])
+    for o in offsets:
+        a = (a + a[..., lanes ^ o]).astype(np.float32)
+    return a[..., 0]
+
+
+def _fma(a, b, c):
+    """fp32 fused multiply-add: the fp32 product is exact in fp64."""
+    return (np.float64(1) * a * b + c).astype(np.float32)
+
+
+def layer_norm_emulated(x: np.ndarray, scale, bias, eps=1e-5, vec=1):
+    """csrc/layer_norm.cu's arithmetic in fp32: values held as chunks of
+    ``vec`` by the lanes of a warp (d <= 2048) or a block of 8 warps, lane
+    partial sums in order, shuffle trees, the warps' sums in order, the
+    mean as the sum times fp32(1/d), rounded squares, one reciprocal root,
+    three separately rounded operations."""
+    rows, d = x.shape
+    tpr = 32 if d <= 2048 else 256
+    per = -(-d // (tpr * vec)) * vec           # values a lane holds
+    padded = np.zeros((rows, per * tpr), np.float32)
+    padded[:, :d] = x
+    # value (lane + tpr j) vec + i lives in lane ``lane``, chunk j
+    v = padded.reshape(rows, per // vec, tpr, vec)
+    valid = (np.arange(per * tpr) < d).reshape(per // vec, tpr, vec)
+
+    def row_sum(parts):                        # parts [rows, tpr]
+        warps = parts.reshape(rows, tpr // 32, 32)
+        total = _butterfly(warps, (16, 8, 4, 2, 1))
+        s = np.zeros(rows, np.float32)
+        for w in range(tpr // 32):
+            s = (s + total[:, w]).astype(np.float32)
+        return s
+
+    inv_d = np.float32(1.0) / np.float32(d)
+    s = np.zeros((rows, tpr), np.float32)
+    for j in range(per // vec):
+        for i in range(vec):
+            s = (s + v[:, j, :, i]).astype(np.float32)
+    mean = (row_sum(s) * inv_d).astype(np.float32)[:, None, None, None]
+    c = (v - mean).astype(np.float32)
+    sq = np.where(valid, (c * c).astype(np.float32), np.float32(0))
+    q = np.zeros((rows, tpr), np.float32)
+    for j in range(per // vec):
+        for i in range(vec):
+            q = (q + sq[:, j, :, i]).astype(np.float32)
+    var = (row_sum(q) * inv_d).astype(np.float32)
+    rstd = (1.0 / np.sqrt((var + np.float32(eps)).astype(np.float32)
+                          .astype(np.float64))).astype(np.float32)
+    n = (c * rstd[:, None, None, None]).astype(np.float32)
+    y = n.reshape(rows, -1)[:, :d]
+    y = (y * scale).astype(np.float32)
+    return (y + bias).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,x_dtype,p_dtype,vec", [
+    ((8, 1280), torch.bfloat16, torch.bfloat16, 8),   # 40 values a lane
+    ((8, 1280), torch.float32, torch.bfloat16, 4),    # the TTS step's
+    ((5, 77), torch.float32, torch.float32, 1),
+    ((3, 4096), torch.bfloat16, torch.float32, 8),    # a block a row
+])
+def test_layer_norm_kernel_order_matches_plain(shape, x_dtype, p_dtype, vec):
+    x, scale, bias = _ln_inputs(shape, x_dtype, p_dtype, seed=3)
+    ref = layer_norm_plain(x, scale, bias)
+    emu = layer_norm_emulated(_np(x), _np(scale), _np(bias), vec=vec)
+    if x_dtype == torch.float32:
+        np.testing.assert_allclose(emu, _np(ref), rtol=0, atol=1e-5)
+    else:
+        assert _bf16_ulps(_round_bf16(emu), _np(ref)).max() <= 1.0
+
+
+def decode_attention_emulated(q, k, v, pos, kv_bf16: bool, q_bf16: bool):
+    """csrc/decode_attn.cu's arithmetic in fp32 over ``q[BH, tq, Dh]``,
+    ``k, v[BH, T, Dh]`` (fp32 arrays of the tensors' values): blocks of 1
+    or 4 query rows, the cluster's splits over tiles, G lanes a position
+    summing chunks of E values by FMA and a shuffle tree, scores times the
+    scale, the cluster's max, exp, sums in thread, warp, block and split
+    order, p normalised and rounded to v's dtype, PV by FMA a lane, a
+    shuffle tree over the lanes of a column, the warps and the splits in
+    order, one rounding to q's dtype."""
+    bh, tq, dh = q.shape
+    t = k.shape[1]
+    kv_dtype = torch.bfloat16 if kv_bf16 else torch.float32
+    e_n = 8 if kv_bf16 else 4
+    g = lanes_per_position(kv_dtype, dh)   # lanes past dh / e_n idle
+    ppp = 128 // g
+    dh_in, dh = dh, g * e_n
+    q, k, v = (np.concatenate([a, np.zeros(a.shape[:-1] + (dh - dh_in,),
+                                           np.float32)], -1)
+               for a in (q, k, v))
+    tile = tile_positions(kv_dtype, dh_in)
+    ntile = -(-t // tile)
+    splits = plan_splits(t, kv_dtype, dh_in)
+    qb = 1 if tq == 1 else 4
+    scale = np.float32(dh_in ** -0.5)
+    out = np.zeros((bh, tq, dh), np.float32)
+    tpad = ntile * tile
+    kp = np.zeros((bh, tpad, dh), np.float32)
+    vp = np.zeros((bh, tpad, dh), np.float32)
+    kp[:, :t], vp[:, :t] = k, v
+    tau = np.arange(tpad)
+    for q0 in range(0, tq, qb):
+        nq = min(qb, tq - q0)
+        rows = np.arange(q0, q0 + nq)
+        n_read = t if pos is None else min(t, pos + q0 + nq)
+        last = (np.full(nq, t) if pos is None else pos + rows)
+        # scores of every key: G partial dots of E values, a shuffle tree
+        qc = q[:, rows].reshape(bh, nq, 1, g, e_n)
+        kc = kp.reshape(bh, 1, tpad, g, e_n)
+        part = np.zeros((bh, nq, tpad, g), np.float32)
+        for e in range(e_n):
+            part = _fma(qc[..., e], kc[..., e], part)
+        dot = _butterfly(part, [o for o in (16, 8, 4, 2, 1) if o < g])
+        s = (dot * scale).astype(np.float32)
+        seen = (tau[None, :] <= last[:, None]) & (tau[None, :] < n_read)
+        s = np.where(seen[None], s, -np.inf).astype(np.float32)
+        # each split: its max m_s and its sum l_s of exp(s - m_s), thread t
+        # taking local indices t, t + 128, ..., then the warps' shuffle trees
+        # and the warps in order; the cluster's m and l = sum l_s e^(m_s - m)
+        owned, parts = [], []
+        for sp in range(splits):
+            tiles = list(range(sp, ntile, splits))
+            taus = np.concatenate([np.arange(ti * tile, (ti + 1) * tile)
+                                   for ti in tiles])
+            owned.append((tiles, taus))
+            s_loc = s[..., taus]
+            m_s = s_loc.max(axis=-1)
+            loc = np.zeros((bh, nq, -(-taus.size // 128) * 128), np.float32)
+            with np.errstate(invalid="ignore"):
+                loc[..., :taus.size] = np.where(
+                    seen[None][..., taus], np.exp(s_loc - m_s[..., None]), 0)
+            thr = np.zeros((bh, nq, 128), np.float32)
+            for i in range(loc.shape[-1] // 128):
+                thr = (thr + loc[..., 128 * i:128 * (i + 1)]).astype(
+                    np.float32)
+            warp = _butterfly(thr.reshape(bh, nq, 4, 32), (16, 8, 4, 2, 1))
+            blk = np.zeros((bh, nq), np.float32)
+            for w in range(4):
+                blk = (blk + warp[..., w]).astype(np.float32)
+            parts.append((m_s.astype(np.float32), blk))
+        m = np.max([m_s for m_s, _ in parts], axis=0)
+        l_tot = np.zeros((bh, nq), np.float32)
+        for m_s, l_s in parts:
+            with np.errstate(invalid="ignore"):
+                w_s = np.exp(m_s - m).astype(np.float32)
+            l_tot = np.where(np.isfinite(m_s), _fma(l_s, w_s, l_tot), l_tot)
+        e_ = np.where(seen[None], np.exp(s - m[..., None]), 0).astype(
+            np.float32)
+        p = (e_ / l_tot[..., None]).astype(np.float32)
+        if kv_bf16:
+            p = _round_bf16(p)
+        # PV: lane (pp, c) runs its positions in pass order over its tiles
+        o_tot = np.zeros((bh, nq, dh), np.float32)
+        for sp, (tiles, _) in enumerate(owned):
+            acc = np.zeros((bh, nq, ppp, g, e_n), np.float32)
+            for ti in tiles:
+                for j in range(8):
+                    ts = ti * tile + j * ppp + np.arange(ppp)
+                    pj = p[..., ts][..., None, None]          # [bh,nq,ppp,1,1]
+                    vj = vp[:, ts].reshape(bh, 1, ppp, g, e_n)
+                    acc = _fma(pj, vj, acc)
+            # lanes of one column in a warp: pp = w * (32 / g) + i
+            per_warp = 32 // g
+            acc = acc.reshape(bh, nq, 4, per_warp, g, e_n)
+            acc = np.moveaxis(acc, 3, -1)
+            offs = [o for o in (1, 2, 4, 8, 16) if o < per_warp]
+            red = _butterfly(acc, offs)                  # [bh,nq,4,g,e]
+            blk = np.zeros((bh, nq, g, e_n), np.float32)
+            for w in range(4):
+                blk = (blk + red[:, :, w]).astype(np.float32)
+            o_tot = (o_tot + blk.reshape(bh, nq, dh)).astype(np.float32)
+        out[:, rows] = o_tot
+    out = out[..., :dh_in]
+    return _round_bf16(out) if q_bf16 else out
+
+
+@pytest.mark.parametrize("tq,t,dh,q_dtype,kv_dtype,fill", [
+    (1, 25, 64, torch.bfloat16, torch.bfloat16, 9),     # self, one tile
+    (4, 28, 64, torch.bfloat16, torch.bfloat16, 0),     # prefill rows
+    (1, 500, 64, torch.bfloat16, torch.bfloat16, None),  # cross, 2 splits
+    (4, 300, 64, torch.bfloat16, torch.bfloat16, None),  # cross, ragged
+    (1, 291, 64, torch.float32, torch.bfloat16, 135),   # the TTS step
+    (3, 77, 128, torch.float32, torch.float32, 60),     # fp32, 32-lane rows
+    (2, 200, 32, torch.float32, torch.float32, None),   # Dh 32
+    (1, 40, 48, torch.float32, torch.bfloat16, 17),     # the demo TTS step
+])
+def test_decode_attention_kernel_order_matches_plain(tq, t, dh, q_dtype,
+                                                     kv_dtype, fill):
+    b, h = 2, 2
+    q, k, v = _cache_case(b, h, tq, t, dh, q_dtype, kv_dtype, fill or 0,
+                          seed=t + tq)
+    ref = decode_attention_plain(q, k, v, fill)
+    emu = decode_attention_emulated(
+        _np(q).reshape(b * h, tq, dh), _np(k).reshape(b * h, t, dh),
+        _np(v).reshape(b * h, t, dh), fill, kv_dtype == torch.bfloat16,
+        q_dtype == torch.bfloat16).reshape(b, h, tq, dh)
+    rtol, atol = BF16_BAR if torch.bfloat16 in (q_dtype, kv_dtype) \
+        else FP32_BAR
+    assert np.isfinite(emu).all()
+    assert _ratio(emu, _np(ref), rtol, atol) <= 1.0
+
+
+# -- (e) weights widened once ----------------------------------------------
+
+def _tts(dtype="bfloat16"):
+    from janus_tpu_torch.common.config import TTSConfig
+    from janus_tpu_torch.models.params import cast_floating
+    from janus_tpu_torch.models.tts import init_tts
+
+    cfg = TTSConfig(d_model=64, layers=2, num_heads=4, n_mels=16,
+                    reduction=2, max_text_tokens=32, max_mel_frames=48,
+                    dtype=dtype)
+    params = cast_floating(init_tts(torch.Generator().manual_seed(0), cfg),
+                           torch.bfloat16)
+    return cfg, params
+
+
+def test_step_tree_widens_only_the_steps_linears():
+    from janus_tpu_torch.models.tts import step_tree
+
+    cfg, params = _tts()
+    wide = step_tree(params)
+    blk, wblk = params["blocks"][0], wide["blocks"][0]
+    for name in ("q", "k", "v", "out"):
+        for key, t in blk["attn"][name].items():
+            assert wblk["attn"][name][key].dtype == torch.float32
+            assert torch.equal(wblk["attn"][name][key], t.float())
+    assert wide["mel_head"]["w"].dtype == torch.float32
+    assert wide["prenet"]["fc1"]["w"].dtype == torch.float32
+    # the layer norms, the embeddings and the position table are shared
+    assert wblk["attn_ln"]["scale"] is blk["attn_ln"]["scale"]
+    assert wide["pos_emb"] is params["pos_emb"]
+    assert params["blocks"][0]["attn"]["q"]["w"].dtype == torch.bfloat16
+    # fp32 parameters: the same leaves
+    fp32 = {"prenet": {"fc1": {"w": torch.ones(2, 2)}}, "blocks": [],
+            "mel_head": {"w": torch.ones(2)}, "stop_head": {}}
+    assert step_tree(fp32)["prenet"]["fc1"]["w"] is fp32["prenet"]["fc1"]["w"]
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_widened_tts_step_is_bit_equal_to_the_per_call_cast(cache_dtype):
+    """The AR step over the once-widened tree against the step over the
+    bf16 tree (whose linears widen every weight per call): the same groups,
+    flags and caches bit for bit, eagerly and through the holder's step."""
+    from janus_tpu_torch.models import tts
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    cfg, params = _tts(cache_dtype)
+    rng = np.random.default_rng(2)
+    text = torch.from_numpy(rng.integers(0, 256, (3, 8)))
+    emo = torch.tensor([1, 4, 0])
+    first, done, s1 = tts.tts_prefill(params, cfg, text, emo, max_groups=6,
+                                      stop_threshold=2.0, eager=True)
+    _, _, s2 = tts.tts_prefill(params, cfg, text, emo, max_groups=6,
+                               stop_threshold=2.0, eager=True)
+    wide = tts.step_tree(params)
+    a = b = first.float()
+    for g in range(5):
+        a, da = tts._step(params, cfg, s1, a, done, g, 2.0)
+        b, db = tts._step(wide, cfg, s2, b, done, g, 2.0)
+        assert torch.equal(a, b) and torch.equal(da, db)
+    for c1, c2 in zip(s1.caches, s2.caches):
+        assert torch.equal(c1.k, c2.k) and torch.equal(c1.v, c2.v)
+    # the holder takes the widened tree once (StepGraphs keeps it for the
+    # tree) and its step equals the eager loop
+    graphs = StepGraphs()
+    eager = tts.tts_generate(params, cfg, text, emo, max_groups=6,
+                             stop_threshold=2.0, eager=True)
+    graphed = tts._generate_graphed(params, cfg, text, emo, None, 6, 261,
+                                    2.0, graphs)
+    assert torch.equal(graphed[0], eager[0])
+    assert torch.equal(graphed[1], eager[1])
+    holder = next(iter(graphs._holders.values()))
+    assert holder.step_params is graphs.derived("tts_step_fp32", None)
+    assert holder.step_params["blocks"][0]["mlp"]["fc1"]["w"].dtype == \
+        torch.float32
+
+
+def test_recognizer_head_widened_once_is_bit_equal():
+    """The captured greedy step's fp32 head, made once for the tree, gives
+    the eager loop's tokens (whose step widens the table every call)."""
+    from janus_tpu_torch.common.config import ASRConfig
+    from janus_tpu_torch.models.asr import (_greedy_graphed, encode_audio,
+                                            greedy_decode)
+    from janus_tpu_torch.models.params import (cast_floating, init_asr,
+                                               prepare_decode_params)
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    cfg = ASRConfig(n_mels=16, d_model=64, encoder_layers=1,
+                    decoder_layers=2, num_heads=2, vocab_size=261,
+                    max_source_positions=16, max_target_positions=16,
+                    max_decode_tokens=6)
+    params = prepare_decode_params(cast_floating(init_asr(
+        torch.Generator().manual_seed(0), cfg), torch.bfloat16))
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 32, 16)).astype(np.float32)).to(torch.bfloat16)
+    enc = encode_audio(params, cfg, mel)
+    prompt = torch.full((2, 1), 256, dtype=torch.long)
+    graphs = StepGraphs()
+    got = _greedy_graphed(params, cfg, enc, prompt, 257, 6, torch.bfloat16,
+                          False, graphs)
+    want = greedy_decode(params, cfg, enc, prompt, 257, max_new=6,
+                         cache_dtype=torch.bfloat16, eager=True)
+    assert torch.equal(got, want)
+    head = graphs.derived("asr_head_fp32", None)
+    assert head.dtype == torch.float32
+    assert torch.equal(head, params["decoder"]["token_emb"].float())
