@@ -10,6 +10,16 @@
 // XLA compiles into one fusion on the TPU (it has no Pallas kernel). On the
 // card the plain version is about 12 launches, each a pass over the row.
 //
+// With a residual (delta, of x's dtype or bf16 under fp32 x, broadcast over
+// the leading rows: row i adds delta row i % delta_rows) the kernel first
+// forms r = x + delta in fp32, rounded to x's dtype exactly as PyTorch's add
+// rounds it, writes r once and normalises r as stored, from registers: the
+// residual add that feeds every pre-norm in the decode steps and the
+// encoder, taken into the norm's launch (XLA compiles the two as one fusion
+// on the TPU: janus_tpu/models/asr.py:384-395, janus_tpu/models/tts.py:
+// 138-140). The pair then reads x and delta and writes r and y once each,
+// where the add and the norm apart read x, delta and r and write r and y.
+//
 // Arithmetic, to match the plain version: x widened to fp32; the mean as the
 // sum times 1/d (PyTorch's CUDA mean multiplies by that factor); the variance
 // as the mean of squared deviations, each square rounded before it is added
@@ -36,7 +46,9 @@
 // behind the row sums (chip_smoke.py's [8, 1, 1280] row: 2.5 us, against
 // 3.25 us when they were read last); with many rows the registers that costs
 // would lower the occupancy a bandwidth-bound pass needs, so they are read
-// after.
+// after. The residual's delta joins x's chunked loads (16 bytes, or 8 where
+// bf16 delta meets fp32 x) in the same unrolled loop, so that both are in
+// flight together, and r leaves in x's 16-byte chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +67,26 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ void from_float(float x, float* p) { *p = x; }
 __device__ __forceinline__ void from_float(float x, __nv_bfloat16* p) {
   *p = __float2bfloat16(x);
+}
+
+// VEC consecutive values of T, widened: one 16- or 8-byte load where the
+// chunk is that wide, else one value at a time
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, float* f) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    __align__(16) T e[VEC];
+    *reinterpret_cast<uint4*>(e) = __ldg(reinterpret_cast<const uint4*>(p));
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) f[i] = to_float(e[i]);
+  } else if constexpr (VEC * sizeof(T) == 8) {
+    __align__(8) T e[VEC];
+    *reinterpret_cast<uint2*>(e) = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) f[i] = to_float(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) f[i] = to_float(p[i]);
+  }
 }
 
 template <int TPR>
@@ -76,13 +108,16 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
 
 // TPR threads per row (32: a warp, WIDE_THREADS: a block); each holds
 // CHUNKS chunks of VEC consecutive values, chunk k of the row at lane
-// index + TPR * j
-template <typename TX, typename TP, int TPR, int CHUNKS, int VEC,
-          bool EARLY>
+// index + TPR * j. RES: the row is r = x + delta, written to r_out, and
+// normalised as stored.
+template <typename TX, typename TP, typename TD, bool RES, int TPR,
+          int CHUNKS, int VEC, bool EARLY>
 __global__ void __launch_bounds__(TPR == 32 ? 32 * WARP_ROWS : TPR)
 layer_norm_kernel(const TX* __restrict__ x, const TP* __restrict__ scale,
-                  const TP* __restrict__ bias, TX* __restrict__ y, int rows,
-                  int d, float inv_d, float eps) {
+                  const TP* __restrict__ bias, TX* __restrict__ y,
+                  const TD* __restrict__ delta, int delta_rows,
+                  TX* __restrict__ r_out, int rows, int d, float inv_d,
+                  float eps) {
   __shared__ float red[TPR / 32];
   const int lane = TPR == 32 ? (threadIdx.x & 31) : threadIdx.x;
   const long long row =
@@ -106,6 +141,7 @@ layer_norm_kernel(const TX* __restrict__ x, const TP* __restrict__ scale,
     }
   }
   float v[CHUNKS][VEC];
+  const TD* dr = RES ? delta + (row % delta_rows) * d : nullptr;
 #pragma unroll
   for (int j = 0; j < CHUNKS; ++j) {
     const int col = (lane + TPR * j) * VEC;
@@ -119,6 +155,30 @@ layer_norm_kernel(const TX* __restrict__ x, const TP* __restrict__ scale,
       for (int i = 0; i < VEC; ++i) v[j][i] = to_float(e[i]);
     } else {
       v[j][0] = col < d ? to_float(xr[col]) : 0.f;
+    }
+    if constexpr (RES) {
+      // r = x + delta, rounded to x's dtype as PyTorch's add rounds it;
+      // the norm is taken of r as stored (zeros past the row stay zero)
+      float dv[VEC];
+      if (col < d) {
+        load_vec<TD, VEC>(dr + col, dv);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) dv[i] = 0.f;
+      }
+      __align__(16) TX e[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        from_float(__fadd_rn(v[j][i], dv[i]), &e[i]);
+        v[j][i] = to_float(e[i]);
+      }
+      if (col < d) {
+        TX* rr = r_out + row * d + col;
+        if constexpr (VEC > 1)
+          *reinterpret_cast<uint4*>(rr) = *reinterpret_cast<const uint4*>(e);
+        else
+          rr[0] = e[0];
+      }
     }
   }
 
@@ -172,65 +232,84 @@ layer_norm_kernel(const TX* __restrict__ x, const TP* __restrict__ scale,
 struct Args {
   const void *x, *scale, *bias;
   void* y;
+  const void* delta;
+  int delta_rows;
+  void* r_out;
   int rows, d;
   float eps;
   cudaStream_t stream;
 };
 
-template <typename TX, typename TP, int TPR, int CHUNKS, int VEC,
-          bool EARLY>
+template <typename TX, typename TP, typename TD, bool RES, int TPR,
+          int CHUNKS, int VEC, bool EARLY>
 int launch_as(const Args& a) {
   const int threads = TPR == 32 ? 32 * WARP_ROWS : TPR;
   const long long blocks =
       TPR == 32 ? ((long long)a.rows + WARP_ROWS - 1) / WARP_ROWS : a.rows;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  layer_norm_kernel<TX, TP, TPR, CHUNKS, VEC, EARLY>
+  layer_norm_kernel<TX, TP, TD, RES, TPR, CHUNKS, VEC, EARLY>
       <<<(unsigned)blocks, threads, 0, a.stream>>>(
           static_cast<const TX*>(a.x), static_cast<const TP*>(a.scale),
-          static_cast<const TP*>(a.bias), static_cast<TX*>(a.y), a.rows, a.d,
-          1.0f / (float)a.d, a.eps);
+          static_cast<const TP*>(a.bias), static_cast<TX*>(a.y),
+          static_cast<const TD*>(a.delta), a.delta_rows,
+          static_cast<TX*>(a.r_out), a.rows, a.d, 1.0f / (float)a.d, a.eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the parameters read early for a warp a row and at most EARLY_ROWS rows
 constexpr int EARLY_ROWS = 1024;
 
-template <typename TX, typename TP, int TPR, int CHUNKS, int VEC>
+template <typename TX, typename TP, typename TD, bool RES, int TPR,
+          int CHUNKS, int VEC>
 int launch(const Args& a) {
   if (TPR == 32 && a.rows <= EARLY_ROWS)
-    return launch_as<TX, TP, TPR, CHUNKS, VEC, TPR == 32>(a);
-  return launch_as<TX, TP, TPR, CHUNKS, VEC, false>(a);
+    return launch_as<TX, TP, TD, RES, TPR, CHUNKS, VEC, TPR == 32>(a);
+  return launch_as<TX, TP, TD, RES, TPR, CHUNKS, VEC, false>(a);
 }
 
 // the fewest values a thread holds for the width: warp mode for d <= 2048
 // (8, 16, 32, 40 or 64 a lane), block mode up to 8192 (16 or 32 a thread)
-template <typename TX, typename TP, int VEC>
+template <typename TX, typename TP, typename TD, bool RES, int VEC>
 int by_width(const Args& a) {
   const int d = a.d;
-  if (d <= 32 * 8) return launch<TX, TP, 32, 8 / VEC, VEC>(a);
-  if (d <= 32 * 16) return launch<TX, TP, 32, 16 / VEC, VEC>(a);
-  if (d <= 32 * 32) return launch<TX, TP, 32, 32 / VEC, VEC>(a);
-  if (d <= 32 * 40) return launch<TX, TP, 32, 40 / VEC, VEC>(a);
-  if (d <= 32 * 64) return launch<TX, TP, 32, 64 / VEC, VEC>(a);
+  if (d <= 32 * 8) return launch<TX, TP, TD, RES, 32, 8 / VEC, VEC>(a);
+  if (d <= 32 * 16) return launch<TX, TP, TD, RES, 32, 16 / VEC, VEC>(a);
+  if (d <= 32 * 32) return launch<TX, TP, TD, RES, 32, 32 / VEC, VEC>(a);
+  if (d <= 32 * 40) return launch<TX, TP, TD, RES, 32, 40 / VEC, VEC>(a);
+  if (d <= 32 * 64) return launch<TX, TP, TD, RES, 32, 64 / VEC, VEC>(a);
   if (d <= WIDE_THREADS * 16)
-    return launch<TX, TP, WIDE_THREADS, 16 / VEC, VEC>(a);
+    return launch<TX, TP, TD, RES, WIDE_THREADS, 16 / VEC, VEC>(a);
   if (d <= WIDE_THREADS * 32)
-    return launch<TX, TP, WIDE_THREADS, 32 / VEC, VEC>(a);
+    return launch<TX, TP, TD, RES, WIDE_THREADS, 32 / VEC, VEC>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename TX, typename TP>
+// the residual only in 16-byte chunks (its callers' widths)
+template <typename TX, typename TP, typename TD, bool RES>
 int by_vec(int vec, const Args& a) {
   constexpr int WIDE = 16 / sizeof(TX);
-  if (vec == WIDE) return by_width<TX, TP, WIDE>(a);
-  if (vec == 1) return by_width<TX, TP, 1>(a);
+  if (vec == WIDE) return by_width<TX, TP, TD, RES, WIDE>(a);
+  if constexpr (!RES)
+    if (vec == 1) return by_width<TX, TP, TD, RES, 1>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// no residual; or delta in x's dtype, or bf16 under fp32 x (r = x + delta
+// is then fp32)
+template <typename TX, typename TP>
+int by_delta(int d_dtype, int vec, const Args& a) {
+  const int x_code = sizeof(TX) == 4 ? 0 : 1;
+  if (a.delta == nullptr) return by_vec<TX, TP, TX, false>(vec, a);
+  if (d_dtype == x_code) return by_vec<TX, TP, TX, true>(vec, a);
+  if (x_code == 0 && d_dtype == 1)
+    return by_vec<TX, TP, __nv_bfloat16, true>(vec, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename TX>
-int by_param(int p_dtype, int vec, const Args& a) {
-  if (p_dtype == 0) return by_vec<TX, float>(vec, a);
-  if (p_dtype == 1) return by_vec<TX, __nv_bfloat16>(vec, a);
+int by_param(int p_dtype, int d_dtype, int vec, const Args& a) {
+  if (p_dtype == 0) return by_delta<TX, float>(d_dtype, vec, a);
+  if (p_dtype == 1) return by_delta<TX, __nv_bfloat16>(d_dtype, vec, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -244,24 +323,34 @@ const char* jt_error_string(int code) {
 
 // x, y: [rows, d] row-major (dtype 0 = fp32, 1 = bf16); scale, bias: [d]
 // (p_dtype, the same codes); d in [1, 8192]; vec: values a lane loads at a
-// time, 16 / sizeof(x's element) (x and y 16-byte aligned, d a multiple of
-// vec) or 1.
+// time, 16 / sizeof(x's element) (x, y, delta and r_out aligned to a chunk,
+// d a multiple of vec) or 1. delta: null, or [delta_rows, d] row-major
+// (d_dtype: x's, or bf16 under fp32 x; row i of x adds row i % delta_rows;
+// vec 16 / sizeof(x's element) only), with r_out [rows, d] in x's dtype:
+// the norm is then of r = x + delta, which is written to r_out.
 int layer_norm_fwd(const void* x, const void* scale, const void* bias,
-                   void* y, int rows, int d, int x_dtype, int p_dtype,
+                   void* y, const void* delta, int delta_rows, int d_dtype,
+                   void* r_out, int rows, int d, int x_dtype, int p_dtype,
                    float eps, int vec, void* stream) {
-  if (rows < 1 || d < 1 || d > WIDE_THREADS * 32)
+  if (rows < 1 || d < 1 || d > WIDE_THREADS * 32 ||
+      (delta && (!r_out || delta_rows < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!delta) d_dtype = x_dtype;
   if (vec != 1) {
     const int bytes = x_dtype == 0 ? 4 : 2;
     if (vec * bytes != 16 || d % vec)
       return static_cast<int>(cudaErrorInvalidValue);
-    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15)
+    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+         reinterpret_cast<uintptr_t>(r_out)) & 15)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    const int d_chunk = vec * (d_dtype == 0 ? 4 : 2);
+    if (reinterpret_cast<uintptr_t>(delta) % d_chunk)
       return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const Args a = {x, scale, bias, y, rows, d, eps,
+  const Args a = {x, scale, bias, y, delta, delta_rows, r_out, rows, d, eps,
                   static_cast<cudaStream_t>(stream)};
-  if (x_dtype == 0) return by_param<float>(p_dtype, vec, a);
-  if (x_dtype == 1) return by_param<__nv_bfloat16>(p_dtype, vec, a);
+  if (x_dtype == 0) return by_param<float>(p_dtype, d_dtype, vec, a);
+  if (x_dtype == 1) return by_param<__nv_bfloat16>(p_dtype, d_dtype, vec, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

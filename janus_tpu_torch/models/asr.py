@@ -25,11 +25,11 @@ import torch.nn.functional as F
 from janus_tpu_torch.common.config import ASRConfig
 from janus_tpu_torch.ops.attention import KVCache, merge_heads, split_heads
 from janus_tpu_torch.ops.cross_attn import cross_attention_kv
-from janus_tpu_torch.ops.decode_attention import decode_attention
+from janus_tpu_torch.ops.decode_attention import attend_cache
 from janus_tpu_torch.ops.flash import flash_attention
-from janus_tpu_torch.ops.layers import (conv1d, embedding_lookup, gelu,
-                                        layer_norm, linear, row_linear,
-                                        sinusoid_positions)
+from janus_tpu_torch.ops.layers import (add_layer_norm, conv1d,
+                                        embedding_lookup, gelu, linear,
+                                        row_linear, sinusoid_positions)
 from janus_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
 from janus_tpu_torch.ops.quant import QuantKVT, quantize_kv_t
 from janus_tpu_torch.parallel.collectives import (all_gather, axis_index,
@@ -112,12 +112,16 @@ def encode_audio(params: Params, cfg: ASRConfig, mel: torch.Tensor,
         me = axis_index(sp_mesh, "seq")
         lo, hi = me * t // n, (me + 1) * t // n
         x, pos = x[..., lo:hi, :], pos[lo:hi]
-    x = x + pos.to(x.dtype)
+    # each residual add is taken into the norm that reads its sum: a
+    # sublayer's output stays pending (delta) until the next norm
+    delta = pos.to(x.dtype)
     for blk in enc["blocks"]:
-        x = x + _attention(blk["attn"], layer_norm(x, **blk["attn_ln"]),
-                           cfg.num_heads, sp_mesh=sp_mesh)
-        x = x + _mlp(blk["mlp"], layer_norm(x, **blk["mlp_ln"]))
-    x = layer_norm(x, **enc["ln_post"])
+        x, h = add_layer_norm(x, delta, **blk["attn_ln"])
+        x, h = add_layer_norm(x, _attention(blk["attn"], h, cfg.num_heads,
+                                            sp_mesh=sp_mesh),
+                              **blk["mlp_ln"])
+        delta = _mlp(blk["mlp"], h)
+    _, x = add_layer_norm(x, delta, **enc["ln_post"])
     if sp_mesh is not None:
         x = all_gather(x, sp_mesh, "seq", dim=-2)
     return x
@@ -179,10 +183,10 @@ def _cross_kv(params: Params, cfg: ASRConfig, enc: torch.Tensor,
     return ks, vs
 
 
-def _self_qkv(blk: Params, cfg: ASRConfig, x: torch.Tensor):
-    """Pre-norm + self-attention projections (fused ``qkv`` when the tree
-    was prepared by :func:`..params.prepare_decode_params`)."""
-    h = enter_model(layer_norm(x, **blk["attn_ln"]))
+def _self_qkv(blk: Params, cfg: ASRConfig, h: torch.Tensor):
+    """Self-attention projections of the normed input ``h`` (fused ``qkv``
+    when the tree was prepared by :func:`..params.prepare_decode_params`)."""
+    h = enter_model(h)
     p = blk["attn"]
     if "qkv" in p:
         heads = local_heads(cfg.num_heads, p["qkv"]["w"], parts=3)
@@ -195,29 +199,31 @@ def _self_qkv(blk: Params, cfg: ASRConfig, x: torch.Tensor):
 
 
 def _decoder_layer(blk: Params, cfg: ASRConfig, x: torch.Tensor,
-                   cache: KVCache, cross_k, cross_v, t_new: int,
-                   pos: Optional[torch.Tensor] = None,
-                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Cached self-attn → cross-attn → MLP (the cache is appended to in
-    place; at the device position ``pos`` when one is given, its slots
-    ``positions``)."""
-    q, k, v = _self_qkv(blk, cfg, x)
-    if pos is None:
-        cache.append_lockstep(k, v)
-        at = cache.length - t_new
-    else:
-        cache.write_at(k, v, pos, positions)
-        at = pos
+                   delta: torch.Tensor, cache: KVCache, cross_k, cross_v,
+                   pos: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cached self-attn → cross-attn → MLP over the layer's input ``x +
+    delta`` (``delta``: the sublayer output before it, not yet added).
+    Each residual add is taken into the norm that reads the sum
+    (:func:`~..ops.layers.add_layer_norm`); returns ``(x, delta)`` with
+    the MLP's output pending. The step's K/V are written into the cache
+    by the attention call (:func:`~..ops.decode_attention.attend_cache`):
+    at the device position ``pos`` when one is given, else at the cache's
+    fill count, which advances."""
+    x, h = add_layer_norm(x, delta, **blk["attn_ln"])
+    q, k, v = _self_qkv(blk, cfg, h)
     p = blk["attn"]
-    x = x + row_linear(merge_heads(decode_attention(q, cache.k, cache.v, at)),
-                       p["out"]["w"], p["out"]["b"])
-    h = enter_model(layer_norm(x, **blk["cross_ln"]))
+    x, h = add_layer_norm(x, row_linear(
+        merge_heads(attend_cache(q, cache, k, v, pos)), p["out"]["w"],
+        p["out"]["b"]), **blk["cross_ln"])
+    h = enter_model(h)
     pc = blk["cross"]
     qc = split_heads(linear(h, pc["q"]["w"], pc["q"]["b"]),
                      local_heads(cfg.num_heads, pc["q"]["w"]))
-    x = x + row_linear(merge_heads(cross_attention_kv(qc, cross_k, cross_v)),
-                       pc["out"]["w"], pc["out"]["b"])
-    return x + _mlp(blk["mlp"], layer_norm(x, **blk["mlp_ln"]))
+    x, h = add_layer_norm(x, row_linear(
+        merge_heads(cross_attention_kv(qc, cross_k, cross_v)),
+        pc["out"]["w"], pc["out"]["b"]), **blk["mlp_ln"])
+    return x, _mlp(blk["mlp"], h)
 
 
 def _decoder_forward(params: Params, cfg: ASRConfig, tokens: torch.Tensor,
@@ -236,13 +242,13 @@ def _decoder_forward(params: Params, cfg: ASRConfig, tokens: torch.Tensor,
     t_new = tokens.shape[-1]
     pos = pos_offset if isinstance(pos_offset, torch.Tensor) else None
     positions = pos_offset + torch.arange(t_new, device=tokens.device)
+    # the position rows are the first layer's pending delta
     x = embedding_lookup(dec["token_emb"], tokens)
-    x = x + embedding_lookup(dec["pos_emb"], positions)
+    delta = embedding_lookup(dec["pos_emb"], positions)
     for i, blk in enumerate(dec["blocks"]):
-        x = _decoder_layer(blk, cfg, x, state.self_caches[i],
-                           state.cross_k[i], state.cross_v[i], t_new, pos,
-                           positions)
-    x = layer_norm(x, **dec["ln"])
+        x, delta = _decoder_layer(blk, cfg, x, delta, state.self_caches[i],
+                                  state.cross_k[i], state.cross_v[i], pos)
+    _, x = add_layer_norm(x, delta, **dec["ln"])
     # tied embedding, products accumulated in fp32
     if head is None:
         head = dec["token_emb"].float()

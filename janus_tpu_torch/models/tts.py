@@ -34,9 +34,9 @@ from janus_tpu_torch.common.config import TTSConfig
 from janus_tpu_torch.models.params import (_init_attn, _init_ln, _init_mlp,
                                            _normal, _zeros)
 from janus_tpu_torch.ops.attention import KVCache, merge_heads, split_heads
-from janus_tpu_torch.ops.decode_attention import decode_attention
-from janus_tpu_torch.ops.layers import (embedding_lookup, gelu, layer_norm,
-                                        linear, row_linear)
+from janus_tpu_torch.ops.decode_attention import attend_cache
+from janus_tpu_torch.ops.layers import (add_layer_norm, embedding_lookup,
+                                        gelu, linear, row_linear)
 from janus_tpu_torch.parallel.collectives import enter_model, local_heads
 from janus_tpu_torch.runtime.step_graph import (DONE_CHECK_EVERY, StepGraph,
                                                 StepGraphs, default_graphs,
@@ -135,33 +135,33 @@ def _embed_mel(params: Params, mel_groups: torch.Tensor) -> torch.Tensor:
     return linear(h, p["fc2"]["w"], p["fc2"]["b"])
 
 
-def _block(blk: Params, x: torch.Tensor, num_heads: int, cache: KVCache,
-           fill: Optional[torch.Tensor] = None,
-           slots: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One pre-norm block over ``x[B, S, d]``, appending to ``cache`` in
-    place (at the device position ``fill`` when one is given, its slots
-    ``slots``). The attention sees the caches' causal mask at the fill
-    point (the decode kernel on the card for a step, ``attend`` for a wide
+def _block(blk: Params, x: torch.Tensor, delta: torch.Tensor,
+           num_heads: int, cache: KVCache,
+           fill: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pre-norm block over ``x + delta`` (``[B, S, d]``; ``delta``: the
+    output before it, not yet added), appending to ``cache`` in place (at
+    the device position ``fill`` when one is given, else at the cache's
+    fill count, which advances). Each residual add is taken into the norm
+    that reads the sum (:func:`~..ops.layers.add_layer_norm`); returns
+    ``(x, delta)`` with the MLP's output pending. The attention writes the
+    step's K/V and sees the caches' causal mask at the fill point (the
+    decode kernel on the card for a step, ``attend`` for a wide
     prompt)."""
-    h = enter_model(layer_norm(x, **blk["attn_ln"]))
+    x, h = add_layer_norm(x, delta, **blk["attn_ln"])
+    h = enter_model(h)
     p = blk["attn"]
     heads = local_heads(num_heads, p["q"]["w"])
     q = split_heads(linear(h, p["q"]["w"], p["q"]["b"]), heads)
     k = split_heads(linear(h, p["k"]["w"], p["k"].get("b")), heads)
     v = split_heads(linear(h, p["v"]["w"], p["v"]["b"]), heads)
-    if fill is None:
-        cache.append_lockstep(k, v)
-        at = cache.length - x.shape[-2]
-    else:
-        cache.write_at(k, v, fill, slots)
-        at = fill
-    x = x + row_linear(merge_heads(decode_attention(q, cache.k, cache.v, at)),
-                       p["out"]["w"], p["out"]["b"])
-    h = enter_model(layer_norm(x, **blk["mlp_ln"]))
-    h = row_linear(gelu(linear(h, blk["mlp"]["fc1"]["w"],
-                               blk["mlp"]["fc1"]["b"])),
-                   blk["mlp"]["fc2"]["w"], blk["mlp"]["fc2"]["b"])
-    return x + h
+    x, h = add_layer_norm(x, row_linear(
+        merge_heads(attend_cache(q, cache, k, v, fill)), p["out"]["w"],
+        p["out"]["b"]), **blk["mlp_ln"])
+    h = enter_model(h)
+    return x, row_linear(gelu(linear(h, blk["mlp"]["fc1"]["w"],
+                                     blk["mlp"]["fc1"]["b"])),
+                         blk["mlp"]["fc2"]["w"], blk["mlp"]["fc2"]["b"])
 
 
 class TTSState(NamedTuple):
@@ -241,12 +241,11 @@ def _forward_embedded(params: Params, cfg: TTSConfig, x: torch.Tensor,
     stop_logit [B, S], state); the caches are appended to in place, at
     their ``length`` or, for a captured step, at the 0-dim device tensor
     ``fill`` (``length`` is then the caller's to keep)."""
-    x = x + pos
-    slots = (None if fill is None
-             else fill + torch.arange(x.shape[-2], device=x.device))
+    # the position rows are the first block's pending delta
+    delta = pos
     for blk, cache in zip(params["blocks"], state.caches):
-        x = _block(blk, x, cfg.num_heads, cache, fill, slots)
-    x = layer_norm(x, **params["ln"])
+        x, delta = _block(blk, x, delta, cfg.num_heads, cache, fill)
+    _, x = add_layer_norm(x, delta, **params["ln"])
     mel = linear(x, params["mel_head"]["w"], params["mel_head"]["b"])
     stop = linear(x, params["stop_head"]["w"], params["stop_head"]["b"])[..., 0]
     return mel, stop, state

@@ -100,17 +100,16 @@ class KVCache:
         return self
 
     def write_at(self, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: torch.Tensor,
-                 idx: Optional[torch.Tensor] = None) -> None:
+                 pos: torch.Tensor) -> None:
         """Write ``[..., H, T_new, Dh]`` at the fill point ``pos``, a 0-dim
         int64 tensor on the cache's device: the step variant that a CUDA
-        graph captures, which never reads the position back. ``idx`` is
-        ``pos + arange(T_new)`` where the caller has it already (one for
-        every layer of a step). ``length`` is left alone; the caller keeps
-        the count on the host and raises before a write past ``T_max`` (on
-        the card an index out of range is caught only by the device)."""
-        if idx is None:
-            idx = pos + torch.arange(k_new.shape[-2], device=self.k.device)
+        graph captures, which never reads the position back. ``length`` is
+        left alone; the caller keeps the count on the host and raises
+        before a write past ``T_max`` (on the card an index out of range is
+        caught only by the device). The decode steps write through
+        :func:`~janus_tpu_torch.ops.decode_attention.attend_cache`, whose
+        kernel stores what this stores."""
+        idx = pos + torch.arange(k_new.shape[-2], device=self.k.device)
         self.k.index_copy_(-2, idx, k_new.to(self.k.dtype))
         self.v.index_copy_(-2, idx, v_new.to(self.v.dtype))
 

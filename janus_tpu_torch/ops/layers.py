@@ -27,6 +27,8 @@ __all__ = [
     "layer_norm",
     "layer_norm_plain",
     "layer_norm_fused",
+    "add_layer_norm",
+    "add_layer_norm_fused",
     "gelu",
     "conv1d",
     "embedding_lookup",
@@ -84,10 +86,11 @@ def row_linear(x: torch.Tensor, w,
 LN_KERNEL = cuda_build.KERNELS["layer_norm"]
 _LN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LN_MAX_WIDTH = 8192
-# layer_norm_fwd(x, scale, bias, y, rows, d, x_dtype, p_dtype, eps, vec,
-#                stream)
-_LN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
-                + [ctypes.c_int] + [ctypes.c_void_p])
+# layer_norm_fwd(x, scale, bias, y, delta, delta_rows, d_dtype, r_out, rows,
+#                d, x_dtype, p_dtype, eps, vec, stream)
+_LN_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int]
+                + [ctypes.c_void_p])
 
 
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -103,11 +106,9 @@ def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale.to(ct) + bias.to(ct)).to(x.dtype)
 
 
-def layer_norm_fused(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """The kernel on a CUDA tensor: fp32 or bf16 ``x`` of width up to
-    :data:`LN_MAX_WIDTH`, fp32 or bf16 ``scale`` and ``bias`` (one dtype);
-    anything else raises."""
+def _ln_kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float, delta: Optional[torch.Tensor] = None):
+    """One launch of the kernel: ``y``, or with ``delta`` ``(r, y)``."""
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm kernel: {x.device} is not a CUDA device")
     d = x.shape[-1]
@@ -128,23 +129,78 @@ def layer_norm_fused(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     x = x.contiguous()
     scale, bias = scale.contiguous(), bias.contiguous()
     y = torch.empty_like(x)
+    r = None if delta is None else torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:
-        return y
+        return y if r is None else (r, y)
     wide = 16 // x.element_size()
-    vec = (wide if d % wide == 0 and x.data_ptr() % 16 == 0
-           and y.data_ptr() % 16 == 0 else 1)
+    if delta is None:
+        vec = (wide if d % wide == 0 and x.data_ptr() % 16 == 0
+               and y.data_ptr() % 16 == 0 else 1)
+        d_ptr, d_rows, d_code, r_ptr, d_bytes, adds = None, 0, 0, None, 0, 0
+    else:
+        # the chunks the unfused pair's norm takes over a fresh r (the
+        # width allows them: _fusable), inputs copied where they are not
+        # aligned to one
+        vec = wide
+        delta = delta.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        if delta.data_ptr() % (vec * delta.element_size()):
+            delta = delta.clone()
+        d_ptr, d_rows = delta.data_ptr(), delta.numel() // d
+        d_code, r_ptr = _LN_DTYPES[delta.dtype], r.data_ptr()
+        d_bytes = delta.numel() * delta.element_size() \
+            + x.numel() * x.element_size()
+        adds = x.numel()
     fn = cuda_build.entry(LN_KERNEL, "layer_norm_fwd", _LN_ARGTYPES)
     # a sum, a deviation, its square and sum, then a subtraction and three
-    # roundings' worth of multiply and add a value; a reciprocal root a row
-    LN_KERNEL.launched(8.0 * x.numel() + rows,
+    # roundings' worth of multiply and add a value; a reciprocal root a row;
+    # the residual's add a value (its delta read, r written)
+    LN_KERNEL.launched(8.0 * x.numel() + rows + adds,
                        2 * x.numel() * x.element_size()
-                       + 2 * d * scale.element_size())
+                       + 2 * d * scale.element_size() + d_bytes)
     code = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-              rows, d, _LN_DTYPES[x.dtype], _LN_DTYPES[scale.dtype], eps, vec,
+              d_ptr, d_rows, d_code, r_ptr, rows, d, _LN_DTYPES[x.dtype],
+              _LN_DTYPES[scale.dtype], eps, vec,
               torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check_launch(LN_KERNEL, code)
-    return y
+    return y if r is None else (r, y)
+
+
+def layer_norm_fused(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """The kernel on a CUDA tensor: fp32 or bf16 ``x`` of width up to
+    :data:`LN_MAX_WIDTH`, fp32 or bf16 ``scale`` and ``bias`` (one dtype);
+    anything else raises."""
+    return _ln_kernel(x, scale, bias, eps)
+
+
+def _fusable(x: torch.Tensor, delta: torch.Tensor) -> bool:
+    """Whether the kernel takes ``x + delta``: ``delta`` in ``x``'s dtype
+    (or bf16 under fp32 ``x``: the sum is then fp32, as PyTorch promotes
+    it), the shape of ``x``'s last axes (broadcast over the leading ones),
+    and a width of whole 16-byte chunks of ``x``."""
+    return (x.dtype in _LN_DTYPES and delta.device == x.device
+            and x.shape[-1] % (16 // x.element_size()) == 0
+            and (delta.dtype == x.dtype or (x.dtype == torch.float32
+                                            and delta.dtype == torch.bfloat16))
+            and 1 <= delta.dim() <= x.dim()
+            and tuple(x.shape[x.dim() - delta.dim():]) == tuple(delta.shape))
+
+
+def add_layer_norm_fused(x: torch.Tensor, delta: torch.Tensor,
+                         scale: torch.Tensor, bias: torch.Tensor,
+                         eps: float = 1e-5):
+    """The kernel with the residual on a CUDA tensor: ``(r, y)``, ``r = x +
+    delta`` rounded to ``x.dtype`` as PyTorch's add rounds it and ``y`` its
+    layer norm, in one launch; ``delta`` as :func:`_fusable` says, the rest
+    as :func:`layer_norm_fused` takes it; anything else raises."""
+    if not _fusable(x, delta):
+        raise TypeError(f"layer_norm kernel: cannot add delta "
+                        f"{tuple(delta.shape)} {delta.dtype} to x "
+                        f"{tuple(x.shape)} {x.dtype}")
+    return _ln_kernel(x, scale, bias, eps, delta)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -179,6 +235,22 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                     or bias.requires_grad):
         return _LayerNorm.apply(x, scale, bias, eps)
     return layer_norm_fused(x, scale, bias, eps)
+
+
+def add_layer_norm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, eps: float = 1e-5):
+    """``(r, layer_norm(r))`` with ``r = x + delta``: a residual add and the
+    pre-norm that reads it. On a CUDA tensor, one launch of the kernel
+    (:func:`add_layer_norm_fused`) where it takes the pair; otherwise (a
+    ``delta`` of another dtype or shape), under autograd and on the CPU,
+    the add and then :func:`layer_norm` (the plain body on the CPU,
+    :class:`_LayerNorm` under autograd)."""
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, delta, scale, bias))
+    if x.device.type == "cuda" and not grad and _fusable(x, delta):
+        return add_layer_norm_fused(x, delta, scale, bias, eps)
+    r = x + delta
+    return r, layer_norm(r, scale, bias, eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,11 @@ counterpart of this module: ``jit`` plays its role there.
   graphs and captures anew. What the steps derive from the tree once (the
   TTS step's fp32 copy of its bf16 weights, the recognizer head's fp32
   table: :meth:`StepGraphs.derived`) is kept beside it, for all holders.
+- Lifetime: a holder owns its :class:`StepGraph`, which holds the
+  holder's step method weakly, so dropping a holder frees its graph, its
+  pool's blocks and its buffers at once, not whenever the cyclic collector
+  next runs (perhaps inside another capture, which a graph's teardown
+  there invalidates; the collector is kept off during a capture).
 - Kernel accounting: a replay bypasses the Python wrappers that count
   their launches (:class:`~janus_tpu_torch.ops.cuda_build.Kernel`), so the
   counts a capture records are taken back from the kernels and added again
@@ -35,9 +40,12 @@ captured). A failed capture or replay raises.
 
 from __future__ import annotations
 
+import gc
 import math
 import threading
 import time
+import types
+import weakref
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
@@ -90,11 +98,14 @@ class StepGraph:
     capture up front (the ``warmup`` methods) and captures take turns.
     The warm-up launches count as launches; the capture's are recorded in
     :attr:`counts` and added to the kernels at every replay.
-    ``capture_ms`` is the warm-up and capture's wall time."""
+    ``capture_ms`` is the warm-up and capture's wall time. A bound method
+    ``step`` is held weakly (its object owns this graph)."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
                  pool=None, stream=None):
-        self.step = step
+        self._step = (weakref.WeakMethod(step)
+                      if isinstance(step, types.MethodType)
+                      else lambda: step)
         self.device = device
         self.replays = 0
         self.counts: Counts = {}
@@ -102,6 +113,10 @@ class StepGraph:
         self._graph = None
         if device.type == "cuda":
             self._graph = self._capture(pool, stream)
+
+    @property
+    def step(self) -> Callable[[], None]:
+        return self._step()
 
     def _capture(self, pool, stream):
         dev = self.device
@@ -117,9 +132,18 @@ class StepGraph:
             torch.cuda.current_stream(dev).wait_stream(stream)
             before = _counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.step()
+            # no cyclic collection during the capture: one that freed
+            # another graph would tear it down inside the capture, which
+            # invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.step()
+            finally:
+                if collecting:
+                    gc.enable()
             after = _counts()
             _restore(before)
             self.counts = {k: (a[0] - before[k][0], a[1] - before[k][1],

@@ -731,6 +731,50 @@ def test_capture_beside_another_threads_work(dev):
     assert torch.equal(graphed, eager)
 
 
+def test_capture_beside_a_collection_that_frees_another_graph(dev):
+    """A graph torn down by the capturing thread during a capture
+    invalidates the capture (``CUDAGraph.cpp ... operation not permitted
+    when stream is capturing (function reset)``, then error 901). A dead
+    holder once waited in a cycle with its graph for the cyclic collector,
+    which could run inside a later capture and tear it down there (seen
+    beside another thread's work, after earlier tests' graphs): a dropped
+    holder now goes at once, so a collection inside a capture finds no
+    graph to tear down."""
+    import gc
+    import weakref
+
+    from janus_tpu_torch.runtime.step_graph import StepGraph
+
+    class Holder:
+        def __init__(self, before_step):
+            self.x = torch.ones(1024, device=dev)
+            self.before_step = before_step
+            self.graph = StepGraph(self.step, dev)
+
+        def step(self):
+            self.before_step()
+            self.x.mul_(2).add_(1)
+
+    gc.collect()  # earlier tests' garbage, outside any capture
+    dead = Holder(lambda: None)
+    gone = weakref.ref(dead)
+    del dead
+    assert gone() is None
+    steps = []
+
+    def collect_in_the_capture():
+        steps.append(1)
+        if len(steps) == 2:  # the capture, after the warm-up
+            gc.collect()
+
+    live = Holder(collect_in_the_capture)
+    assert len(steps) == 2
+    live.graph.replay()
+    torch.cuda.synchronize()
+    # ones, then the warm-up (3), then one replay (7)
+    assert torch.equal(live.x, torch.full_like(live.x, 7.0))
+
+
 def _byte_order_bpe(tmp_path):
     """A ``BpeTokenizer`` over the demo recognizer's 261 ids: id ``b`` is
     the GPT-2 symbol of byte ``b``, then the specials, whose
@@ -887,6 +931,189 @@ def test_decode_attention_kernel_matches_plain(dev, b, h, tq, t, dh, q_dtype,
             k2[..., fill + tq:, :] = float("nan")
             v2[..., fill + tq:, :] = float("nan")
             assert torch.equal(decode_attention(q, k2, v2, pos), out)
+
+
+@pytest.mark.parametrize("b,h,tq,t,dh,q_dtype,kv_dtype,fill", [
+    (8, 20, 1, 25, 64, torch.bfloat16, torch.bfloat16, 12),   # self step
+    (8, 20, 4, 28, 64, torch.bfloat16, torch.bfloat16, 0),    # prefill
+    (8, 20, 1, 291, 64, torch.float32, torch.bfloat16, 163),  # TTS step
+    (1, 20, 1, 291, 64, torch.float32, torch.bfloat16, 35),   # TTS b = 1
+    (3, 4, 1, 48, 32, torch.float32, torch.float32, 5),       # the demo
+    (2, 3, 16, 200, 128, torch.bfloat16, torch.float32, 100),  # 4 chunks
+    (2, 3, 2, 1500, 64, torch.bfloat16, torch.bfloat16, 3),   # 8 splits
+    (2, 5, 1, 40, 48, torch.float32, torch.bfloat16, 39),     # the last slot
+])
+def test_decode_attention_writes_the_cache_it_attends(dev, b, h, tq, t, dh,
+                                                      q_dtype, kv_dtype,
+                                                      fill):
+    """With the new rows the kernel writes the cache as ``write_at`` does
+    (bit for bit, every other slot untouched) and gives the kernel's
+    result over the written cache bit for bit, within the bars of the
+    plain fused call; slots past the new rows (NaN) are never read."""
+    from janus_tpu_torch.ops.attention import KVCache
+    from janus_tpu_torch.ops.decode_attention import (KERNEL,
+                                                      decode_attention,
+                                                      decode_attention_plain)
+
+    rng = np.random.default_rng(t + tq)
+
+    def arr(shape, s=1.0):
+        return torch.from_numpy((s * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev)
+
+    q = arr((b, h, tq, dh)).to(q_dtype)
+    k, v = arr((b, h, t, dh), 2.0).to(kv_dtype), arr((b, h, t, dh)).to(
+        kv_dtype)
+    k_new, v_new = arr((b, h, tq, dh), 2.0).to(q_dtype), arr(
+        (b, h, tq, dh)).to(q_dtype)
+    bf = torch.bfloat16 in (q_dtype, kv_dtype)
+    rtol, atol = (2 ** -6, 5e-3) if bf else (0.0, 2e-5)
+    for pos in (fill, torch.tensor(fill, device=dev)):
+        ref = KVCache(k.clone(), v.clone(), fill)
+        if isinstance(pos, torch.Tensor):
+            ref.write_at(k_new, v_new, pos)
+        else:
+            ref.append_lockstep(k_new, v_new)
+        want = decode_attention(q, ref.k, ref.v, pos)
+        # the kernel's caches hold NaN past the new rows: never read
+        k1, v1 = k.clone(), v.clone()
+        k1[..., fill + tq:, :] = float("nan")
+        v1[..., fill + tq:, :] = float("nan")
+        before = KERNEL.launches
+        out = decode_attention(q, k1, v1, pos, k_new, v_new)
+        torch.cuda.synchronize()
+        assert KERNEL.launches == before + 1
+        assert torch.equal(out, want)
+        assert torch.equal(k1[..., :fill + tq, :], ref.k[..., :fill + tq, :])
+        assert torch.equal(v1[..., :fill + tq, :], ref.v[..., :fill + tq, :])
+        assert bool(k1[..., fill + tq:, :].isnan().all())
+        k2, v2 = k.clone(), v.clone()
+        plain = decode_attention_plain(q, k2, v2, pos, k_new, v_new)
+        torch.testing.assert_close(out.float(), plain.float(), rtol=rtol,
+                                   atol=atol)
+        assert torch.equal(decode_attention(q, k1, v1, pos, k_new, v_new),
+                           out)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_decode_attention_any_split_plan_holds_the_bar(dev, splits):
+    """Each cluster size the kernel takes, at the 10 s cross-attention and
+    the TTS step's cache with its new row: within K2's bf16 bar (the plan
+    forced through the wrapper's private launcher)."""
+    from janus_tpu_torch.ops.decode_attention import (_kernel,
+                                                      decode_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(splits)
+    q = torch.randn((8, 20, 1, 64), generator=g, device=dev)
+    k, v = (torch.randn((8, 20, 500, 64), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    out = _kernel(q.to(torch.bfloat16), k, v, None, None, None, splits)
+    ref = decode_attention_plain(q.to(torch.bfloat16), k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -6,
+                               atol=5e-3)
+    kn, vn = (torch.randn((8, 20, 1, 64), generator=g, device=dev)
+              for _ in range(2))
+    pos = torch.tensor(163, device=dev)
+    out = _kernel(q, k[..., :291, :].clone(), v[..., :291, :].clone(), pos,
+                  kn, vn, splits)
+    ref = decode_attention_plain(q, k[..., :291, :].clone(),
+                                 v[..., :291, :].clone(), pos, kn, vn)
+    torch.testing.assert_close(out, ref, rtol=2 ** -6, atol=5e-3)
+
+
+@pytest.mark.parametrize("shape,delta_shape,x_dtype,d_dtype,p_dtype", [
+    ((8, 1, 1280), (8, 1, 1280), torch.bfloat16, torch.bfloat16,
+     torch.bfloat16),                                  # recognizer step
+    ((8, 1, 1280), (1, 1280), torch.float32, torch.bfloat16,
+     torch.bfloat16),                                  # the AR step's
+    ((8, 1, 1280), (8, 1, 1280), torch.float32, torch.float32,
+     torch.bfloat16),
+    ((2, 300, 1280), (300, 1280), torch.bfloat16, torch.bfloat16,
+     torch.bfloat16),                                  # encoder positions
+    ((5, 77), (5, 77), torch.float32, torch.float32,
+     torch.float32),                   # no 16-byte chunks: add, then norm
+    ((3, 4096), (3, 4096), torch.bfloat16, torch.bfloat16, torch.float32),
+])
+def test_add_layer_norm_kernel_matches_the_unfused_pair(
+        dev, shape, delta_shape, x_dtype, d_dtype, p_dtype):
+    """One launch of the kernel (a width of no whole 16-byte chunks: the
+    add, then the kernel): the sum bit-equal to PyTorch's add, the norm
+    bit-equal to the layer-norm kernel over that sum (and so within its
+    bars of the plain version), two launches equal."""
+    from janus_tpu_torch.ops.layers import (LN_KERNEL, add_layer_norm,
+                                            layer_norm_fused,
+                                            layer_norm_plain)
+
+    rng = np.random.default_rng(shape[-1] + len(delta_shape))
+    d = shape[-1]
+    x = torch.from_numpy((3 * rng.standard_normal(shape) + 1).astype(
+        np.float32)).to(dev, x_dtype)
+    delta = torch.from_numpy(rng.standard_normal(delta_shape).astype(
+        np.float32)).to(dev, d_dtype)
+    sc, bi = (torch.from_numpy((m + 0.1 * rng.standard_normal(d)).astype(
+        np.float32)).to(dev, p_dtype) for m in (1.0, 0.0))
+    before = LN_KERNEL.launches
+    r, y = add_layer_norm(x, delta, sc, bi)
+    torch.cuda.synchronize()
+    assert LN_KERNEL.launches == before + 1
+    assert torch.equal(r, x + delta)
+    assert torch.equal(y, layer_norm_fused(x + delta, sc, bi))
+    ref = layer_norm_plain(r, sc, bi)
+    diff = (y.float() - ref.float()).abs()
+    if x_dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            ref.float().abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool((diff <= ulp + 1e-5).all())
+    r2, y2 = add_layer_norm(x, delta, sc, bi)
+    assert torch.equal(r2, r) and torch.equal(y2, y)
+
+
+def test_fused_decoder_layers_equal_the_unfused_pairs_on_the_card(
+        dev, monkeypatch):
+    """Two decoder layers on the card, bf16: the prefill, a host-position
+    and a device-position step through the fused kernels give the logits
+    and caches of the residual adds, layer norms, cache writes and decode
+    attentions launched apart, bit for bit."""
+    from janus_tpu_torch.models import asr
+    from janus_tpu_torch.ops.decode_attention import decode_attention
+    from janus_tpu_torch.ops.layers import layer_norm
+
+    cfg, params, enc, prompt = _graph_asr(dev)
+    prompt = torch.cat([prompt, prompt + 3, prompt - 9, prompt + 1], dim=1)
+
+    def run():
+        state = asr.init_decode_state(params, cfg, enc, max_len=8,
+                                      dtype=torch.bfloat16)
+        out = [asr.decoder_prefill(params, cfg, prompt, state)[0]]
+        out.append(asr.decoder_step(params, cfg, prompt[:, 1], state)[0])
+        out.append(asr._decoder_forward(
+            params, cfg, prompt[:, 2:3], torch.tensor(state.fill, device=dev),
+            state)[0])
+        return out, state
+
+    def add_layer_norm(x, delta, scale, bias, eps=1e-5):
+        r = x + delta
+        return r, layer_norm(r, scale, bias, eps)
+
+    def attend_cache(q, cache, k_new, v_new, pos=None):
+        if pos is None:
+            cache.append_lockstep(k_new, v_new)
+            at = cache.length - k_new.shape[-2]
+        else:
+            cache.write_at(k_new, v_new, pos)
+            at = pos
+        return decode_attention(q, cache.k, cache.v, at)
+
+    fused, fs = run()
+    monkeypatch.setattr(asr, "add_layer_norm", add_layer_norm)
+    monkeypatch.setattr(asr, "attend_cache", attend_cache)
+    unfused, us = run()
+    for a, b in zip(fused, unfused):
+        assert torch.equal(a, b)
+    for a, b in zip(fs.self_caches, us.self_caches):
+        assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
 
 
 def test_decode_attention_replays_with_the_fill_it_finds(dev):

@@ -4,8 +4,11 @@ AR loop) with the device-position step run eagerly over them, against the
 eager loops bit for bit and against the JAX package at the tolerances of
 ``tests/test_torch_asr.py`` and ``tests/test_torch_tts.py``; the ``done``
 flags read every 8 steps; the host's overflow checks; the kernel
-accounting of replays; the choice of path. On the card the same step is
-captured in a CUDA graph (``tests/test_torch_cuda.py``)."""
+accounting of replays; the choice of path; two decoder layers and two TTS
+blocks with the residual adds and the cache writes taken into the norms'
+and the attention's calls, bit-equal to the add and norm, write and
+attention apart. On the card the same step is captured in a CUDA graph
+(``tests/test_torch_cuda.py``)."""
 
 import contextlib
 
@@ -299,6 +302,102 @@ def test_tts_host_raises_before_an_overflow(tts_tree):
         t_tts.tts_decode_chunk(tp, tc, state, first, done, 0, 1)
 
 
+# -- the fused calls against the unfused pairs -----------------------------
+
+def _unfuse(monkeypatch, *modules):
+    """Each fused call of the models' layers as the pair it replaces: the
+    residual add, then ``layer_norm``; the cache write (``write_at`` at a
+    device position, ``append_lockstep`` at the fill count), then
+    ``decode_attention``."""
+    from janus_tpu_torch.ops.decode_attention import decode_attention
+    from janus_tpu_torch.ops.layers import layer_norm
+
+    def add_layer_norm(x, delta, scale, bias, eps=1e-5):
+        r = x + delta
+        return r, layer_norm(r, scale, bias, eps)
+
+    def attend_cache(q, cache, k_new, v_new, pos=None):
+        if pos is None:
+            cache.append_lockstep(k_new, v_new)
+            at = cache.length - k_new.shape[-2]
+        else:
+            cache.write_at(k_new, v_new, pos)
+            at = pos
+        return decode_attention(q, cache.k, cache.v, at)
+
+    for m in modules:
+        monkeypatch.setattr(m, "add_layer_norm", add_layer_norm)
+        monkeypatch.setattr(m, "attend_cache", attend_cache)
+
+
+def test_fused_decoder_layers_equal_the_unfused_pairs(asr_trees,
+                                                      monkeypatch):
+    """Two decoder layers (bf16 tree and caches) through a 4-token prefill,
+    a host-position step and a device-position step: the logits and every
+    cache bit-equal with and without the fused calls."""
+    from janus_tpu_torch.models.params import cast_floating
+
+    jcfg, tcfg, jp, enc = asr_trees
+    assert tcfg.decoder_layers == 2
+    params, _ = _port_asr(jp, int8=False)
+    params = cast_floating(params, torch.bfloat16)
+    enc = _t(enc).to(torch.bfloat16)
+    prompt = torch.tensor([[256, 12, 40, 7]] * enc.shape[0])
+
+    def run():
+        state = t_asr.init_decode_state(params, tcfg, enc, max_len=8,
+                                        dtype=torch.bfloat16)
+        out = [t_asr.decoder_prefill(params, tcfg, prompt, state)[0]]
+        out.append(t_asr.decoder_step(params, tcfg, prompt[:, 1], state)[0])
+        out.append(t_asr._decoder_forward(params, tcfg, prompt[:, 2:3],
+                                          torch.tensor(state.fill),
+                                          state)[0])
+        return out, state
+
+    fused, fs = run()
+    with monkeypatch.context() as m:
+        _unfuse(m, t_asr)
+        unfused, us = run()
+    assert fs.fill == us.fill == 5
+    for a, b in zip(fused, unfused):
+        assert torch.equal(a, b)
+    for a, b in zip(fs.self_caches, us.self_caches):
+        assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+
+
+def test_fused_tts_blocks_equal_the_unfused_pairs(tts_tree, monkeypatch):
+    """Two TTS blocks (bf16 tree and caches): the prefill and three AR
+    steps at a device fill point, groups, flags and caches bit-equal with
+    and without the fused calls."""
+    from janus_tpu_torch.models.params import cast_floating
+
+    cfg = TTSConfig(**TTS_KW, dtype="bfloat16")
+    params = t_tts.step_tree(cast_floating(params_from_jax(tts_tree),
+                                           torch.bfloat16))
+    text, emo, spk = _prompt(2, seed=4)
+
+    def run():
+        first, done, state = t_tts.tts_prefill(
+            params, cfg, _t(text), _t(emo), _t(spk), max_groups=6,
+            stop_threshold=2.0, eager=True)
+        out, prev, p = [first], first.float(), state.fill
+        for g in range(3):
+            prev, done = t_tts._step(params, cfg, state, prev, done,
+                                     torch.tensor(g), 2.0,
+                                     fill=torch.tensor(p + g))
+            out += [prev, done]
+        return out, state
+
+    fused, fs = run()
+    with monkeypatch.context() as m:
+        _unfuse(m, t_tts)
+        unfused, us = run()
+    for a, b in zip(fused, unfused):
+        assert torch.equal(a, b)
+    for a, b in zip(fs.caches, us.caches):
+        assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+
+
 # -- the holder: device-position cache, accounting, path, trees -------------
 
 def test_device_position_write_and_mask_equal_the_host_ones():
@@ -363,6 +462,64 @@ def test_replays_add_the_counts_the_capture_recorded(monkeypatch):
     assert Graph.replays == 5 and g.replays == 5
     assert (k4.launches, k4.flops, k4.bytes) == (12, 36.0, 60.0)
     assert (k2.launches, k2.flops, k2.bytes) == (6, 42.0, 6.0)
+
+
+def test_a_holder_and_its_graph_form_no_cycle(monkeypatch):
+    """A holder owns its ``StepGraph``, which holds the holder's step
+    method weakly: dropping the holder frees it, with its graph, pool
+    blocks and buffers, at once, not whenever the cyclic collector runs.
+    The collector is off during a capture (freeing another graph there
+    would tear that graph down inside the capture) and on again after."""
+    import gc
+    import weakref
+
+    seen = []
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+        def synchronize(self):
+            pass
+
+    class Graph:
+        def replay(self):
+            pass
+
+    @contextlib.contextmanager
+    def graph(*a, **k):
+        seen.append(gc.isenabled())
+        yield
+
+    cuda = torch.cuda
+    monkeypatch.setattr(cuda, "Stream", lambda *a: Stream())
+    monkeypatch.setattr(cuda, "current_stream", lambda *a: Stream())
+    monkeypatch.setattr(cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(cuda, "graph", graph)
+
+    class Holder:
+        def __init__(self, device):
+            self.steps = 0
+            self.graph = StepGraph(self.step, device)
+
+        def step(self):
+            self.steps += 1
+
+    for device, steps in ((torch.device("cpu"), 1), (torch.device("cuda"), 2)):
+        h = Holder(device)
+        h.graph.replay()
+        assert h.steps == steps  # CPU: the replay; card: warm-up, capture
+        gone = weakref.ref(h)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            del h
+            assert gone() is None
+        finally:
+            if collecting:
+                gc.enable()
+    assert seen == [False] and gc.isenabled()
 
 
 def test_the_path_follows_the_device_the_caller_and_the_mesh():
