@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the six hand-written CUDA
+Run from the root of a checkout. It builds the seven hand-written CUDA
 kernels from ``janus_tpu_torch/csrc`` (one ``nvcc`` per source, all at
 once, into ``build/janus_tpu_torch/``) and runs these phases, each
 printing one JSON line per result:
@@ -24,11 +24,17 @@ printing one JSON line per result:
    to PyTorch's add bit for bit, against the add and the norm apart), the
    decode attention at every split plan of the 10 s and 30 s
    cross-attention, and writing the cache itself (the cache equal to
-   ``write_at``'s and the output to write-then-attend's, bit for bit);
+   ``write_at``'s and the output to write-then-attend's, bit for bit); the
+   dynamic-int8 linear (the port's own kernel) at every shape of the int8
+   path, equal to its plain version bit for bit, beside the path it
+   replaced (``before_ms``: the eager quantization, ``torch._int_mm`` on
+   the row-major weight, padded to 17 rows below that, and the rescale)
+   and ``torch._int_mm`` alone on either layout (``int_mm_ms``);
 3. demo    — the committed demo recognizer through ``SemanticEncoder`` on
    the card and on the CPU: the packets must be byte-equal; then the same
    under the int8 configuration (``quantize_tree`` weights in each mode,
-   ``asr.decode_cross_kv_int8``), which must launch the K4 kernel;
+   ``asr.decode_cross_kv_int8``), which must launch the K4 kernel, and in
+   the dynamic mode the int8 linear;
 4. flagship — Whisper large-v3 (random weights from seed 0, bf16) encoding
    8 phrases of 10 s through ``SemanticEncoder.encode_batch``: per-stage
    and end-to-end times, launches of each kernel in that run, and the
@@ -54,9 +60,12 @@ printing one JSON line per result:
 5. flagship int8 — the same model with dynamic-int8 weights and int8
    cross K/V (the analogue of CTranslate2 ``compute_type='int8'``): times,
    launches (K4 once per decoder layer and forward, the replayed steps'
-   counted through the captured step's 32), one decode step's logits
-   against the plain cross-attention, token agreement with phase 4, and
-   the replayed loop against the eager one as in phase 4;
+   counted through the captured step's 32; the int8 linear six a decoder
+   layer, 192 in the captured step), one decode step's logits against the
+   plain cross-attention, token agreement with phase 4, and the replayed
+   loop against the eager one as in phase 4; the replayed step traced
+   (at most 1,250 kernels) beside the same step captured with the linear
+   as it ran before its kernel (``decode_step_graph_before``);
 6. receive_demo — the committed demo TTS, vocoder and speaker encoder
    through ``Synthesizer`` on the card and on the CPU (Morse bytes equal;
    TTS modes: the same sample count and the PCM within a stated bar),
@@ -140,8 +149,9 @@ printing one JSON line per result:
    tick loop's overlapped run, the tools, the card's server run, the
    training phases, the gates and the two parallel phases; K4 from the
    int8 flagship encode and ``flagship_check --int8``; the layer norm and
-   the decode attention wherever they ran), the kernels inside replayed
-   decode steps counted.
+   the decode attention wherever they ran; the int8 linear from the
+   dynamic int8 demo, the drop-in's int8 encode and the int8 flagship),
+   the kernels inside replayed decode steps counted.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -176,6 +186,7 @@ import numpy as np
 # cores, HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 SR = 48_000
@@ -353,6 +364,42 @@ def graph_stats(graphs) -> dict:
     return {"graphs": len(gs), "capture_ms": [g.capture_ms for g in gs],
             "pool_mib": graphs.pool_bytes() / 2 ** 20,
             "replays": graphs.replays}
+
+
+def int8_linear_before(torch, x, qw, b=None):
+    """The dynamic-int8 linear as the port ran it before its kernel, ~15
+    eager launches: the per-row quantization, ``torch._int_mm`` (cuBLASLt
+    takes more than 16 rows, so fewer are zero-padded to 17) and the
+    rescale. A yardstick only: the port no longer calls it."""
+    from janus_tpu_torch.ops.int8_linear import _round_int8, _scale_of
+
+    xf = x.float()
+    x_scale = _scale_of(xf.abs().amax(dim=-1, keepdim=True))
+    xq = _round_int8(xf / x_scale).reshape(-1, x.shape[-1])
+    m = xq.shape[0]
+    if m < 17:
+        xq = torch.cat([xq, torch.zeros((17 - m, xq.shape[1]),
+                                        dtype=xq.dtype, device=xq.device)])
+    acc = torch._int_mm(xq, qw.q)[:m].reshape(tuple(x.shape[:-1])
+                                              + (qw.q.shape[-1],))
+    y = acc.float() * x_scale * qw.scale
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def row_major(params):
+    """The tree with every dynamic-int8 weight stored row-major (as the
+    tree held it before ``column_major``): a copy for the yardstick."""
+    from janus_tpu_torch.ops.quant import DynQuantizedWeight
+
+    if isinstance(params, DynQuantizedWeight):
+        return DynQuantizedWeight(params.q.contiguous(), params.scale)
+    if isinstance(params, dict):
+        return {k: row_major(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)) and not hasattr(params, "_fields"):
+        return type(params)(row_major(v) for v in params)
+    return params
 
 
 def synced_ms(torch, fn):
@@ -3558,6 +3605,95 @@ def main() -> None:
             check(tol_ratio <= 1.0, f"decode_attn b={b} tq={tq} t={t} "
                   f"dh={dh} {q_dtype}/{kv_dtype}: {tol_ratio}")
 
+    # the dynamic-int8 linear at every shape of the int8 path (large-v3):
+    # the decode steps' four weights at b = 1, 8, 64 and the 4-token
+    # prefill at b = 8 (32 rows); the encoder's (and the prefill's cross
+    # K/V) at 8 x 10 s (4000 rows) and the sessions' 2 s bucket at b = 64
+    # (6400 rows). bf16 activations, scales and bias, as the flagship's
+    # tree; an all-zero row. The kernel must equal the plain version bit for
+    # bit, and at the decode step's b = 8 beat the path it replaced.
+    from janus_tpu_torch.ops.int8_linear import KERNEL as INT8
+    from janus_tpu_torch.ops.int8_linear import _launch as i8_launch
+    from janus_tpu_torch.ops.int8_linear import (_sm_count, int8_linear,
+                                                 int8_linear_plain)
+    from janus_tpu_torch.ops.int8_linear import plan_splits as i8_splits
+    from janus_tpu_torch.ops.int8_linear import use_pdl
+    from janus_tpu_torch.ops.quant import (DynQuantizedWeight, column_major,
+                                           quantize_weight)
+
+    i8_decode = ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))
+    i8_encode = ((1280, 1280), (1280, 5120), (5120, 1280))
+    i8_rows = ([(m, k, n) for m in (FLAGSHIP_BATCH, 1, 32, 64)
+                for k, n in i8_decode]
+               + [(m, k, n) for m in (FLAGSHIP_BATCH * 500, 64 * 100)
+                  for k, n in i8_encode])
+    for m, k, n in i8_rows:
+        x = (2 * torch.randn((m, k), generator=gen, device=dev)).to(bf)
+        x[0] = 0
+        wq = quantize_weight(0.02 * torch.randn((k, n), generator=gen,
+                                                device=dev))
+        w_rows = DynQuantizedWeight(wq.q, wq.scale.to(bf))
+        qw = column_major(w_rows)
+        bias = (0.1 * torch.randn(n, generator=gen, device=dev)).to(bf)
+        out = int8_linear(x, qw, bias)
+        ref = int8_linear_plain(x, qw, bias)
+        before = int8_linear_before(torch, x, w_rows, bias)
+        torch.cuda.synchronize()
+        equal, before_equal = torch.equal(out, ref), torch.equal(before, ref)
+        # x, the weight, its scales and the bias read once, y written once
+        nbytes = 2 * x.numel() + k * n + 2 * 2 * n + 2 * m * n
+        b_ms, b_by = bound_ms(2.0 * m * k * n, PEAK_INT8, nbytes)
+        a8 = torch.randint(-127, 128, (max(m, 17), k), generator=gen,
+                           device=dev, dtype=torch.int8)
+        row = {"phase": "kernel", "name": "int8_linear", "m": m, "k": k,
+               "n": n, "x_dtype": "bfloat16", "param_dtype": "bfloat16",
+               "splits": i8_splits(m, k, n, _sm_count(dev)),
+               "pdl": use_pdl(m),
+               "bit_equal_plain": equal, "before_bit_equal_plain":
+               before_equal, "max_err": max_abs(out, ref),
+               "kernel_ms": graph_ms(lambda: int8_linear(x, qw, bias),
+                                     iters=50),
+               "eager_ms": time_ms(lambda: int8_linear(x, qw, bias),
+                                   iters=50),
+               "host_us": wrapper_us(lambda: int8_linear(x, qw, bias)),
+               "plain_ms": graph_ms(lambda: int8_linear_plain(x, qw, bias)),
+               "before_ms": graph_ms(lambda: int8_linear_before(
+                   torch, x, w_rows, bias)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               # no single PyTorch call quantizes, multiplies and rescales;
+               # torch._int_mm's product alone (more than 16 rows) on the
+               # row-major and the K-contiguous weight
+               "library_ms": None,
+               "int_mm_ms": {"rows": a8.shape[0],
+                             "row_major": graph_ms(lambda: torch._int_mm(
+                                 a8, w_rows.q)),
+                             "col_major": graph_ms(lambda: torch._int_mm(
+                                 a8, qw.q))}}
+        if m <= 64:
+            # the product started after the quantization has finished
+            # (no programmatic dependent launch), and each split plan
+            row["pdl_ms"] = graph_ms(lambda: i8_launch(
+                x, qw, bias, pdl=True)[0], iters=50)
+            row["no_pdl_ms"] = graph_ms(lambda: i8_launch(
+                x, qw, bias, pdl=False)[0], iters=50)
+            row["splits_ms"] = {s_: graph_ms(lambda: i8_launch(
+                x, qw, bias, splits=s_)[0], iters=50) for s_ in (2, 4, 8)}
+        emit(row)
+        check(equal, f"int8_linear {m}x{k}x{n}: the kernel differs from the "
+              f"plain version ({row['max_err']})")
+        check(before_equal, f"int8_linear {m}x{k}x{n}: the yardstick "
+              f"differs from the plain version")
+        check(torch.equal(out, int8_linear(x, qw, bias)),
+              f"int8_linear {m}x{k}x{n}: two launches differ")
+        if m == FLAGSHIP_BATCH:
+            check(row["kernel_ms"] < row["before_ms"],
+                  f"int8_linear {m}x{k}x{n}: {row['kernel_ms']} ms, not "
+                  f"under the path it replaced ({row['before_ms']} ms)")
+        if (m, k, n) == (FLAGSHIP_BATCH, 1280, 5120):
+            summary["int8_linear"] = row
+        del x, wq, w_rows, qw, out, ref, before, a8
+    torch.cuda.empty_cache()
+
     # -- 3. demo checkpoint: card and CPU give the same packets ------------
     from janus_tpu_torch.audio.synthetic import render_text, voiced_phrase
     from janus_tpu_torch.common.config import ASRConfig, JanusConfig
@@ -3600,14 +3736,22 @@ def main() -> None:
     from janus_tpu_torch.ops.quant import quantize_tree
 
     int8_cfg = demo_cfg.override(**{"asr.decode_cross_kv_int8": True})
+    demo_int8_launches = {}
     for mode in ("weight", "dynamic"):
-        CROSS.launches = 0
+        CROSS.launches = INT8.launches = 0
         transcripts = demo_packets(int8_cfg,
                                    quantize_tree(demo_params, mode=mode))
         check(CROSS.launches > 0, f"int8 demo ({mode}) never launched K4")
+        # the dynamic weights take the int8 linear, the weight-only ones
+        # the dense product over the dequantized weight
+        check((INT8.launches > 0) == (mode == "dynamic"),
+              f"int8 demo ({mode}) launched the int8 linear "
+              f"{INT8.launches} times")
+        demo_int8_launches[mode] = INT8.launches
         emit({"phase": "demo_int8", "mode": mode,
               "packets_byte_equal_cpu": True,
               "cross_attn_int8_launches": CROSS.launches,
+              "int8_linear_launches": INT8.launches,
               "transcripts": transcripts})
 
     # -- 4. flagship: large-v3 through encode_batch ------------------------
@@ -3629,7 +3773,7 @@ def main() -> None:
                for i in range(FLAGSHIP_BATCH)]
     fenc.encode_batch(phrases)  # warm-up: cuBLAS/cuDNN handles, allocator
 
-    kernels = (MEL, FLASH, YIN, CROSS, LNORM, DECODE)
+    kernels = (MEL, FLASH, YIN, CROSS, LNORM, DECODE, INT8)
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3653,8 +3797,8 @@ def main() -> None:
                                     "decode_attn": 2 * n_dec}
                               for c in step_counts),
           f"flagship: the captured steps launch {step_counts}")
-    check(launches["layer_norm"] > 0 and launches["decode_attn"] > 0,
-          f"flagship launches {launches}")
+    check(launches["layer_norm"] > 0 and launches["decode_attn"] > 0
+          and launches["int8_linear"] == 0, f"flagship launches {launches}")
     check(len(results) == FLAGSHIP_BATCH
           and all(np.isfinite(r["f0"]) and np.isfinite(r["rms"])
                   and r["f0"] > 0 for r in results),
@@ -3833,11 +3977,14 @@ def main() -> None:
     check(q_launches["flash_attn"] == qcfg.asr.encoder_layers,
           f"int8 flash_attn launches {q_launches}")
     check(q_launches["yin_block_sums"] >= 1, f"int8 yin {q_launches}")
-    # K4 takes the cross-attention: the decode kernel the self-attention
+    # K4 takes the cross-attention: the decode kernel the self-attention;
+    # the int8 linear the six linears of each layer
     check(q_step_counts == {"cross_attn_int8": qcfg.asr.decoder_layers,
                             "layer_norm": 3 * qcfg.asr.decoder_layers + 1,
-                            "decode_attn": qcfg.asr.decoder_layers},
+                            "decode_attn": qcfg.asr.decoder_layers,
+                            "int8_linear": 6 * qcfg.asr.decoder_layers},
           f"the captured int8 step launches {q_step_counts}")
+    check(q_launches["int8_linear"] > 0, f"int8 launches {q_launches}")
     check(forwards[0] > 1 and q_launches["cross_attn_int8"]
           == qcfg.asr.decoder_layers * forwards[0],
           f"cross_attn_int8 launches {q_launches} for {forwards[0]} "
@@ -3858,14 +4005,16 @@ def main() -> None:
               f"first {q_results}")
     del qenc_eager
 
-    # the two stages the int8 weights and K/V change, once each
+    # the two stages the int8 weights and K/V change, three times each as
+    # phase 4 times them (the eager decode once)
     stage_ms = {}
-    q_enc = stage("encoder", lambda: asr_mod.encode_audio(
-        qenc.params, acfg, mel.to(torch.bfloat16)))
-    q_tokens = stage("decode", lambda: asr_mod.greedy_decode(
-        qenc.params, acfg, q_enc, prompt, eot,
-        max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16,
-        cross_kv_int8=True, graphs=qenc._graphs))
+    for _ in range(3):
+        q_enc = stage("encoder", lambda: asr_mod.encode_audio(
+            qenc.params, acfg, mel.to(torch.bfloat16)))
+        q_tokens = stage("decode", lambda: asr_mod.greedy_decode(
+            qenc.params, acfg, q_enc, prompt, eot,
+            max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16,
+            cross_kv_int8=True, graphs=qenc._graphs))
     q_tokens_eager = stage("decode_eager", lambda: asr_mod.greedy_decode(
         qenc.params, acfg, q_enc, prompt, eot,
         max_new=acfg.max_decode_tokens, cache_dtype=torch.bfloat16,
@@ -3879,11 +4028,31 @@ def main() -> None:
             qenc._graphs, qenc.params, acfg, FLAGSHIP_BATCH,
             q_enc.shape[-2], q_enc.dtype, 1, acfg.max_decode_tokens,
             torch.bfloat16, True, eot, dev))
-    # the int8 step's caches are written by the decode attention too
+    # the int8 step's caches are written by the decode attention too; two
+    # launches an int8 linear (3664 kernels a step before its kernel)
     check(q_decode_step_graph["device_events"] is None
-          or q_decode_step_graph["index_copies"] <= 1,
+          or (q_decode_step_graph["index_copies"] <= 1
+              and q_decode_step_graph["device_events"] <= 1250),
           f"flagship_int8: the replayed step ran "
+          f"{q_decode_step_graph['device_events']} kernels, "
           f"{q_decode_step_graph['index_copies']} index copies")
+    # the same step with the linear as it ran before its kernel (the eager
+    # quantization, torch._int_mm on row-major weights, the rescale),
+    # captured over a row-major copy of the weights: the trace to hold the
+    # new one against
+    from janus_tpu_torch.ops import layers as layers_mod
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    rows_params, before_graphs = row_major(qenc.params), StepGraphs()
+    with mock.patch.object(layers_mod, "linear_int8_dynamic",
+                           lambda x, w, b=None: int8_linear_before(
+                               torch, x, w, b)), before_graphs.lock:
+        q_decode_step_before = profile_graph_step(torch, asr_mod.greedy_graph(
+            before_graphs, rows_params, acfg, FLAGSHIP_BATCH,
+            q_enc.shape[-2], q_enc.dtype, 1, acfg.max_decode_tokens,
+            torch.bfloat16, True, eot, dev))
+    del rows_params, before_graphs
+    torch.cuda.empty_cache()
 
     # every K4 call of that step against the plain version on the same
     # inputs, at the kernel phase's bf16 bar (one bf16 ulp)
@@ -3953,7 +4122,9 @@ def main() -> None:
           "graph": graph_stats(qenc._graphs),
           "graph_tokens_equal_eager": True, "nvidia_smi": nvidia_smi_line(),
           "decode_step_graph": q_decode_step_graph,
+          "decode_step_graph_before": q_decode_step_before,
           "stage_ms": {k: min(v) for k, v in stage_ms.items()},
+          "stage_ms_all": stage_ms,
           "peak_mem_gib": q_peak_gib, "launches": q_launches,
           "decoder_forwards": forwards[0],
           "step_logits_vs_plain_rel": rel_logits,
@@ -4005,8 +4176,10 @@ def main() -> None:
 
     # -- 11-12. the serving surface ----------------------------------------
     by_phase = {"flagship": launches,
+                "demo_int8": {"int8_linear": demo_int8_launches["dynamic"]},
                 "flagship_int8": {k: q_launches[k] for k in (
-                    "cross_attn_int8", "layer_norm", "decode_attn")},
+                    "cross_attn_int8", "layer_norm", "decode_attn",
+                    "int8_linear")},
                 **dropin_launches, **receive_launches}
     by_phase["sessions_flagship"] = sessions_flagship(
         torch, all_kernels, flagship_asr_params)
@@ -4040,7 +4213,8 @@ def main() -> None:
     # loop's overlapped run, the two tools, the card's server run, the
     # training phases, the gates and the parallel phases; K4 from the int8
     # flagship run and flagship_check --int8; the layer norm and the decode
-    # attention from every phase that ran them
+    # attention from every phase that ran them; the int8 linear from the
+    # dynamic int8 demo, the drop-in's int8 encode and the int8 flagship
     line = []
     for k in all_kernels:
         row = summary[k.name]
@@ -4054,6 +4228,9 @@ def main() -> None:
                      "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
+    check(all(k["launches"] > 0 for k in line),
+          f"a kernel of the path was never launched: "
+          f"{[(k['name'], k['launches']) for k in line]}")
     emit({"kernels": line})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -79,6 +79,8 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "fusion; no Pallas kernel)"),
     Kernel("decode_attn", "janus_tpu/ops/attention.py:43 attend at decode "
            "widths (XLA; no Pallas kernel)"),
+    Kernel("int8_linear", "janus_tpu/ops/quant.py:144 linear_int8_dynamic "
+           "(XLA int8 dot_general; no Pallas kernel)"),
 )}
 
 

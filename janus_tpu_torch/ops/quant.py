@@ -11,7 +11,10 @@ deployment here is :func:`quantize_tree` over the recognizer's tree plus
   and runs the ordinary product (weight-only mode).
 - :class:`DynQuantizedWeight`: the same storage, routed by ``linear`` to
   :func:`linear_int8_dynamic` (per-row dynamic activation scales, int8 x
-  int8 -> int32, fp32 rescale). The type is the dispatch tag.
+  int8 -> int32, fp32 rescale): the plain version on the CPU, the kernel of
+  :mod:`janus_tpu_torch.ops.int8_linear` on the card, which reads the
+  weight K-contiguous (:func:`column_major`, once for a tree). The type is
+  the dispatch tag.
 - :class:`QuantKV` / :class:`QuantKVT`: int8 K or V with per-position
   scales, token-major or head-dim-major (the layout of the K4 kernel,
   :mod:`janus_tpu_torch.ops.cross_attn`).
@@ -29,6 +32,9 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from janus_tpu_torch.ops.int8_linear import (_round_int8, _scale_of,
+                                             int8_linear, int8_linear_plain)
+
 __all__ = [
     "QuantizedWeight",
     "DynQuantizedWeight",
@@ -41,6 +47,7 @@ __all__ = [
     "dequant_kv",
     "linear_int8_dynamic",
     "quantize_tree",
+    "column_major",
 ]
 
 
@@ -78,26 +85,6 @@ class QuantKVT(NamedTuple):
 
     q: torch.Tensor
     scale: torch.Tensor
-
-
-def _round_int8(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(x), -127, 127).to(torch.int8)
-
-
-_DIVISORS: dict = {}
-
-
-def _scale_of(amax: torch.Tensor) -> torch.Tensor:
-    """``max(amax, 1e-8) / 127`` in ``amax``'s dtype, rounded as an IEEE
-    division on every device: CUDA divides by a Python scalar as a product
-    with its reciprocal, which can miss by an ulp, so the divisor is a
-    tensor on ``amax``'s device."""
-    key = (amax.dtype, amax.device)
-    div = _DIVISORS.get(key)
-    if div is None:
-        div = _DIVISORS[key] = torch.full((), 127.0, dtype=amax.dtype,
-                                          device=amax.device)
-    return torch.clamp_min(amax, 1e-8) / div
 
 
 def quantize_kv(x: torch.Tensor) -> QuantKV:
@@ -147,42 +134,17 @@ def dequant(qw, dtype=torch.float32) -> torch.Tensor:
     return (qw.q.float() * qw.scale).to(dtype)
 
 
-# cuBLASLt's int8 product (``torch._int_mm`` on CUDA) takes more than 16
-# rows and K, N in multiples of 8; fewer rows are zero-padded
-_INT_MM_MIN_ROWS = 17
-
-
-def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """``xq[M, K] int8 @ wq[K, N] int8 -> int32 [M, N]``, exact."""
-    if xq.device.type == "cpu":
-        return torch._int_mm(xq, wq)
-    m, k = xq.shape
-    n = wq.shape[1]
-    if k % 8 or n % 8:
-        raise ValueError(f"int8 product on {xq.device} needs K and N in "
-                         f"multiples of 8, got K {k}, N {n}")
-    if m < _INT_MM_MIN_ROWS:
-        pad = torch.zeros((_INT_MM_MIN_ROWS - m, k), dtype=xq.dtype,
-                          device=xq.device)
-        return torch._int_mm(torch.cat([xq, pad]), wq)[:m]
-    return torch._int_mm(xq, wq)
-
-
 def linear_int8_dynamic(x: torch.Tensor, qw,
                         b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full int8 path: per-row dynamic activation quantization, int8 x
     int8 -> int32 (exact), then ``acc * x_scale * w_scale`` and the bias
     in fp32 and one cast to ``x.dtype``, in the JAX package's order. ``qw``
-    is any ``(q, scale)`` pair."""
-    xf = x.float()
-    x_scale = _scale_of(xf.abs().amax(dim=-1, keepdim=True))
-    xq = _round_int8(xf / x_scale)
-    acc = _int8_matmul(xq.reshape(-1, x.shape[-1]), qw.q)
-    acc = acc.reshape(tuple(x.shape[:-1]) + (qw.q.shape[-1],))
-    y = acc.float() * x_scale * qw.scale
-    if b is not None:
-        y = y + b.float()
-    return y.to(x.dtype)
+    is any ``(q, scale)`` pair. A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel (its weight K-contiguous, see
+    :func:`column_major`) or raises."""
+    if x.device.type == "cpu":
+        return int8_linear_plain(x, qw, b)
+    return int8_linear(x, qw, b)
 
 
 def quantize_tree(params: Any, min_size: int = 4096,
@@ -205,3 +167,23 @@ def quantize_tree(params: Any, min_size: int = 4096,
         return leaf
 
     return map_with_paths(maybe_quant, params)
+
+
+def column_major(params: Any) -> Any:
+    """Every :class:`DynQuantizedWeight` of the tree with ``q[K, N]`` stored
+    K-contiguous, as the int8 kernel reads it: the transposed view of a
+    ``[N, K]`` copy (strides ``(1, K)``), made once. Shapes, values, types
+    and every other leaf are unchanged; a weight already K-contiguous is
+    kept as it is, and the caller's tree is not modified. Run it after
+    :func:`janus_tpu_torch.models.params.prepare_decode_params` (its
+    concatenation of q/k/v is row-major)."""
+    if isinstance(params, DynQuantizedWeight):
+        q = params.q
+        if q.t().is_contiguous():
+            return params
+        return DynQuantizedWeight(q.t().contiguous().t(), params.scale)
+    if isinstance(params, dict):
+        return {k: column_major(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)) and not hasattr(params, "_fields"):
+        return type(params)(column_major(v) for v in params)
+    return params  # a tensor, or another NamedTuple, kept as it is

@@ -35,6 +35,7 @@ from janus_tpu_torch.models.params import (cast_floating, init_asr,
                                            prepare_decode_params, tree_to)
 from janus_tpu_torch.models.tokenizer import ByteTokenizer
 from janus_tpu_torch.ops.energy import ENERGY_TAGS, classify_energy, rms_energy
+from janus_tpu_torch.ops.quant import column_major
 from janus_tpu_torch.ops.resample import decimate_48k_to_16k
 from janus_tpu_torch.ops.yin import (PITCH_TAGS, classify_pitch,
                                      mean_voiced_pitch, yin_track)
@@ -139,7 +140,11 @@ class SemanticEncoder:
         # the decode layout (fused q/k/v) once; under a mesh the tree keeps
         # the per-layer q/k/v that the partition rules name, as in the JAX
         # package
-        self.params = prepare_decode_params(params) if mesh is None else params
+        params = prepare_decode_params(params) if mesh is None else params
+        # dynamic-int8 weights K-contiguous for the card's int8 kernel, once
+        # (after the fusion, whose concatenation is row-major)
+        self.params = (column_major(params) if self.device.type == "cuda"
+                       else params)
         self.buckets = tuple(buckets)
 
     def mel_frame_budget(self, bucket: int) -> int:

@@ -261,22 +261,159 @@ def test_kernels_repeat_bit_for_bit(dev, dtype):
 
 
 def test_linear_int8_dynamic_on_the_card_equals_cpu(dev):
-    from janus_tpu_torch.ops.quant import (DynQuantizedWeight,
+    from janus_tpu_torch.ops.int8_linear import KERNEL
+    from janus_tpu_torch.ops.quant import (DynQuantizedWeight, column_major,
                                            linear_int8_dynamic,
                                            quantize_weight)
 
     rng = np.random.default_rng(2)
-    # 8 rows: fewer than the card's int8 product takes, so the rows are
-    # padded; the int32 sums are exact and the rescale is elementwise fp32
+    # 8 rows, as a decode step at b = 8 gives them: the weight converted
+    # to the kernel's layout once, as SemanticEncoder converts its tree;
+    # the int32 sums are exact and the rescale is rounded as the CPU's
     x = torch.from_numpy(rng.standard_normal((8, 1, 1280)).astype(np.float32))
     w = torch.from_numpy((0.02 * rng.standard_normal((1280, 3840))
                           ).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal((3840,)).astype(np.float32))
     qw = DynQuantizedWeight(*quantize_weight(w))
     ref = linear_int8_dynamic(x, qw, b)
-    out = linear_int8_dynamic(x.to(dev), DynQuantizedWeight(
-        qw.q.to(dev), qw.scale.to(dev)), b.to(dev))
+    before = KERNEL.launches
+    out = linear_int8_dynamic(x.to(dev), column_major(DynQuantizedWeight(
+        qw.q.to(dev), qw.scale.to(dev))), b.to(dev))
+    assert KERNEL.launches == before + 1
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+
+
+def _int8_case(dev, m, k, n, x_dtype, p_dtype, bias=True, seed=0):
+    """x with an all-zero first row, a K-contiguous int8 weight with its
+    scales and the bias in the parameters' dtype."""
+    from janus_tpu_torch.ops.quant import (DynQuantizedWeight, column_major,
+                                           quantize_weight)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (3 * torch.randn((m, k), generator=g, device=dev)).to(x_dtype)
+    x[0] = 0
+    qw = quantize_weight(0.05 * torch.randn((k, n), generator=g, device=dev))
+    qw = column_major(DynQuantizedWeight(qw.q, qw.scale.to(p_dtype)))
+    b = (torch.randn(n, generator=g, device=dev).to(p_dtype) if bias
+         else None)
+    return x, qw, b
+
+
+# every shape of the main path (large-v3: the decode steps' four weights at
+# b = 1, 8, 64 and the 4-token prefill at b = 8; the encoder's and the cross
+# K/V's at 8 x 10 s, the 2 s bucket at b = 64) and the demo width
+_INT8_SHAPES = ([(m, k, n) for m in (1, 8, 32, 64)
+                 for k, n in ((1280, 3840), (1280, 1280), (1280, 5120),
+                              (5120, 1280))]
+                + [(m, k, n) for m in (4000, 6400)
+                   for k, n in ((1280, 1280), (1280, 5120), (5120, 1280))]
+                + [(m, k, n) for m in (8, 100)
+                   for k, n in ((128, 384), (128, 128), (128, 512),
+                                (512, 128))])
+
+
+@pytest.mark.parametrize("m,k,n", _INT8_SHAPES)
+def test_int8_linear_bit_equal_to_plain(dev, m, k, n):
+    """The kernel's output, quantized rows and row scales equal the plain
+    version's on the card bit for bit (bf16 activations and parameters, as
+    the flagship's tree)."""
+    from janus_tpu_torch.ops.int8_linear import (_launch, _round_int8,
+                                                 _scale_of, int8_linear_plain)
+
+    x, qw, b = _int8_case(dev, m, k, n, torch.bfloat16, torch.bfloat16)
+    y, xq, xs = _launch(x, qw, b)
+    xf = x.float()
+    scale = _scale_of(xf.abs().amax(dim=-1, keepdim=True))
+    assert torch.equal(xs, scale)
+    assert torch.equal(xq, _round_int8(xf / scale))
+    assert torch.equal(y, int8_linear_plain(x, qw, b))
+
+
+# fp32 and bf16 activations against fp32 and bf16 parameters, no bias;
+# ragged rows (17, 33, 65, 257) and columns (96, 100); every split plan and
+# the warpgroup product at few rows; the overlapped launch on and off
+@pytest.mark.parametrize("x_dtype,p_dtype,bias", [
+    (torch.float32, torch.float32, True), (torch.float32, torch.bfloat16,
+                                           True),
+    (torch.bfloat16, torch.float32, False), (torch.bfloat16, torch.bfloat16,
+                                             False)])
+@pytest.mark.parametrize("m,k,n", [(17, 512, 384), (33, 160, 96),
+                                   (65, 256, 100), (257, 160, 96),
+                                   (5, 1280, 1280)])
+def test_int8_linear_types_plans_and_edges(dev, m, k, n, x_dtype, p_dtype,
+                                           bias):
+    from janus_tpu_torch.ops.int8_linear import _launch, int8_linear_plain
+
+    x, qw, b = _int8_case(dev, m, k, n, x_dtype, p_dtype, bias, seed=m)
+    ref = int8_linear_plain(x, qw, b)
+    plans = [None, 0] + ([s for s in (1, 2, 4, 8) if s <= k // 32]
+                         if m <= 64 else [])
+    for splits in plans:
+        for pdl in (None, True, False):
+            y = _launch(x, qw, b, splits=splits, pdl=pdl)[0]
+            assert y.dtype == x_dtype
+            assert torch.equal(y, ref), (splits, pdl)
+
+
+def test_int8_linear_two_launches_a_call(dev):
+    """One call is two kernels on the device (the quantization and the
+    product), at a decode and an encoder shape."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from janus_tpu_torch.ops.int8_linear import KERNEL, int8_linear
+
+    for m in (8, 4000):
+        x, qw, b = _int8_case(dev, m, 1280, 1280, torch.bfloat16,
+                              torch.bfloat16)
+        int8_linear(x, qw, b)
+        torch.cuda.synchronize()
+        before = KERNEL.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            int8_linear(x, qw, b)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        assert KERNEL.launches == before + 1
+        if device:  # a profiler without device tracing records none
+            assert len(device) == 2, [e.name for e in device]
+
+
+def test_int8_linear_replays_from_a_graph(dev):
+    """A captured call replays bit-equal on new inputs (no workspace to
+    reset between calls), at the decode step's fc2 shape."""
+    from janus_tpu_torch.ops.int8_linear import int8_linear, int8_linear_plain
+
+    x, qw, b = _int8_case(dev, 8, 5120, 1280, torch.bfloat16, torch.bfloat16)
+    xs = x.clone()
+    y = int8_linear(xs, qw, b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = int8_linear(xs, qw, b)
+    for seed in range(3):
+        g = torch.Generator(device=dev).manual_seed(100 + seed)
+        xs.copy_(torch.randn(xs.shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, int8_linear_plain(xs, qw, b))
+
+
+def test_int8_linear_raises_on_what_it_cannot_take(dev):
+    from janus_tpu_torch.ops.int8_linear import int8_linear
+    from janus_tpu_torch.ops.quant import DynQuantizedWeight, linear_int8_dynamic
+
+    x, qw, b = _int8_case(dev, 8, 1280, 1280, torch.bfloat16, torch.bfloat16)
+    rows = DynQuantizedWeight(qw.q.contiguous(), qw.scale)
+    with pytest.raises(ValueError, match="column_major"):
+        linear_int8_dynamic(x, rows, b)
+    with pytest.raises(TypeError):
+        int8_linear(x.half(), qw, b)
+    with pytest.raises(ValueError):
+        int8_linear(x[:, :1000], DynQuantizedWeight(qw.q[:1000], qw.scale), b)
+    with pytest.raises(ValueError):
+        int8_linear(x, DynQuantizedWeight(qw.q.cpu(), qw.scale), b)
 
 
 # -- the receive side: plain PyTorch on the card against the CPU ------------
@@ -566,6 +703,15 @@ def test_wrappers_record_their_least_work(dev):
     n, flops, nbytes = work(MEL, lambda: mel_log10(audio, n_mels=80))
     assert n == 1 and flops > 2 * 100 * 2.5 * 400 * np.log2(400)
     assert nbytes == 4 * (audio.numel() + 2 * 100 * 80)
+    # the int8 linear: x (bf16), the weight, its bf16 scales and bias read
+    # once, y written once; one count for its two launches
+    from janus_tpu_torch.ops.int8_linear import KERNEL as INT8, int8_linear
+
+    xi, qw, b = _int8_case(dev, 8, 1280, 3840, torch.bfloat16,
+                           torch.bfloat16)
+    assert work(INT8, lambda: int8_linear(xi, qw, b)) == (
+        1, 2.0 * 8 * 1280 * 3840,
+        2 * 8 * 1280 + 1280 * 3840 + 2 * 2 * 3840 + 2 * 8 * 3840)
 
 
 # -- the decode loops replayed from CUDA graphs -----------------------------
@@ -587,7 +733,7 @@ def _graph_asr(dev, seed=0, int8=False):
     from janus_tpu_torch.models.params import (cast_floating, init_asr,
                                                map_tree,
                                                prepare_decode_params)
-    from janus_tpu_torch.ops.quant import quantize_tree
+    from janus_tpu_torch.ops.quant import column_major, quantize_tree
 
     cfg = ASRConfig(**_GRAPH_ASR)
     tree = map_tree(lambda a: a * 4.0 if a.ndim > 1 else a, init_asr(
@@ -595,7 +741,7 @@ def _graph_asr(dev, seed=0, int8=False):
     tree = cast_floating(tree, torch.bfloat16)
     if int8:
         tree = quantize_tree(tree, mode="dynamic")
-    params = prepare_decode_params(tree)
+    params = column_major(prepare_decode_params(tree))
     mel = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         (4, 64, 80)).astype(np.float32)).to(dev, torch.bfloat16)
     enc = encode_audio(params, cfg, mel)
@@ -1136,6 +1282,30 @@ def test_decode_attention_replays_with_the_fill_it_finds(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, decode_attention(q, k, v, fill))
+
+
+def test_int8_step_launches_the_int8_linear_in_its_graph(dev):
+    """Under dynamic-int8 weights the captured recognizer step runs the
+    int8 linear kernel for its six linears a decoder layer (fused q/k/v,
+    self out, cross q, cross out, fc1, fc2) and replays bit-equal to the
+    eager loop, which runs the kernel too."""
+    from janus_tpu_torch.models.asr import greedy_decode
+    from janus_tpu_torch.ops.int8_linear import KERNEL as INT8
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    cfg, params, enc, prompt = _graph_asr(dev, int8=True)
+    graphs = StepGraphs()
+    kw = dict(max_new=12, cache_dtype=torch.bfloat16, cross_kv_int8=True)
+    before = INT8.launches
+    want = greedy_decode(params, cfg, enc, prompt, 257, eager=True, **kw)
+    assert INT8.launches > before
+    got = greedy_decode(params, cfg, enc, prompt, 257, graphs=graphs, **kw)
+    assert torch.equal(got, want)
+    counts = {k.name: n[0] for k, n in graphs.graphs()[0].counts.items()}
+    assert counts == {"cross_attn_int8": cfg.decoder_layers,
+                      "layer_norm": 3 * cfg.decoder_layers + 1,
+                      "decode_attn": cfg.decoder_layers,
+                      "int8_linear": 6 * cfg.decoder_layers}
 
 
 def test_decode_steps_launch_the_new_kernels_in_their_graphs(dev):
