@@ -29,7 +29,9 @@ printing one JSON line per result:
    path, equal to its plain version bit for bit, beside the path it
    replaced (``before_ms``: the eager quantization, ``torch._int_mm`` on
    the row-major weight, padded to 17 rows below that, and the rescale)
-   and ``torch._int_mm`` alone on either layout (``int_mm_ms``);
+   and ``torch._int_mm`` alone on either layout (``int_mm_ms``), each
+   kernel of a call traced (``device_us``: two, the quantization and a
+   product);
 3. demo    — the committed demo recognizer through ``SemanticEncoder`` on
    the card and on the CPU: the packets must be byte-equal; then the same
    under the int8 configuration (``quantize_tree`` weights in each mode,
@@ -64,7 +66,7 @@ printing one JSON line per result:
    layer, 192 in the captured step), one decode step's logits against the
    plain cross-attention, token agreement with phase 4, and the replayed
    loop against the eager one as in phase 4; the replayed step traced
-   (at most 1,250 kernels) beside the same step captured with the linear
+   (at most 600 kernels) beside the same step captured with the linear
    as it ran before its kernel (``decode_step_graph_before``);
 6. receive_demo — the committed demo TTS, vocoder and speaker encoder
    through ``Synthesizer`` on the card and on the CPU (Morse bytes equal;
@@ -329,6 +331,29 @@ def by_op(device_events, top: int = 12) -> dict:
     return {"kinds": len(rows),
             "by_time": sorted(rows, key=lambda r: -r[2])[:top],
             "by_count": sorted(rows, key=lambda r: (-r[1], -r[2]))[:top]}
+
+
+def device_us(torch, fn, calls: int = 20) -> dict:
+    """The kernels ``fn()`` runs on the device, traced over ``calls``
+    calls: mean device us a call by kernel name (the function's name
+    without its namespace and arguments)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.search(r"(?:^|::)(\w+)[<(]", e.name)
+            key = name.group(1) if name else e.name[:60]
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / calls
+    return out
 
 
 def profile_decode_step(torch, asr_mod, params, acfg, enc, prompt,
@@ -3615,11 +3640,21 @@ def main() -> None:
     from janus_tpu_torch.ops.int8_linear import KERNEL as INT8
     from janus_tpu_torch.ops.int8_linear import _launch as i8_launch
     from janus_tpu_torch.ops.int8_linear import (_sm_count, int8_linear,
-                                                 int8_linear_plain)
+                                                 int8_linear_plain, use_pdl)
     from janus_tpu_torch.ops.int8_linear import plan_splits as i8_splits
-    from janus_tpu_torch.ops.int8_linear import use_pdl
     from janus_tpu_torch.ops.quant import (DynQuantizedWeight, column_major,
                                            quantize_weight)
+
+    def i8_tiles(m: int, n: int) -> dict:
+        """The tile product's plan as its launcher makes it: tile rows and
+        channels, persistent blocks."""
+        import ctypes
+
+        plan = (ctypes.c_int * 3)()
+        cuda_build.check_launch(INT8, cuda_build.entry(
+            INT8, "int8_linear_tiles",
+            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])(m, n, plan))
+        return {"tile": [plan[0], plan[1]], "grid": plan[2], "cluster": 1}
 
     i8_decode = ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280))
     i8_encode = ((1280, 1280), (1280, 5120), (5120, 1280))
@@ -3668,14 +3703,23 @@ def main() -> None:
                              "row_major": graph_ms(lambda: torch._int_mm(
                                  a8, w_rows.q)),
                              "col_major": graph_ms(lambda: torch._int_mm(
-                                 a8, qw.q))}}
-        if m <= 64:
-            # the product started after the quantization has finished
-            # (no programmatic dependent launch), and each split plan
-            row["pdl_ms"] = graph_ms(lambda: i8_launch(
-                x, qw, bias, pdl=True)[0], iters=50)
-            row["no_pdl_ms"] = graph_ms(lambda: i8_launch(
-                x, qw, bias, pdl=False)[0], iters=50)
+                                 a8, qw.q))},
+               # each kernel of a call, traced: mean device us a call
+               "device_us": device_us(torch, lambda: int8_linear(
+                   x, qw, bias))}
+        row["launches_a_call"] = len(row["device_us"])
+        # the launches with and without the programmatic attribute (without
+        # it the product's weight loads wait for the quantization)
+        row["pdl_ms"] = graph_ms(lambda: i8_launch(
+            x, qw, bias, pdl=True)[0], iters=50)
+        row["no_pdl_ms"] = graph_ms(lambda: i8_launch(
+            x, qw, bias, pdl=False)[0], iters=50)
+        if m > 64:
+            # the persistent product's tile, blocks (one an SM, no more
+            # than its tiles) and cluster
+            row.update(i8_tiles(m, n))
+        else:
+            # each split plan
             row["splits_ms"] = {s_: graph_ms(lambda: i8_launch(
                 x, qw, bias, splits=s_)[0], iters=50) for s_ in (2, 4, 8)}
         emit(row)
@@ -3685,6 +3729,10 @@ def main() -> None:
               f"differs from the plain version")
         check(torch.equal(out, int8_linear(x, qw, bias)),
               f"int8_linear {m}x{k}x{n}: two launches differ")
+        # the card traces (every profiled phase reads its kernels): a call
+        # is two kernels, the quantization and a product
+        check(row["launches_a_call"] == 2,
+              f"int8_linear {m}x{k}x{n}: a call ran {row['device_us']}")
         if m == FLAGSHIP_BATCH:
             check(row["kernel_ms"] < row["before_ms"],
                   f"int8_linear {m}x{k}x{n}: {row['kernel_ms']} ms, not "
@@ -4029,10 +4077,10 @@ def main() -> None:
             q_enc.shape[-2], q_enc.dtype, 1, acfg.max_decode_tokens,
             torch.bfloat16, True, eot, dev))
     # the int8 step's caches are written by the decode attention too; two
-    # launches an int8 linear (3664 kernels a step before its kernel)
+    # launches an int8 linear (593 kernels a step; 3664 before its kernel)
     check(q_decode_step_graph["device_events"] is None
           or (q_decode_step_graph["index_copies"] <= 1
-              and q_decode_step_graph["device_events"] <= 1250),
+              and q_decode_step_graph["device_events"] <= 600),
           f"flagship_int8: the replayed step ran "
           f"{q_decode_step_graph['device_events']} kernels, "
           f"{q_decode_step_graph['index_copies']} index copies")

@@ -17,11 +17,12 @@
 // plain PyTorch it is about 15 launches a call. Here it is two: the
 // quantization, then the product with the rescale in its epilogue.
 //
-// Bit for bit with the plain version: the divisions are IEEE (__fdiv_rn,
-// never a reciprocal product), the epilogue's products and add are rounded
-// one at a time (__fmul_rn, __fadd_rn: no contraction into an FMA), the int32
-// sum is converted with __int2float_rn (|acc| reaches 127^2 * 5120 > 2^24),
-// and the int32 sums are exact, so neither the order of the k-steps nor the
+// Bit for bit with the plain version: the scale is an IEEE division
+// (__fdiv_rn), each value is rounded as the IEEE division x / xs rounds it
+// (quantize16), the epilogue's products and add are rounded one at a time
+// (__fmul_rn, __fadd_rn: no contraction into an FMA), the int32 sum is
+// converted with __int2float_rn (|acc| reaches 127^2 * 5120 > 2^24), and
+// the int32 sums are exact, so neither the order of the k-steps nor the
 // split of K changes a bit.
 //
 // Bound on the H100. Decode steps (M <= 64 rows): bytes, the weight read
@@ -33,13 +34,15 @@
 //
 // The weight is read as [N, K], K contiguous (int8 MMA takes both operands
 // K-major): the tree keeps q[K, N] as the transposed view of such a copy,
-// made once (ops/quant.py column_major).
+// made once (ops/quant.py column_major). A programmatic launch asks for the
+// weight before it waits for the kernel before it, so the weight must not
+// be written by that kernel.
 //
 // Design.
-// - quantize_rows: one block of 128 threads a row, 16-byte loads; the row's
-//   amax by shuffles, then the row read again (from L1) and quantized. It
-//   lets the product's launch start at once (programmatic dependent launch),
-//   so that the product's weight loads overlap the quantization.
+// - quantize_rows: a block of 128 threads a row, 16-byte loads held in
+//   registers from the row's amax (shuffles) to its quantization. It lets
+//   the next launch start at once (programmatic dependent launch), so that
+//   the product's weight loads overlap it.
 // - stream_product (M <= 64): the weight is the A operand, y^T = q^T xq^T
 //   with mma.sync m16n8k32 s8: 16 output channels a warp, the activation
 //   rows fill n = 8 (NT tiles of 8 for up to 64 rows), so no half-empty tile
@@ -55,18 +58,28 @@
 //   cluster barrier each block sums its share of the tile's outputs over the
 //   cluster's blocks through distributed shared memory and writes them
 //   through the epilogue: no workspace in device memory, nothing to reset
-//   between calls, so a captured step replays.
-// - wgmma_product (M > 64): 256 x 160 output tiles (N 1280 is 8 of them),
-//   four warpgroups of 64 rows, each wgmma m64n160k32 s8 from shared
-//   memory; a 4-stage ring of 128-byte k slices of xq and the weight,
-//   loaded by the TMA unit through 2-d tensor maps under the 128-byte
-//   swizzle (rows and k past M, N, K zero-filled), one mbarrier a stage,
-//   each stage refilled once every warpgroup has retired its products; the
-//   epilogue from the accumulators, two neighbouring columns a store. (It
-//   replaced an mma.sync m16n8k32 kernel of 128 x 128 tiles on a cp.async
-//   ring, and 128 x 160 wgmma tiles two blocks an SM, both slower at the
-//   encoder's shapes: short K leaves each tile few stages to hide its
-//   loads behind, and the L2 cache feeds a smaller tile's loads slower.)
+//   between calls, so a captured step replays. (A one-launch form that
+//   quantized each block's range of x inside the cluster, sharing the row
+//   amaxes through distributed shared memory, was slower in a replayed step
+//   and 1.5-3.7x slower at 32 and 64 rows, where every channel tile
+//   quantized x again.)
+// - tile_product (M > 64): 256 x 160 output tiles, warp-specialised and
+//   persistent: one block an SM walks the tiles in a fixed order (rows
+//   fastest, so the blocks in flight share a weight panel; no atomics, so
+//   replays repeat and nothing is reset between them). One thread of the
+//   producer warpgroup keeps a 4-stage ring of 128-byte k slices of xq and
+//   the weight full through the TMA unit (2-d tensor maps, 128-byte
+//   swizzle, rows and k past M, N, K zero-filled), each stage with a full
+//   and an empty mbarrier, running on into the next tile while the
+//   consumers rescale the last one; the producer gives up its registers
+//   (setmaxnreg) to two consumer warpgroups of 128 rows, each two wgmma
+//   m64n160k32 s8 a k-step, which free a stage as soon as their products on
+//   it are done. No block-wide barrier lies in the main loop. The
+//   epilogue writes from the accumulators, two neighbouring columns a
+//   store. Launched programmatically, the producer asks for the weight's
+//   first stages before it waits for the quantization, and for xq's after.
+//   (No cluster: two blocks multicasting the xq tile were slower at every
+//   encoder shape.)
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -112,6 +125,71 @@ __device__ __forceinline__ void widen(const uint4& w, float* f,
   }
 }
 
+// the largest |x| of 16 bytes of x
+template <typename TX>
+__device__ __forceinline__ float amax16(const uint4& w, float a) {
+  constexpr int E = 16 / sizeof(TX);
+  float f[E];
+  widen(w, f, static_cast<const TX*>(nullptr));
+#pragma unroll
+  for (int e = 0; e < E; ++e) a = fmaxf(a, fabsf(f[e]));
+  return a;
+}
+// 16 bytes of x quantized with the row's scale s: 16 / sizeof(TX) int8
+// values packed into 32-bit words, lowest k first. rint(x / s) as the IEEE
+// division rounds x / s, from the product with r = 1 / s (rounded): that
+// product lies within 2^-16 of x / s wherever |x / s| <= 128, so where it
+// is 2^-14 or more from every half-integer the division rounds to the same
+// integer; nearer (one value in ~8000), the division itself decides (ties
+// to even among them), after the products of all the 16 bytes.
+template <typename TX>
+__device__ __forceinline__ void quantize16(const uint4& w, float s, float r,
+                                           uint32_t* packed) {
+  constexpr int E = 16 / sizeof(TX);
+  float f[E];
+  widen(w, f, static_cast<const TX*>(nullptr));
+  int qv[E];
+  bool near = false;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const float t = __fmul_rn(f[e], r);
+    qv[e] = __float2int_rn(t);
+    near |= fabsf(t - (floorf(t) + 0.5f)) < 0x1p-14f;
+  }
+  if (near) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float t = __fmul_rn(f[e], r);
+      if (fabsf(t - (floorf(t) + 0.5f)) < 0x1p-14f)
+        qv[e] = __float2int_rn(__fdiv_rn(f[e], s));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < E / 4; ++i) packed[i] = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    packed[e / 4] |= (uint32_t)(max(-127, min(127, qv[e])) & 0xff)
+                     << (8 * (e % 4));
+}
+template <typename TX>
+__device__ __forceinline__ void put_packed(void* dst, const uint32_t* packed) {
+  if constexpr (sizeof(TX) == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = packed[0];
+  }
+}
+__device__ __forceinline__ float warp_max(float a) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+  return a;
+}
+// max(amax, 1e-8) / 127, an IEEE division
+__device__ __forceinline__ float row_scale(float amax) {
+  return __fdiv_rn(amax < 1e-8f ? 1e-8f : amax, 127.0f);
+}
+
 // the weight's scales and the bias: fp32 or bf16 (a tree's parameters
 // cast to bf16 take their scales along), widened exactly
 struct Params {
@@ -123,13 +201,12 @@ __device__ __forceinline__ float param(const void* p, int bf16, int i) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
 }
-// ((float(acc) * xs) * ws[n]) + b[n], each operation rounded on its own
-__device__ __forceinline__ float rescale(int acc, float xs, const Params& p,
-                                         int n) {
-  float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), xs),
-                      param(p.ws, p.ws_bf16, n));
-  if (p.bias != nullptr) v = __fadd_rn(v, param(p.bias, p.b_bf16, n));
-  return v;
+// ((float(acc) * xs) * w) + b, each operation rounded on its own; no add
+// without a bias (an added 0 would turn -0 into +0)
+__device__ __forceinline__ float rescale(int acc, float xs, float w, float b,
+                                         bool bias) {
+  const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), w);
+  return bias ? __fadd_rn(v, b) : v;
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -146,92 +223,11 @@ __device__ __forceinline__ void wait_prerequisites() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// -- (a) the activations, quantized per row ----------------------------------
-
-constexpr int QT = 128;  // threads a row
-
-// grid (M), block QT; x, xq: [M, K] row-major, K a multiple of 16 / sizeof
-// (TX), x 16-byte aligned
-template <typename TX>
-__global__ void __launch_bounds__(QT)
-quantize_rows(const TX* __restrict__ x, int8_t* __restrict__ xq,
-              float* __restrict__ xs, int k) {
-  constexpr int E = 16 / sizeof(TX);  // values a 16-byte load
-  __shared__ float part[QT / 32];
-  launch_dependents();
-  const int tid = threadIdx.x, row = blockIdx.x;
-  const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)row * k);
-  const int nv = k / E;
-  float amax = 0.f;
-  for (int i = tid; i < nv; i += QT) {
-    float f[E];
-    widen(__ldg(src + i), f, x);
-#pragma unroll
-    for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(f[e]));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if ((tid & 31) == 0) part[tid >> 5] = amax;
-  __syncthreads();
-  amax = part[0];
-#pragma unroll
-  for (int w = 1; w < QT / 32; ++w) amax = fmaxf(amax, part[w]);
-  const float s = __fdiv_rn(amax < 1e-8f ? 1e-8f : amax, 127.0f);
-  for (int i = tid; i < nv; i += QT) {
-    float f[E];
-    widen(__ldg(src + i), f, x);
-    uint32_t packed[E / 4] = {};
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int qv = max(-127, min(127, __float2int_rn(__fdiv_rn(f[e], s))));
-      packed[e / 4] |= (uint32_t)(qv & 0xff) << (8 * (e % 4));
-    }
-    int8_t* dst = xq + (size_t)row * k + (size_t)i * E;
-    if constexpr (E == 8) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
-    } else {
-      *reinterpret_cast<uint32_t*>(dst) = packed[0];
-    }
-  }
-  if (tid == 0) xs[row] = s;
-}
-
-// -- tensor-core fragments ------------------------------------------------------
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-// c += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 sums
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// -- (b1) few rows: the weight streamed --------------------------------------
-
-constexpr int SW = 4;             // warps a block
-constexpr int ST = SW * 32;       // threads a block
-constexpr int BNS = 16 * SW;      // output channels a block
-constexpr int CHUNK = 256;        // bytes of k a slot
-constexpr int ROW = CHUNK + 16;   // a row's stride in shared memory
-constexpr int MAX_SLOTS = 4;
-constexpr int MAX_SPLITS = 8;     // a portable cluster
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
                : "memory");
 }
 __device__ __forceinline__ void mbar_init_fence() {
@@ -244,6 +240,11 @@ __device__ __forceinline__ void mbar_expect(unsigned long long* bar,
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(smem_u32(bar)),
                "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
                : "memory");
 }
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
@@ -275,6 +276,40 @@ __device__ __forceinline__ void proxy_fence() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// -- tensor-core fragments ------------------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+// c += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 sums
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// -- (a) few rows: the weight streamed -----------------------------------------
+
+constexpr int SW = 4;             // warps a block
+constexpr int ST = SW * 32;       // threads a block
+constexpr int BNS = 16 * SW;      // output channels a block
+constexpr int CHUNK = 256;        // bytes of k a slot
+constexpr int ROW = CHUNK + 16;   // a row's stride in shared memory
+constexpr int MAX_SLOTS = 4;
+constexpr int MAX_SPLITS = 8;     // a portable cluster
+constexpr int STREAM_ROWS = 64;
+
 // grid (splits, ceil(N / BNS)), cluster (splits, 1, 1), block ST; dynamic
 // shared memory: `slots` slots of BNS weight rows and 8 NT activation rows,
 // ROW bytes apart. w: [N, K] rows w_stride bytes apart; xq [M, K]; M <= 8 NT.
@@ -300,7 +335,7 @@ stream_product(const int8_t* __restrict__ w, long long w_stride, Params p,
   const int nchunk = (s1 - s0 + PER - 1) / PER;
 
   if (tid == 0) {
-    for (int i = 0; i < slots; ++i) mbar_init(&bar[i]);
+    for (int i = 0; i < slots; ++i) mbar_init(&bar[i], 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -401,20 +436,83 @@ stream_product(const int8_t* __restrict__ w, long long w_stride, Params p,
     for (int r = 0; r < nsplit; ++r)
       sum += nsplit > 1 ? *cluster.map_shared_rank(part + e, r) : part[e];
     const int col = n0 + ch;
-    store(y + (long long)row * n + col, rescale(sum, xs[row], p, col));
+    const bool bias = p.bias != nullptr;
+    store(y + (long long)row * n + col,
+          rescale(sum, xs[row], param(p.ws, p.ws_bf16, col),
+                  bias ? param(p.bias, p.b_bf16, col) : 0.f, bias));
   }
   if (nsplit > 1) cluster.sync();  // no block leaves while it is read
 }
 
-// -- (b2) many rows: warpgroup products ---------------------------------------
+// -- (b) the activations quantized per row ------------------------------------
 
-constexpr int GT = 512;              // four warpgroups, 64 rows each
-constexpr int GBM = 256, GBN = 160;  // a block's tile (N 1280 = 8 x 160)
-constexpr int GBK = 128;             // bytes of k a stage: one swizzle atom
-constexpr int GSTAGES = 4;
-constexpr int GA = GBM * GBK, GB = GBN * GBK;
-constexpr int GSTAGE = GA + GB;      // a whole number of 1024-byte periods
-static_assert(GSTAGE % 1024 == 0, "stages keep the swizzle's alignment");
+constexpr int QT = 128;  // threads a row
+constexpr int HOLD = 8;  // 16-byte loads of x a thread has in flight
+
+// grid (M), block QT; x, xq: [M, K] row-major, K a multiple of
+// 16 / sizeof(TX), x 16-byte aligned. A row of up to QT x HOLD 16-byte
+// vectors stays in registers between its amax and its quantization.
+template <typename TX>
+__global__ void __launch_bounds__(QT)
+quantize_rows(const TX* __restrict__ x, int8_t* __restrict__ xq,
+              float* __restrict__ xs, int k) {
+  constexpr int E = 16 / sizeof(TX);
+  __shared__ float part[QT / 32];
+  launch_dependents();
+  wait_prerequisites();  // x is the previous kernel's
+  const int tid = threadIdx.x, row = blockIdx.x;
+  const uint4* src = reinterpret_cast<const uint4*>(x + (long long)row * k);
+  const int nv = k / E;
+  uint4 held[HOLD];
+  auto load = [&](int base) {
+#pragma unroll
+    for (int u = 0; u < HOLD; ++u) {
+      const int i = base + u * QT + tid;
+      if (i < nv) held[u] = __ldg(src + i);
+    }
+  };
+  float a = 0.f;
+  for (int base = 0; base < nv; base += QT * HOLD) {
+    load(base);
+#pragma unroll
+    for (int u = 0; u < HOLD; ++u)
+      if (base + u * QT + tid < nv) a = amax16<TX>(held[u], a);
+  }
+  a = warp_max(a);
+  if ((tid & 31) == 0) part[tid >> 5] = a;
+  __syncthreads();
+  a = part[0];
+#pragma unroll
+  for (int i = 1; i < QT / 32; ++i) a = fmaxf(a, part[i]);
+  const float s = row_scale(a), r = __frcp_rn(s);
+  int8_t* dst = xq + (long long)row * k;
+  for (int base = 0; base < nv; base += QT * HOLD) {
+    if (nv > QT * HOLD) load(base);
+#pragma unroll
+    for (int u = 0; u < HOLD; ++u) {
+      const int i = base + u * QT + tid;
+      if (i < nv) {
+        uint32_t packed[E / 4];
+        quantize16<TX>(held[u], s, r, packed);
+        put_packed<TX>(dst + i * E, packed);
+      }
+    }
+  }
+  if (tid == 0) xs[row] = s;
+}
+
+// -- (c) many rows: a warp-specialised, persistent warpgroup product ----------
+
+constexpr int PT = 384;              // a producer and two consumer warpgroups
+constexpr int TBM = 256, TBN = 160;  // a tile (N 1280 = 8 x 160)
+constexpr int TBK = 128;             // bytes of k a stage: one swizzle atom
+constexpr int TSTAGES = 4;
+constexpr int TA = TBM * TBK, TB = TBN * TBK;
+constexpr int TSTAGE = TA + TB;      // a whole number of 1024-byte periods
+static_assert(TSTAGE % 1024 == 0, "stages keep the swizzle's alignment");
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536,
+              "the register file");
 
 // wgmma shared-memory descriptor of a K-major operand under the 128-byte
 // swizzle: start address >> 4, LBO 1 (unused one atom wide), SBO 1024 bytes
@@ -423,6 +521,10 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t saddr) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(64) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+// a barrier of `threads` threads (whole warps) on named barrier `id`
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -433,6 +535,14 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 #define JT_ACC80                                                   \
@@ -491,30 +601,43 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// grid (ceil(N / GBN), ceil(M / GBM)), block GT, dynamic shared memory
-// GSTAGES x GSTAGE + 1024 (for the alignment). map_x: xq [M, K]; map_w: the
-// weight [N, K]; boxes of GBK bytes of k by GBM / GBN rows, 128-byte swizzle.
+// rows r and r + 8 of a 64-row accumulator d through the epilogue: columns
+// n0 + 8j + c2 and the next, whose weight scales and bias are w0/w1, b0/b1
 template <typename TY>
-__global__ void __launch_bounds__(GT, 1)
-wgmma_product(const __grid_constant__ CUtensorMap map_x,
-              const __grid_constant__ CUtensorMap map_w, Params p,
-              const float* __restrict__ xs, TY* __restrict__ y, int m, int k,
-              int n) {
+__device__ __forceinline__ void put_tile_pair(TY* __restrict__ y, int row,
+                                              int col, int n, bool pair,
+                                              float sx, int v0, int v1,
+                                              float w0, float w1, float b0,
+                                              float b1, bool bias) {
+  TY* yr = y + (long long)row * n + col;
+  const float y0 = rescale(v0, sx, w0, b0, bias);
+  if (pair) {
+    store2(yr, y0, rescale(v1, sx, w1, b1, bias));
+  } else {
+    store(yr, y0);
+    if (col + 1 < n) store(yr + 1, rescale(v1, sx, w1, b1, bias));
+  }
+}
+
+// grid: at most one block an SM, block b walking tiles b, b + gridDim.x,
+// ... of mtiles x ceil(N / TBN) (rows fastest, so the blocks in flight
+// share weight panels); block PT, dynamic shared memory TSTAGES x TSTAGE +
+// 1024 (for the alignment). map_x: xq [M, K] (boxes of TBM rows); map_w:
+// the weight [N, K] (boxes of TBN rows); TBK bytes of k a box, 128-byte
+// swizzle.
+template <typename TY>
+__global__ void __launch_bounds__(PT, 1)
+tile_product(const __grid_constant__ CUtensorMap map_x,
+             const __grid_constant__ CUtensorMap map_w, Params p,
+             const float* __restrict__ xs, TY* __restrict__ y, int m, int k,
+             int n, int mtiles, int tiles) {
   extern __shared__ __align__(1024) unsigned char graw[];
   unsigned char* smem = graw + ((1024 - (smem_u32(graw) & 1023)) & 1023);
-  __shared__ __align__(8) unsigned long long full[GSTAGES];
-  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
-            lane = tid & 31;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int ktiles = (k + GBK - 1) / GBK;
+  __shared__ __align__(8) unsigned long long full[TSTAGES], empty[TSTAGES];
+  __shared__ float tile_w[2][TBN], tile_b[2][TBN];  // a consumer's columns
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int ktiles = (k + TBK - 1) / TBK;
 
-  // stage s <- k slice kt of the block's xq rows and weight rows
-  auto load = [&](int kt, int s) {
-    unsigned char* st = smem + (size_t)s * GSTAGE;
-    mbar_expect(&full[s], GSTAGE);
-    tma_2d(st, &map_x, kt * GBK, m0, &full[s]);
-    tma_2d(st + GA, &map_w, kt * GBK, n0, &full[s]);
-  };
   if (tid == 0) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                      reinterpret_cast<unsigned long long>(&map_x))
@@ -522,57 +645,120 @@ wgmma_product(const __grid_constant__ CUtensorMap map_x,
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                      reinterpret_cast<unsigned long long>(&map_w))
                  : "memory");
-    for (int i = 0; i < GSTAGES; ++i) mbar_init(&full[i]);
+    for (int i = 0; i < TSTAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);  // one arrival a consumer warpgroup
+    }
     mbar_init_fence();
   }
   __syncthreads();
-  if (tid == 0)
-    for (int i = 0; i < min(GSTAGES, ktiles); ++i) load(i, i);
 
-  int acc[80];
+  if (wg == 0) {
+    // the producer: the weight's first stages of the first tile before the
+    // wait (constants), xq's after it (the quantization's); then every
+    // stage once both consumers have freed it
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      int pre = 0;
+      if ((int)blockIdx.x < tiles) {
+        pre = min(TSTAGES, ktiles);
+        const int n0 = (blockIdx.x / mtiles) * TBN;
+        for (int i = 0; i < pre; ++i) {
+          mbar_expect(&full[i], TSTAGE);
+          tma_2d(smem + (size_t)i * TSTAGE + TA, &map_w, i * TBK, n0,
+                 &full[i]);
+        }
+      }
+      wait_prerequisites();
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % mtiles) * TBM, n0 = (tile / mtiles) * TBN;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % TSTAGES;
+          unsigned char* st = smem + (size_t)s * TSTAGE;
+          if (it >= pre) {
+            mbar_wait(&empty[s], (unsigned)(((it / TSTAGES) & 1) ^ 1));
+            mbar_expect(&full[s], TSTAGE);
+            tma_2d(st + TA, &map_w, kt * TBK, n0, &full[s]);
+          }
+          tma_2d(st, &map_x, kt * TBK, m0, &full[s]);
+        }
+      }
+    }
+  } else {
+    // a consumer: rows 128 (wg - 1) of each tile, two 64-row products
+    setmaxnreg_inc<CONSUMER_REGS>();
+    wait_prerequisites();  // xs is the quantization's; y may be read
+    const int c = wg - 1, t = tid & 127, warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, c2 = (lane & 3) * 2;
+    const bool even = (n & 1) == 0, bias = p.bias != nullptr;
+    const uint32_t base = smem_u32(smem);
+    int acc0[80], acc1[80];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % mtiles) * TBM, n0 = (tile / mtiles) * TBN;
+      // the epilogue's operands, asked for before the products: the
+      // columns' weight scales and bias (once the last epilogue has read
+      // them) and the rows' scales
+      named_sync(1 + c, 128);
+      for (int i = t; i < TBN; i += 128) {
+        const int col = n0 + i;
+        tile_w[c][i] = col < n ? param(p.ws, p.ws_bf16, col) : 0.f;
+        tile_b[c][i] = bias && col < n ? param(p.bias, p.b_bf16, col) : 0.f;
+      }
+      const int r0 = m0 + c * 128 + warp * 16 + g;
+      const int rows[4] = {r0, r0 + 8, r0 + 64, r0 + 72};
+      float sx[4];
 #pragma unroll
-  for (int i = 0; i < 80; ++i) acc[i] = 0;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt % GSTAGES;
-    mbar_wait(&full[s], (unsigned)((kt / GSTAGES) & 1));
-    const uint32_t a = smem_u32(smem + (size_t)s * GSTAGE) + wg * 64 * GBK;
-    const uint32_t b = smem_u32(smem + (size_t)s * GSTAGE + GA);
-    wgmma_fence();
+      for (int q = 0; q < 4; ++q) sx[q] = rows[q] < m ? xs[rows[q]] : 0.f;
 #pragma unroll
-    for (int kk = 0; kk < GBK / 32; ++kk)
-      wgmma_s8(acc, make_desc(a + kk * 32), make_desc(b + kk * 32));
-    wgmma_commit();
-    // the previous slice's products are done: every warpgroup past this
-    // point free its stage for the slice GSTAGES on
-    wgmma_wait<1>();
-    __syncthreads();
-    if (tid == 0 && kt > 0 && kt - 1 + GSTAGES < ktiles)
-      load(kt - 1 + GSTAGES, (kt - 1) % GSTAGES);
-  }
-  wgmma_wait<0>();
+      for (int i = 0; i < 80; ++i) acc0[i] = acc1[i] = 0;
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int s = it % TSTAGES;
+        mbar_wait(&full[s], (unsigned)((it / TSTAGES) & 1));
+        const uint32_t a = base + s * TSTAGE + c * 128 * TBK;
+        const uint32_t b = base + s * TSTAGE + TA;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TBK / 32; ++kk) {
+          wgmma_s8(acc0, make_desc(a + kk * 32), make_desc(b + kk * 32));
+          wgmma_s8(acc1, make_desc(a + 64 * TBK + kk * 32),
+                   make_desc(b + kk * 32));
+        }
+        wgmma_commit();
+        // the previous slice's products are done: free its stage
+        wgmma_wait<1>();
+        if (kt > 0 && t == 0) mbar_arrive(&empty[(it - 1) % TSTAGES]);
+      }
+      wgmma_wait<0>();
+      if (t == 0) mbar_arrive(&empty[(it - 1) % TSTAGES]);
 
-  // two neighbouring columns in one store where rows are an even count
-  // of values apart (so the pair is aligned)
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const bool even = (n & 1) == 0;
+      // the epilogue, while the producer fills the next tile's stages:
+      // rows r, r + 8 of each 64-row half; two neighbouring columns in one
+      // store where rows are an even count of values apart
+      named_sync(1 + c, 128);  // the columns' operands are in
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = m0 + wg * 64 + warp * 16 + g + 8 * h;
-    if (row < m) {
-      const float sx = xs[row];
-      TY* yr = y + (long long)row * n;
-#pragma unroll
-      for (int j = 0; j < GBN / 8; ++j) {
+      for (int j = 0; j < TBN / 8; ++j) {
         const int col = n0 + 8 * j + c2;
-        if (col + 1 < n && even) {
-          store2(yr + col, rescale(acc[4 * j + 2 * h], sx, p, col),
-                 rescale(acc[4 * j + 2 * h + 1], sx, p, col + 1));
-        } else {
-          if (col < n)
-            store(yr + col, rescale(acc[4 * j + 2 * h], sx, p, col));
-          if (col + 1 < n)
-            store(yr + col + 1,
-                  rescale(acc[4 * j + 2 * h + 1], sx, p, col + 1));
+        if (col < n) {
+          const bool has1 = col + 1 < n;
+          const float w0 = tile_w[c][8 * j + c2];
+          const float w1 = tile_w[c][8 * j + c2 + 1];
+          const float b0 = tile_b[c][8 * j + c2];
+          const float b1 = tile_b[c][8 * j + c2 + 1];
+          const bool pair = has1 && even;
+          if (rows[0] < m)
+            put_tile_pair(y, rows[0], col, n, pair, sx[0], acc0[4 * j],
+                          acc0[4 * j + 1], w0, w1, b0, b1, bias);
+          if (rows[1] < m)
+            put_tile_pair(y, rows[1], col, n, pair, sx[1], acc0[4 * j + 2],
+                          acc0[4 * j + 3], w0, w1, b0, b1, bias);
+          if (rows[2] < m)
+            put_tile_pair(y, rows[2], col, n, pair, sx[2], acc1[4 * j],
+                          acc1[4 * j + 1], w0, w1, b0, b1, bias);
+          if (rows[3] < m)
+            put_tile_pair(y, rows[3], col, n, pair, sx[3], acc1[4 * j + 2],
+                          acc1[4 * j + 3], w0, w1, b0, b1, bias);
         }
       }
     }
@@ -614,14 +800,14 @@ EncodeTiled encode_tiled() {
 }
 
 // a 2-d tensor map over [rows, k] int8 rows `stride` bytes apart, boxes of
-// GBK bytes by box_rows rows under the 128-byte swizzle
+// TBK bytes by box_rows rows under the 128-byte swizzle
 cudaError_t int8_map(CUtensorMap* map, const void* base, int rows, int k,
                      long long stride, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)stride};
-  const cuuint32_t box[2] = {(cuuint32_t)GBK, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)TBK, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
@@ -632,6 +818,7 @@ cudaError_t int8_map(CUtensorMap* map, const void* base, int rows, int k,
 }
 
 struct Args {
+  const void* x;
   int8_t* xq;
   float* xs;
   const int8_t* w;
@@ -652,13 +839,13 @@ cudaError_t allow_smem(const void* kernel) {
   return err;
 }
 
-template <typename TY>
+template <typename T>
 cudaError_t allow_all() {
-  const void* ks[] = {(const void*)stream_product<1, TY>,
-                      (const void*)stream_product<2, TY>,
-                      (const void*)stream_product<4, TY>,
-                      (const void*)stream_product<8, TY>,
-                      (const void*)wgmma_product<TY>};
+  const void* ks[] = {(const void*)stream_product<1, T>,
+                      (const void*)stream_product<2, T>,
+                      (const void*)stream_product<4, T>,
+                      (const void*)stream_product<8, T>,
+                      (const void*)tile_product<T>};
   for (const void* kk : ks) {
     const cudaError_t err = allow_smem(kk);
     if (err != cudaSuccess) return err;
@@ -679,6 +866,31 @@ cudaError_t allow_once() {
   return done;
 }
 
+// the current device's SMs, read at its first call
+cudaError_t sm_count(int* sms) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev < 0 || dev >= 64))
+    err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && cached[dev] == 0)
+    err = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err == cudaSuccess) *sms = cached[dev];
+  return err;
+}
+
+// the tile product's tiles at m x n: (row tiles, all tiles, persistent
+// blocks), one block an SM and no more blocks than tiles
+cudaError_t tile_plan(int m, int n, int* mtiles, int* tiles, int* grid) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  *mtiles = (m + TBM - 1) / TBM;
+  *tiles = *mtiles * ((n + TBN - 1) / TBN);
+  *grid = min(*tiles, sms);
+  return err;
+}
+
 // slots of a streaming block: its longest range of k, in CHUNK slices, up to
 // MAX_SLOTS
 int stream_slots(int k, int splits) {
@@ -686,47 +898,74 @@ int stream_slots(int k, int splits) {
   return min(MAX_SLOTS, (per + CHUNK / 32 - 1) / (CHUNK / 32));
 }
 
-template <int NT, typename TY>
-cudaError_t launch_stream(const Args& a) {
-  const int slots = stream_slots(a.k, a.splits);
+// a launch's configuration: the programmatic attribute (and a cluster)
+struct Launch {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.splits, (a.n + BNS - 1) / BNS);
-  cfg.blockDim = dim3(ST);
-  cfg.dynamicSmemBytes = (size_t)slots * (BNS + 8 * NT) * ROW;
-  cfg.stream = a.stream;
   cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = a.pdl;
-  cfg.attrs = attr;
-  cfg.numAttrs = 2;
-  return cudaLaunchKernelEx(&cfg, stream_product<NT, TY>, a.w, a.w_stride,
-                            a.p, a.xq, a.xs, static_cast<TY*>(a.y), a.m, a.k,
-                            a.n, slots);
+  Launch(dim3 grid, int block, size_t smem, cudaStream_t stream, int pdl,
+         int cluster) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(block);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = pdl;
+    attr[1].id = cudaLaunchAttributeClusterDimension;
+    attr[1].val.clusterDim.x = cluster;
+    attr[1].val.clusterDim.y = 1;
+    attr[1].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = cluster > 0 ? 2 : 1;
+  }
+};
+
+// the quantization into xq and xs, programmatic where `pdl` is set
+template <typename T>
+cudaError_t launch_quantize(const Args& a, int pdl) {
+  Launch q(dim3(a.m), QT, 0, a.stream, pdl, 0);
+  return cudaLaunchKernelEx(&q.cfg, quantize_rows<T>,
+                            static_cast<const T*>(a.x), a.xq, a.xs, a.k);
 }
 
-template <typename TY>
-cudaError_t launch_product(const Args& a) {
-  if (a.splits == 0) {
-    CUtensorMap maps[2];
-    cudaError_t err = int8_map(&maps[0], a.xq, a.m, a.k, a.k, GBM);
-    if (err == cudaSuccess)
-      err = int8_map(&maps[1], a.w, a.n, a.k, a.w_stride, GBN);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.n + GBN - 1) / GBN, (a.m + GBM - 1) / GBM);
-    wgmma_product<TY>
-        <<<grid, GT, (size_t)GSTAGES * GSTAGE + 1024, a.stream>>>(
-            maps[0], maps[1], a.p, a.xs, static_cast<TY*>(a.y), a.m, a.k,
-            a.n);
-    return cudaGetLastError();
-  }
-  if (a.m <= 8) return launch_stream<1, TY>(a);
-  if (a.m <= 16) return launch_stream<2, TY>(a);
-  if (a.m <= 32) return launch_stream<4, TY>(a);
-  return launch_stream<8, TY>(a);
+template <int NT, typename T>
+cudaError_t launch_stream(const Args& a) {
+  const int slots = stream_slots(a.k, a.splits);
+  Launch l(dim3(a.splits, (a.n + BNS - 1) / BNS), ST,
+           (size_t)slots * (BNS + 8 * NT) * ROW, a.stream, a.pdl, a.splits);
+  return cudaLaunchKernelEx(&l.cfg, stream_product<NT, T>, a.w, a.w_stride,
+                            a.p, (const int8_t*)a.xq, (const float*)a.xs,
+                            static_cast<T*>(a.y), a.m, a.k, a.n, slots);
+}
+
+template <typename T>
+cudaError_t launch_tiles(const Args& a) {
+  CUtensorMap maps[2];
+  int mtiles = 0, tiles = 0, grid = 0;
+  cudaError_t err = tile_plan(a.m, a.n, &mtiles, &tiles, &grid);
+  if (err == cudaSuccess)
+    err = int8_map(&maps[0], a.xq, a.m, a.k, a.k, TBM);
+  if (err == cudaSuccess)
+    err = int8_map(&maps[1], a.w, a.n, a.k, a.w_stride, TBN);
+  if (err == cudaSuccess) err = launch_quantize<T>(a, a.pdl);
+  if (err != cudaSuccess) return err;
+  Launch l(dim3(grid), PT, (size_t)TSTAGES * TSTAGE + 1024, a.stream, a.pdl,
+           0);
+  return cudaLaunchKernelEx(&l.cfg, tile_product<T>, maps[0], maps[1], a.p,
+                            (const float*)a.xs, static_cast<T*>(a.y), a.m,
+                            a.k, a.n, mtiles, tiles);
+}
+
+template <typename T>
+cudaError_t launch(const Args& a) {
+  if (a.splits == 0) return launch_tiles<T>(a);
+  // the streamed product's weight loads overlap the quantization (where
+  // a.pdl), which waits for the kernel before
+  const cudaError_t err = launch_quantize<T>(a, 0);
+  if (err != cudaSuccess) return err;
+  if (a.m <= 8) return launch_stream<1, T>(a);
+  if (a.m <= 16) return launch_stream<2, T>(a);
+  if (a.m <= 32) return launch_stream<4, T>(a);
+  return launch_stream<8, T>(a);
 }
 
 }  // namespace
@@ -740,49 +979,51 @@ const char* jt_error_string(int code) {
 // x: [m, k] row-major, 16-byte aligned (x_dtype 0 = fp32, 1 = bf16); xq:
 // [m, k] int8 (16-byte aligned) and xs: [m] fp32, written; w: the weight
 // [n, k] int8, rows w_stride bytes apart (a multiple of 16, w 16-byte
-// aligned); ws: [n] (ws_dtype 0 = fp32, 1 = bf16); bias: null or [n]
-// (b_dtype, the same codes); y: [m, n] row-major in x's dtype. k a multiple
-// of 32. splits: 0 for the warpgroup product, else 1, 2, 4 or 8 (at most
-// k / 32) blocks a cluster for the streamed one (m <= 64). pdl: let the
-// streamed product start during the quantization (programmatic dependent
-// launch).
+// aligned), not written by the kernel just before the call (with pdl the
+// tile product reads it before the wait); ws: [n] (ws_dtype 0 = fp32, 1 =
+// bf16); bias: null or [n] (b_dtype, the same codes); y: [m, n] row-major
+// in x's dtype. k a multiple of 32. Two launches, the quantization and a
+// product: splits 1, 2, 4 or 8 (at most k / 32), the streamed product of
+// `splits` blocks a cluster (m <= 64); 0, the tile product on one
+// persistent block an SM.
+// pdl: launch the product programmatically, so that its weight loads
+// overlap the quantization; with the tile product the quantization too,
+// so that it overlaps the kernel before it.
 int int8_linear_fwd(const void* x, int x_dtype, void* xq, void* xs,
                     const void* w, long long w_stride, const void* ws,
                     int ws_dtype, const void* bias, int b_dtype, void* y,
                     int m, int k, int n, int splits, int pdl, void* stream) {
   if (m < 1 || k < 32 || k % 32 || n < 1 || w_stride < k || w_stride % 16 ||
-      splits < 0 ||
-      (splits > 0 && (m > 64 || splits > MAX_SPLITS ||
+      splits < 0 || xq == nullptr || xs == nullptr ||
+      (splits > 0 && (m > STREAM_ROWS || splits > MAX_SPLITS ||
                        (splits & (splits - 1)) || splits > k / 32 ||
                        (n + BNS - 1) / BNS > 65535)) ||
-      (m + GBM - 1) / GBM > 65535 || (x_dtype | ws_dtype | b_dtype) & ~1)
+      (x_dtype | ws_dtype | b_dtype) & ~1)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(xq) |
        reinterpret_cast<uintptr_t>(w)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaError_t err = allow_once();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int8_t* q = static_cast<int8_t*>(xq);
-  float* s = static_cast<float*>(xs);
-  if (x_dtype == 0)
-    quantize_rows<float><<<m, QT, 0, st>>>(static_cast<const float*>(x), q, s,
-                                           k);
-  else
-    quantize_rows<__nv_bfloat16><<<m, QT, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), q, s, k);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a = {q, s, static_cast<const int8_t*>(w), w_stride,
+  const Args a = {x, static_cast<int8_t*>(xq), static_cast<float*>(xs),
+                  static_cast<const int8_t*>(w), w_stride,
                   Params{ws, bias, ws_dtype, b_dtype}, y, m, k, n, splits,
-                  pdl ? 1 : 0, st};
-  err = x_dtype == 0 ? launch_product<float>(a)
-                     : launch_product<__nv_bfloat16>(a);
+                  pdl ? 1 : 0, static_cast<cudaStream_t>(stream)};
+  err = x_dtype == 0 ? launch<float>(a) : launch<__nv_bfloat16>(a);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the tile product's plan at m x n rows and channels on the current
+// device: plan[0..2] = tile rows, tile channels, persistent blocks
+int int8_linear_tiles(int m, int n, int* plan) {
+  int mtiles = 0, tiles = 0;
+  plan[0] = TBM;
+  plan[1] = TBN;
+  return static_cast<int>(tile_plan(m, n, &mtiles, &tiles, &plan[2]));
 }
 
 }  // extern "C"

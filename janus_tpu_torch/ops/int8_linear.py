@@ -17,12 +17,12 @@ cast in its epilogue, bit-equal to the plain version (the int32 sums are
 exact, so their order is free; every float operation is rounded as the plain
 version rounds it). The product streams the weight for a decode step's few
 rows (at most :data:`STREAM_ROWS`: ``plan_splits`` blocks a channel tile,
-splitting K so that every SM streams) and tiles the rows through warpgroup
-products (``wgmma``) for an encoder's many. It reads the weight
-K-contiguous: ``q[K, N]`` with strides ``(1, K)``, the transposed view of a
-``[N, K]`` copy that :func:`janus_tpu_torch.ops.quant.column_major` makes
-once for a tree; it raises on a row-major weight rather than transposing it
-on every call.
+splitting K so that every SM streams) and walks the tiles of an encoder's
+many on one persistent block an SM through warpgroup products (``wgmma``).
+It reads the weight K-contiguous: ``q[K, N]`` with strides ``(1, K)``, the
+transposed view of a ``[N, K]`` copy that
+:func:`janus_tpu_torch.ops.quant.column_major` makes once for a tree; it
+raises on a row-major weight rather than transposing it on every call.
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ STREAM_ROWS = 64      # rows at or under which the weight is streamed
 STREAM_CHANNELS = 64  # output channels of a streaming block
 MAX_SPLITS = 8        # streaming blocks (a cluster) of one channel tile
 K_STEP = 32           # bytes of k one tensor-core product takes
-# rows up to which the product overlaps the quantization: on the H100
-# faster at every decode shape at 8 rows and at most at 32, mixed at 64
+# rows up to which the streamed product overlaps the quantization: on the
+# H100 faster at every decode shape at 8 rows and at most at 32, mixed at 64
 # (chip_smoke.py's pdl_ms and no_pdl_ms)
 PDL_ROWS = 32
 # int8_linear_fwd(x, x_dtype, xq, xs, w, w_stride, ws, ws_dtype, bias,
@@ -124,10 +124,12 @@ def plan_splits(m: int, k: int, n: int, sms: int = 132) -> int:
 
 
 def use_pdl(m: int) -> bool:
-    """Whether the streaming product starts during the quantization
-    (programmatic dependent launch): its weight loads then overlap the
-    quantization's launch and run."""
-    return m <= PDL_ROWS
+    """Whether the product is launched programmatically (its weight loads
+    then overlap the quantization): the streaming product up to
+    :data:`PDL_ROWS` rows, the warpgroup product above :data:`STREAM_ROWS`
+    (there the quantization is programmatic too, overlapping the kernel
+    before it)."""
+    return m <= PDL_ROWS or m > STREAM_ROWS
 
 
 _SMS: dict = {}
@@ -187,6 +189,8 @@ def _launch(x: torch.Tensor, qw, b: Optional[torch.Tensor],
             splits = plan_splits(m, k, n, _sm_count(x.device))
         if pdl is None:
             pdl = use_pdl(m)
+        # a copy's kernel may run just before: both products read the
+        # scales and bias only after they wait
         scale = scale.contiguous()
         b = None if b is None else b.contiguous()
         fn = cuda_build.entry(KERNEL, "int8_linear_fwd", _ARGTYPES)

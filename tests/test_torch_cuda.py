@@ -329,9 +329,41 @@ def test_int8_linear_bit_equal_to_plain(dev, m, k, n):
     assert torch.equal(y, int8_linear_plain(x, qw, b))
 
 
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(8, 1280, 1280), (64, 5120, 1280)])
+def test_int8_linear_amax_in_one_split(dev, m, k, n, x_dtype, where):
+    """Rows whose largest |x| lies only in the first or only in the last
+    split's range of K: the scale is the whole row's amax, whatever the
+    split plan (a range's own would pass any tolerance)."""
+    from janus_tpu_torch.ops.int8_linear import (_launch, _round_int8,
+                                                 _scale_of, _sm_count,
+                                                 int8_linear_plain,
+                                                 plan_splits)
+
+    x, qw, b = _int8_case(dev, m, k, n, x_dtype, torch.bfloat16, seed=k)
+    splits = plan_splits(m, k, n, _sm_count(dev))
+    assert splits == 8
+    span = k // splits
+    lo, hi = (0, span) if where == "first" else (k - span, k)
+    for r in range(1, m, 2):  # odd rows: the peak only in that range
+        x[r] = x[r].clamp(-1, 1)
+        x[r, lo + (r * 37) % span] = 40.0 * (-1) ** r
+    xf = x.float()
+    scale = _scale_of(xf.abs().amax(dim=-1, keepdim=True))
+    for s_ in (splits, 1, 2, 4):
+        y, xq, xs = _launch(x, qw, b, splits=s_)
+        assert torch.equal(xs, scale), s_
+        assert torch.equal(xq, _round_int8(xf / scale)), s_
+        assert torch.equal(y, int8_linear_plain(x, qw, b)), s_
+
+
 # fp32 and bf16 activations against fp32 and bf16 parameters, no bias;
-# ragged rows (17, 33, 65, 257) and columns (96, 100); every split plan and
-# the warpgroup product at few rows; the overlapped launch on and off
+# ragged rows (17, 33, 65, 257, 4001) and columns (96, 100); every split
+# plan and the warpgroup product at few rows; the overlapped launch on and
+# off; fc2 at 64 rows in fp32 (the streaming slots' ring at small splits);
+# the persistent product with fewer tiles than SMs (65 and 128 rows) and
+# ragged last tiles in both dimensions (4001 x 100)
 @pytest.mark.parametrize("x_dtype,p_dtype,bias", [
     (torch.float32, torch.float32, True), (torch.float32, torch.bfloat16,
                                            True),
@@ -339,7 +371,9 @@ def test_int8_linear_bit_equal_to_plain(dev, m, k, n):
                                              False)])
 @pytest.mark.parametrize("m,k,n", [(17, 512, 384), (33, 160, 96),
                                    (65, 256, 100), (257, 160, 96),
-                                   (5, 1280, 1280)])
+                                   (5, 1280, 1280), (64, 5120, 1280),
+                                   (4001, 1280, 100), (65, 1280, 1280),
+                                   (128, 1280, 1280)])
 def test_int8_linear_types_plans_and_edges(dev, m, k, n, x_dtype, p_dtype,
                                            bias):
     from janus_tpu_torch.ops.int8_linear import _launch, int8_linear_plain
@@ -357,13 +391,13 @@ def test_int8_linear_types_plans_and_edges(dev, m, k, n, x_dtype, p_dtype,
 
 def test_int8_linear_two_launches_a_call(dev):
     """One call is two kernels on the device (the quantization and the
-    product), at a decode and an encoder shape."""
+    product), at decode shapes and encoder shapes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from janus_tpu_torch.ops.int8_linear import KERNEL, int8_linear
 
-    for m in (8, 4000):
+    for m in (8, 64, 65, 4000):
         x, qw, b = _int8_case(dev, m, 1280, 1280, torch.bfloat16,
                               torch.bfloat16)
         int8_linear(x, qw, b)
@@ -377,15 +411,17 @@ def test_int8_linear_two_launches_a_call(dev):
                   if e.device_type == DeviceType.CUDA]
         assert KERNEL.launches == before + 1
         if device:  # a profiler without device tracing records none
-            assert len(device) == 2, [e.name for e in device]
+            assert len(device) == 2, (m, [e.name for e in device])
 
 
-def test_int8_linear_replays_from_a_graph(dev):
+@pytest.mark.parametrize("m,k,n", [(8, 5120, 1280), (4000, 1280, 5120)])
+def test_int8_linear_replays_from_a_graph(dev, m, k, n):
     """A captured call replays bit-equal on new inputs (no workspace to
-    reset between calls), at the decode step's fc2 shape."""
+    reset between calls), at the decode step's fc2 shape and the encoder's
+    fc1 (the persistent product)."""
     from janus_tpu_torch.ops.int8_linear import int8_linear, int8_linear_plain
 
-    x, qw, b = _int8_case(dev, 8, 5120, 1280, torch.bfloat16, torch.bfloat16)
+    x, qw, b = _int8_case(dev, m, k, n, torch.bfloat16, torch.bfloat16)
     xs = x.clone()
     y = int8_linear(xs, qw, b)
     torch.cuda.synchronize()

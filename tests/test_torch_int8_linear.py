@@ -162,8 +162,11 @@ def test_fuse_qkv_after_column_major_is_row_major_again():
     (8, 1280, 3840, 8), (8, 1280, 1280, 8), (8, 1280, 5120, 8),
     (8, 5120, 1280, 8), (64, 1280, 1280, 8), (32, 5120, 1280, 8),
     (1, 1280, 1280, 8), (8, 128, 384, 4), (8, 512, 128, 8), (8, 64, 64, 2),
-    (65, 1280, 1280, 0), (4000, 1280, 5120, 0), (6400, 5120, 1280, 0)])
+    (65, 1280, 1280, 0), (128, 1280, 1280, 0), (4000, 1280, 1280, 0),
+    (4000, 1280, 5120, 0), (4001, 1280, 100, 0), (6400, 5120, 1280, 0)])
 def test_plan_splits(m, k, n, want):
+    """The streamed product's split plan: four blocks an SM, 0 above 64
+    rows (the persistent warpgroup product)."""
     splits = i8.plan_splits(m, k, n, sms=132)
     assert splits == want
     if splits:
@@ -172,8 +175,40 @@ def test_plan_splits(m, k, n, want):
 
 
 def test_use_pdl_by_rows():
+    """The streamed product overlaps the quantization up to 32 rows; the
+    warpgroup product (above 64) always, its quantization overlapping the
+    kernel before it."""
     assert i8.use_pdl(1) and i8.use_pdl(8) and i8.use_pdl(32)
-    assert not i8.use_pdl(64) and not i8.use_pdl(4000)
+    assert not i8.use_pdl(33) and not i8.use_pdl(64)
+    assert i8.use_pdl(65) and i8.use_pdl(4000)
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_amax_in_one_split_bit_equal_to_jax(dtype, where):
+    """Rows whose largest |x| lies only in the first or only in the last
+    eighth of K (the first or last block of the card's 8-block cluster at
+    1280 x 1280): the plain version takes the whole row's amax, bit for
+    bit as the JAX package does."""
+    jdt, tdt = DTYPES[dtype]
+    k, n = 1280, 96
+    x, w, b = _inputs(4, k, n, seed=7)
+    span = k // 8
+    lo = 0 if where == "first" else k - span
+    x = np.clip(x, -1, 1)
+    for r in (1, 3):
+        x[r, lo + 11 * r] = 40.0 * (-1) ** r
+    jw = jq.quantize_weight(jnp.asarray(w))
+    ref = np.asarray(jq.linear_int8_dynamic(jnp.asarray(x, dtype=jdt), jw,
+                                            jnp.asarray(b)).astype(
+                                                jnp.float32))
+    qw = tq.DynQuantizedWeight(torch.from_numpy(np.array(jw.q)),
+                               torch.from_numpy(np.array(jw.scale)))
+    xt = torch.from_numpy(x).to(tdt)
+    out = i8.int8_linear_plain(xt, qw, torch.from_numpy(b))
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+    scale = i8._scale_of(xt.float().abs().amax(dim=-1, keepdim=True))
+    assert scale[1, 0] == scale[3, 0] == np.float32(40.0) / np.float32(127)
 
 
 def test_kernel_wrapper_refuses_a_cpu_tensor():
@@ -213,3 +248,29 @@ def test_semantic_encoder_on_the_cpu_never_launches_the_kernel():
     out = enc.encode_batch([render_text("alpha", 48_000, seed=0)])
     assert len(out) == 1
     assert i8.KERNEL.launches == before
+
+
+def test_rounding_by_the_reciprocal_equals_the_division():
+    """The kernel's quantization (``csrc/int8_linear.cu`` ``quantize16``)
+    rounds ``x * (1 / s)`` and asks the IEEE division only where that
+    product lies within 2^-14 of a half-integer: emulated in float32 here,
+    it equals ``rint(x / s)`` on every value of random rows, their exact
+    ties and their neighbours one float32 step away, and the near cases
+    are rare."""
+    rng = np.random.default_rng(11)
+    x = (3.0 * rng.standard_normal((64, 4096))).astype(np.float32)
+    x[:, :7] = [127.0, 2.5, -3.5, 0.5, -0.5, 126.5, -126.5]
+    xt = torch.from_numpy(x)
+    s = i8._scale_of(xt.abs().amax(dim=-1, keepdim=True))
+    # half-integer multiples of each row's scale and their float neighbours
+    ties = (torch.arange(-127, 128, dtype=torch.float32) + 0.5) * s
+    xt = torch.cat([xt, ties, torch.nextafter(ties, ties + 1),
+                    torch.nextafter(ties, ties - 1)], dim=-1)
+    exact = torch.round(xt / s)
+    r = torch.ones((), dtype=torch.float32) / s
+    t = xt * r
+    near = (t - (torch.floor(t) + 0.5)).abs() < 2.0 ** -14
+    got = torch.where(near, exact, torch.round(t))
+    assert torch.equal(got, exact)
+    assert 0 < near.float().mean() < 0.2
+    assert near[:, 7:4096].float().mean() < 1e-3
