@@ -699,6 +699,7 @@ def receive_flagship(torch, dev):
     from janus_tpu_torch.models.params import (cast_floating,
                                                flatten_with_paths, tree_to)
     from janus_tpu_torch.models.tokenizer import ByteTokenizer
+    from janus_tpu_torch.ops.mixed_linear import KERNEL as MIXED_KERNEL
     from janus_tpu_torch.ops.resample import resample_poly
 
     tok = ByteTokenizer()
@@ -828,6 +829,33 @@ def receive_flagship(torch, dev):
         t0 = time.perf_counter()
         on_cpu = first_groups(tree_to(tts_params, "cpu"), "cpu")
         cpu_s = time.perf_counter() - t0
+        # 16 groups at b = 8 through the kernel against the plain route
+        # (the weight widened per call) put in its place: the JAX
+        # package's bar for bf16 weights, 1e-2 and equal n_frames
+        from janus_tpu_torch.ops import layers as layers_mod
+
+        text = torch.zeros((FLAGSHIP_BATCH, 32), dtype=torch.long,
+                           device=dev)
+        emo = torch.zeros((FLAGSHIP_BATCH,), dtype=torch.long, device=dev)
+        kw = dict(max_groups=16, text_vocab=tok.vocab_size,
+                  stop_threshold=2.0, eager=True)
+        k_mel, k_frames = tts_mod.tts_generate(tts_params, tcfg, text, emo,
+                                               **kw)
+        with mock.patch.object(layers_mod, "mixed_route",
+                               lambda *a, **k_: "widen"):
+            before = MIXED_KERNEL.launches
+            p_mel, p_frames = tts_mod.tts_generate(tts_params, tcfg, text,
+                                                   emo, **kw)
+            check(MIXED_KERNEL.launches == before, "receive_flagship: the "
+                  "plain route launched the mixed linear")
+        kernel_vs_plain = float((k_mel - p_mel).abs().max())
+        check(torch.equal(k_frames, p_frames) and kernel_vs_plain <= 1e-2,
+              f"receive_flagship: 16 groups through the kernel differ from "
+              f"the plain route by {kernel_vs_plain} (bar 1e-2), n_frames "
+              f"{k_frames.tolist()} against {p_frames.tolist()}")
+        out["kernel_vs_plain_16_groups"] = {
+            "bar": 1e-2, "max_abs": kernel_vs_plain,
+            "n_frames_equal": True, "mel_peak": float(p_mel.abs().max())}
     rel = float((on_card - on_cpu).norm() / on_cpu.norm())
     check(bool(torch.isfinite(on_card).all()) and rel <= 5e-2,
           f"receive_flagship: prefill + 4 groups differ from the CPU by "
@@ -838,19 +866,22 @@ def receive_flagship(torch, dev):
         "ref_peak": float(on_cpu.abs().max()), "cpu_s": round(cpu_s, 2)}
     out["graph"] = graph_stats(graphs)
     # every replayed AR step: 2 layer norms a layer and the final one, the
-    # self-attention of each layer; the step's fp32 weights made once
+    # self-attention of each layer, and every linear through the mixed
+    # kernel (the prenet's two, six a layer, the mel and stop heads) over
+    # the bf16 tree itself: the graphs derive no copy of it
     ar_counts = [{k.name: n[0] for k, n in g.counts.items()}
                  for g in graphs.graphs()]
     check(ar_counts and all(c == {"layer_norm": 2 * tcfg.layers + 1,
-                                  "decode_attn": tcfg.layers}
+                                  "decode_attn": tcfg.layers,
+                                  "mixed_linear": 6 * tcfg.layers + 4}
                             for c in ar_counts),
           f"receive_flagship: the captured AR steps launch {ar_counts}")
     out["captured_step_launches"] = ar_counts[0]
-    wide = dict(flatten_with_paths(graphs.derived("tts_step_fp32", None)))
-    orig = dict(flatten_with_paths(tts_params))
-    out["step_tree_fp32_gib"] = sum(
-        t.numel() * t.element_size() for p, t in wide.items()
-        if t is not orig[p]) / 2 ** 30
+    out["tts_derived_gib"] = sum(
+        t.numel() * t.element_size() for d in graphs._derived.values()
+        for _, t in flatten_with_paths(d)) / 2 ** 30
+    check(out["tts_derived_gib"] == 0, f"receive_flagship: the graphs hold "
+          f"{out['tts_derived_gib']} GiB derived from the TTS tree")
     trace8 = out["batches"][str(RECEIVE_BATCHES[0])]["ar_step_trace_graph"]
     # the captured AR step: at most 420 kernels (566 before the residual
     # adds went into the norms and the cache writes into the attention),
@@ -2819,7 +2850,9 @@ def whisper_dropin(torch, kernels, params, fcfg, phrases) -> dict:
     qenc_eager.warmup()
     q_launches, int8 = graph_and_eager(qenc, qenc_eager,
                                        "whisper_dropin_int8")
-    check(all(n > 0 for n in q_launches.values()),
+    # every kernel of the recognizer, and not the TTS step's mixed linear
+    check(all(n > 0 for name, n in q_launches.items()
+              if name != "mixed_linear") and q_launches["mixed_linear"] == 0,
           f"whisper_dropin_int8 launches {q_launches}")
 
     # every K4 call of the prefill (four query rows) and of the first step
@@ -3742,6 +3775,87 @@ def main() -> None:
         del x, wq, w_rows, qw, out, ref, before, a8
     torch.cuda.empty_cache()
 
+    # the mixed-dtype linear at every shape of the AR step (the flagship
+    # TTS: the prenet 320 -> 1280 and 1280 -> 1280, q/k/v/out, fc1, fc2,
+    # the mel head 1280 -> 320 and the stop head 1280 -> 1): fp32 rows at
+    # b = 8 and 1 (and 16, 64) against bf16 weights and bf16 biases, as the
+    # step multiplies them. Each within 1e-5 (sum |x w| + |b|) of the plain
+    # version; the yardstick is one torch.addmm over a copy of the weight
+    # widened before timing (the path the step took before the kernel)
+    from janus_tpu_torch.ops.mixed_linear import KERNEL as MIXED
+    from janus_tpu_torch.ops.mixed_linear import _launch as mx_launch
+    from janus_tpu_torch.ops.mixed_linear import _sm_count as mx_sms
+    from janus_tpu_torch.ops.mixed_linear import (mixed_linear,
+                                                  mixed_linear_plain,
+                                                  vector_loads)
+    from janus_tpu_torch.ops.mixed_linear import plan_splits as mx_splits
+
+    mx_shapes = ((320, 1280), (1280, 1280), (1280, 5120), (5120, 1280),
+                 (1280, 320), (1280, 1))
+    for m in (FLAGSHIP_BATCH, 1, 16, 64):
+        for k, n in mx_shapes:
+            x = 2 * torch.randn((m, k), generator=gen, device=dev)
+            w = (0.02 * torch.randn((k, n), generator=gen, device=dev)).to(bf)
+            bias = (0.1 * torch.randn(n, generator=gen, device=dev)).to(bf)
+            out = mixed_linear(x, w, bias)
+            ref = mixed_linear_plain(x, w, bias)
+            exact = x.double() @ w.double() + bias.double()
+            torch.cuda.synchronize()
+            mag = x.double().abs() @ w.double().abs() + bias.double().abs()
+            tol_ratio = float(((out.double() - ref.double()).abs()
+                               / (1e-5 * mag)).max())
+            # x, the bf16 weight and bias read once, y written once
+            nbytes = 4 * m * k + 2 * k * n + 2 * n + 4 * m * n
+            b_ms, b_by = bound_ms(2.0 * m * k * n, PEAK_FP32, nbytes)
+            wide = w.float()
+            row = {"phase": "kernel", "name": "mixed_linear", "m": m,
+                   "k": k, "n": n, "x_dtype": "float32",
+                   "w_dtype": "bfloat16", "bias_dtype": "bfloat16",
+                   "splits": mx_splits(m, k, n, mx_sms(dev)),
+                   "vector_loads": vector_loads(n, w.stride(0),
+                                                w.data_ptr()),
+                   "bar": "1e-5 (sum |x w| + |b|)", "tol_ratio": tol_ratio,
+                   "max_err": max_abs(out, ref),
+                   "kernel_vs_fp64_max": float((out.double() - exact)
+                                               .abs().max()),
+                   "plain_vs_fp64_max": float((ref.double() - exact)
+                                              .abs().max()),
+                   "kernel_ms": graph_ms(lambda: mixed_linear(x, w, bias),
+                                         iters=50),
+                   "eager_ms": time_ms(lambda: mixed_linear(x, w, bias),
+                                       iters=50),
+                   "host_us": wrapper_us(lambda: mixed_linear(x, w, bias)),
+                   "plain_ms": graph_ms(lambda: mixed_linear_plain(
+                       x, w, bias)),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   # one PyTorch call over the weight widened beforehand:
+                   # a yardstick only, the port does not call it
+                   "library_ms": graph_ms(lambda: torch.addmm(
+                       bias.float(), x, wide), iters=50)}
+            # the weight read from device memory, as a step reads it: one
+            # call on each of enough copies to overflow the 50 MB L2
+            copies = [w.clone() for _ in range(min(64, 1 + int(
+                64e6 // (2 * k * n))))]
+
+            def cold():
+                for wc in copies:
+                    mixed_linear(x, wc, bias)
+
+            row["cold_ms"] = graph_ms(cold, iters=2) / len(copies)
+            del copies
+            if m in (FLAGSHIP_BATCH, 1):
+                row["splits_ms"] = {s_: graph_ms(lambda: mx_launch(
+                    x, w, bias, splits=s_), iters=50) for s_ in (1, 2, 4, 8)}
+            emit(row)
+            check(tol_ratio <= 1.0, f"mixed_linear {m}x{k}x{n}: outside "
+                  f"1e-5 (sum |x w| + |b|) of plain ({tol_ratio})")
+            check(torch.equal(out, mixed_linear(x, w, bias)),
+                  f"mixed_linear {m}x{k}x{n}: two launches differ")
+            if (m, k, n) == (FLAGSHIP_BATCH, 1280, 5120):
+                summary["mixed_linear"] = row
+            del x, w, bias, out, ref, exact, mag, wide
+    torch.cuda.empty_cache()
+
     # -- 3. demo checkpoint: card and CPU give the same packets ------------
     from janus_tpu_torch.audio.synthetic import render_text, voiced_phrase
     from janus_tpu_torch.common.config import ASRConfig, JanusConfig
@@ -3821,7 +3935,7 @@ def main() -> None:
                for i in range(FLAGSHIP_BATCH)]
     fenc.encode_batch(phrases)  # warm-up: cuBLAS/cuDNN handles, allocator
 
-    kernels = (MEL, FLASH, YIN, CROSS, LNORM, DECODE, INT8)
+    kernels = (MEL, FLASH, YIN, CROSS, LNORM, DECODE, INT8, MIXED)
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()

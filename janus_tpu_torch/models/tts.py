@@ -53,7 +53,6 @@ __all__ = [
     "tts_decode_chunk",
     "ARGraph",
     "ar_graph",
-    "step_tree",
     "prestack_tts",
     "TTSState",
     "audio_pos_base",
@@ -249,37 +248,6 @@ def _forward_embedded(params: Params, cfg: TTSConfig, x: torch.Tensor,
     mel = linear(x, params["mel_head"]["w"], params["mel_head"]["b"])
     stop = linear(x, params["stop_head"]["w"], params["stop_head"]["b"])[..., 0]
     return mel, stop, state
-
-
-def _widened(t):
-    """A bf16 (or fp16) tensor as fp32; anything else as it is (an fp32 or
-    fp64 tensor, a quantized weight)."""
-    if (isinstance(t, torch.Tensor) and t.is_floating_point()
-            and t.dtype != torch.float32
-            and torch.promote_types(t.dtype, torch.float32) == torch.float32):
-        return t.float()
-    return t
-
-
-def step_tree(params: Params) -> Params:
-    """The tree the AR step runs: every weight and bias of a linear that
-    the step multiplies by its fp32 activations (the prenet, each block's
-    attention and MLP, the mel and stop heads), widened once to fp32 where
-    the tree holds it in bf16; the other leaves as they are. ``linear``
-    then runs one fp32 ``addmm`` on the operand values its mixed-dtype
-    branch would widen on every call: bit-equal results, no per-step
-    copy. With fp32 parameters it is the tree itself, leaf for leaf."""
-    def wide(group):
-        return {name: {k: _widened(t) for k, t in lin.items()}
-                for name, lin in group.items()}
-
-    out = dict(params)
-    out["prenet"] = wide(params["prenet"])
-    out["blocks"] = [dict(blk, attn=wide(blk["attn"]), mlp=wide(blk["mlp"]))
-                     for blk in params["blocks"]]
-    for name in ("mel_head", "stop_head"):
-        out[name] = {k: _widened(t) for k, t in params[name].items()}
-    return out
 
 
 def _prompt_embedding(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
@@ -542,15 +510,11 @@ class ARGraph:
         self.n_groups = torch.ones((batch,), dtype=torch.int32, device=device)
         self.steps = 0   # steps taken since the prefill (the host's count)
         self.epoch = 0   # prefills so far
-        # the step's weights widened to fp32 once for the tree (kept by
-        # ``graphs`` for all its holders), not on every step
-        self.step_params = graphs.derived("tts_step_fp32",
-                                          lambda: step_tree(params))
         self.graph = StepGraph(self._step, device,
                                **graphs.capture_args(device))
 
     def _step(self) -> None:
-        nxt, done = _step(self.step_params, self.cfg, TTSState(self.caches),
+        nxt, done = _step(self.params, self.cfg, TTSState(self.caches),
                           self.prev, self.done, self.group,
                           self.stop_threshold,
                           fill=self.group + self.prompt_len)

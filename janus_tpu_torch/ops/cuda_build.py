@@ -81,6 +81,8 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "widths (XLA; no Pallas kernel)"),
     Kernel("int8_linear", "janus_tpu/ops/quant.py:144 linear_int8_dynamic "
            "(XLA int8 dot_general; no Pallas kernel)"),
+    Kernel("mixed_linear", "janus_tpu/ops/layers.py:40 linear, mixed dtypes "
+           "(XLA fuses the convert into the dot; no Pallas kernel)"),
 )}
 
 

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from janus_tpu_torch.ops import cuda_build
+from janus_tpu_torch.ops.mixed_linear import (mixed_linear,
+                                              mixed_linear_plain, mixed_route)
 from janus_tpu_torch.ops.quant import (DynQuantizedWeight, QuantizedWeight,
                                        dequant, linear_int8_dynamic)
 from janus_tpu_torch.parallel.collectives import exit_model, model_size
@@ -43,21 +45,26 @@ def linear(x: torch.Tensor, w,
     ``w`` may be a :class:`~janus_tpu_torch.ops.quant.DynQuantizedWeight`
     (the full int8 path) or a :class:`~janus_tpu_torch.ops.quant.
     QuantizedWeight` (dequantized to ``x.dtype``, then the plain product),
-    as the JAX package's ``linear`` dispatches them."""
+    as the JAX package's ``linear`` dispatches them.
+
+    Operands of two dtypes are promoted as the JAX package promotes them
+    (the activations' dtype wins). fp32 rows against a bf16 weight, as the
+    TTS's AR step multiplies its fp32 mel re-entry through bf16 parameters,
+    take :func:`~janus_tpu_torch.ops.mixed_linear.mixed_linear` where
+    :func:`~janus_tpu_torch.ops.mixed_linear.mixed_route` names the kernel
+    (at most 64 rows): on a CUDA tensor the port's own kernel, which reads
+    the bf16 weight and widens it in registers; otherwise, and on the CPU,
+    the weight is widened per call (``mixed_linear_plain``)."""
     if isinstance(w, DynQuantizedWeight):
         return linear_int8_dynamic(x, w, b)
     if isinstance(w, QuantizedWeight):
         w = dequant(w, x.dtype)
     if w.dtype != x.dtype:
-        # Mixed dtypes, as when the receive side feeds its fp32 mel buffer
-        # through bf16 parameters: the JAX package promotes both operands
-        # for the product, adds the bias in fp32 and returns ``x.dtype``
-        # (the activations' dtype wins, never the weights').
-        ct = torch.promote_types(x.dtype, w.dtype)
-        x2 = x.reshape(-1, x.shape[-1]).to(ct)
-        y = (torch.matmul(x2, w.to(ct)) if b is None
-             else torch.addmm(b.to(ct), x2, w.to(ct)))
-        return y.to(x.dtype).reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
+        rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+        if mixed_route(x.dtype, w.dtype, rows,
+                       w.dim() == 2 and w.stride(-1) == 1) == "kernel":
+            return mixed_linear(x, w, b)
+        return mixed_linear_plain(x, w, b)
     if b is None:
         return torch.matmul(x, w)
     # Cast-back point: the JAX package keeps the product in fp32, adds the

@@ -19,9 +19,9 @@ counterpart of this module: ``jit`` plays its role there.
   synthesizer) by key, with one memory pool, one capture stream and one
   lock, for one parameter tree at a time: a graph holds its weights'
   addresses, so a call with another tree (any leaf replaced) drops the old
-  graphs and captures anew. What the steps derive from the tree once (the
-  TTS step's fp32 copy of its bf16 weights, the recognizer head's fp32
-  table: :meth:`StepGraphs.derived`) is kept beside it, for all holders.
+  graphs and captures anew. What a step derives from the tree once (the
+  recognizer head's fp32 table: :meth:`StepGraphs.derived`) is kept
+  beside it, for all holders.
 - Lifetime: a holder owns its :class:`StepGraph`, which holds the
   holder's step method weakly, so dropping a holder frees its graph, its
   pool's blocks and its buffers at once, not whenever the cyclic collector

@@ -452,6 +452,173 @@ def test_int8_linear_raises_on_what_it_cannot_take(dev):
         int8_linear(x, DynQuantizedWeight(qw.q.cpu(), qw.scale), b)
 
 
+# -- the mixed-dtype linear (fp32 rows against bf16 weights) ---------------
+
+def _mixed_case(dev, m, k, n, bias="bfloat16", seed=0):
+    """fp32 rows, a bf16 weight [k, n] and a bias (bf16, fp32 or none)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 2 * torch.randn((m, k), generator=g, device=dev)
+    w = (0.05 * torch.randn((k, n), generator=g, device=dev)).to(
+        torch.bfloat16)
+    b = None if bias is None else (0.1 * torch.randn(
+        n, generator=g, device=dev)).to(getattr(torch, bias))
+    return x, w, b
+
+
+def _mixed_bar(x, w, b, scale=1e-5):
+    """``scale * (sum_k |x_k w_kn| + |b_n|)`` elementwise, in float64."""
+    mag = x.double().abs() @ w.double().abs()
+    if b is not None:
+        mag = mag + b.double().abs()
+    return scale * mag
+
+
+# the AR step's linears at flagship width (d 1280, r mels 320): the
+# prenet, q/k/v/out, fc1, fc2, the mel and the stop heads
+_MIXED_SHAPES = [(320, 1280), (1280, 1280), (1280, 5120), (5120, 1280),
+                 (1280, 320), (1280, 1)]
+
+
+@pytest.mark.parametrize("bias", ["bfloat16", "float32", None])
+@pytest.mark.parametrize("m", [1, 8, 16, 64])
+@pytest.mark.parametrize("k,n", _MIXED_SHAPES)
+def test_mixed_linear_holds_the_bar_of_plain(dev, k, n, m, bias):
+    """Within 1e-5 (sum |x w| + |b|) of the plain version elementwise; the
+    kernel's largest error against a float64 product within 2x the plain
+    version's (where there are 256 outputs or more: the largest of a few
+    is one draw); two launches bit-equal."""
+    from janus_tpu_torch.ops.mixed_linear import (KERNEL, mixed_linear,
+                                                  mixed_linear_plain)
+
+    x, w, b = _mixed_case(dev, m, k, n, bias, seed=k + n + m)
+    before = KERNEL.launches
+    y = mixed_linear(x, w, b)
+    assert KERNEL.launches == before + 1
+    ref = mixed_linear_plain(x, w, b)
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    assert bool(((y - ref).double().abs() <= _mixed_bar(x, w, b)).all())
+    exact = x.double() @ w.double()
+    if b is not None:
+        exact = exact + b.double()
+    err = float((y.double() - exact).abs().max())
+    plain_err = float((ref.double() - exact).abs().max())
+    assert m * n < 256 or err <= 2 * plain_err, (err, plain_err)
+    assert torch.equal(y, mixed_linear(x, w, b))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 100, 72), (5, 1280, 100),
+                                   (3, 96, 1), (64, 200, 136),
+                                   (9, 1280, 1280), (33, 320, 320)])
+def test_mixed_linear_plans_and_edges(dev, m, k, n):
+    """Every split plan and row grouping; N not a multiple of 8 (a value
+    at a time) and K not one; ragged column tiles; rows that are a
+    misaligned view; a weight that is a column slice of a wider one (its
+    rows further apart)."""
+    from janus_tpu_torch.ops.mixed_linear import (_launch,
+                                                  mixed_linear_plain,
+                                                  vector_loads)
+
+    x, w, b = _mixed_case(dev, m, k, n, seed=m * k)
+    ref = mixed_linear_plain(x, w, b)
+    bar = _mixed_bar(x, w, b)
+    for splits in (1, 2, 4, 8):
+        if splits <= -(-k // 8):
+            y = _launch(x, w, b, splits=splits)
+            assert bool(((y - ref).double().abs() <= bar).all()), splits
+    for rows in (1, 2, 4, 8):
+        if 8 * rows >= m:
+            y = _launch(x, w, b, rows=rows)
+            assert bool(((y - ref).double().abs() <= bar).all()), rows
+    # rows one fp32 value into a buffer
+    buf = torch.empty(m * k + 1, device=dev)
+    view = buf[1:].view(m, k)
+    view.copy_(x)
+    assert view.data_ptr() % 16
+    assert torch.equal(_launch(view, w, b), _launch(x, w, b))
+    # the weight's columns inside a wider row
+    wide = torch.zeros((k, n + 24), dtype=torch.bfloat16, device=dev)
+    wide[:, 8:8 + n] = w
+    part = wide[:, 8:8 + n]
+    assert vector_loads(n, part.stride(0), part.data_ptr()) == (n % 8 == 0)
+    assert torch.equal(_launch(x, part, b), _launch(x, w.contiguous(), b))
+
+
+def test_mixed_linear_replays_from_a_graph(dev):
+    """A captured call replays bit-equal to an eager launch on new inputs
+    (nothing to reset between calls)."""
+    from janus_tpu_torch.ops.mixed_linear import mixed_linear
+
+    x, w, b = _mixed_case(dev, 8, 5120, 1280)
+    xs = x.clone()
+    y = mixed_linear(xs, w, b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = mixed_linear(xs, w, b)
+    for seed in range(3):
+        g = torch.Generator(device=dev).manual_seed(200 + seed)
+        xs.copy_(torch.randn(xs.shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, mixed_linear(xs.clone(), w, b))
+
+
+def test_mixed_linear_gradient_is_the_plain_one(dev):
+    from janus_tpu_torch.ops.mixed_linear import (mixed_linear,
+                                                  mixed_linear_plain)
+
+    x, w, b = _mixed_case(dev, 4, 256, 128, seed=7)
+    g = torch.randn((4, 128), device=dev)
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        return torch.autograd.grad(fn(*ins), ins, g)
+
+    for a, c in zip(grads(mixed_linear), grads(mixed_linear_plain)):
+        assert torch.equal(a, c)
+
+
+def test_mixed_linear_raises_on_what_it_cannot_take(dev):
+    """No fallback: a CPU tensor, more than 64 rows, other dtypes, a weight
+    whose N is not contiguous, a bias of another type raise; ``linear``
+    routes above 64 rows to the per-call widening instead."""
+    from janus_tpu_torch.ops.layers import linear
+    from janus_tpu_torch.ops.mixed_linear import (KERNEL, _launch,
+                                                  mixed_linear_plain)
+
+    x, w, b = _mixed_case(dev, 8, 256, 128)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        _launch(x.cpu(), w.cpu(), b.cpu())
+    with pytest.raises(ValueError):
+        _launch(torch.zeros((65, 256), device=dev), w, b)
+    with pytest.raises(TypeError):
+        _launch(x.bfloat16(), w, b)
+    with pytest.raises(TypeError):
+        _launch(x, w.half(), b)
+    with pytest.raises(ValueError):
+        _launch(x[:, :128], w.t().contiguous().t()[:128], b)
+    with pytest.raises(TypeError):
+        _launch(x, w, b.half())
+    with pytest.raises(ValueError):
+        _launch(x, w.cpu(), b)
+    many = torch.randn((65, 256), device=dev)
+    before = KERNEL.launches
+    assert torch.equal(linear(many, w, b), mixed_linear_plain(many, w, b))
+    assert KERNEL.launches == before
+
+
+def test_mixed_linear_records_its_least_work(dev):
+    from janus_tpu_torch.ops.mixed_linear import KERNEL, mixed_linear
+
+    x, w, b = _mixed_case(dev, 8, 1280, 320)
+    before = (KERNEL.launches, KERNEL.flops, KERNEL.bytes)
+    mixed_linear(x, w, b)
+    assert (KERNEL.launches - before[0], KERNEL.flops - before[1],
+            KERNEL.bytes - before[2]) == (
+        1, 2.0 * 8 * 1280 * 320 + 8 * 320,
+        4 * 8 * 1280 + 2 * 1280 * 320 + 4 * 8 * 320 + 2 * 320)
+
+
 # -- the receive side: plain PyTorch on the card against the CPU ------------
 
 @pytest.mark.parametrize("n_fft,hop", [(1024, 256), (640, 160), (400, 160)])
@@ -1377,5 +1544,8 @@ def test_decode_steps_launch_the_new_kernels_in_their_graphs(dev):
                         eager=True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     counts = {k.name: n[0] for k, n in tgraphs.graphs()[0].counts.items()}
+    # and the mixed-dtype linear: the prenet's two, six a layer, the mel
+    # and stop heads
     assert counts == {"layer_norm": 2 * tcfg.layers + 1,
-                      "decode_attn": tcfg.layers}
+                      "decode_attn": tcfg.layers,
+                      "mixed_linear": 6 * tcfg.layers + 4}

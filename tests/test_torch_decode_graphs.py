@@ -372,8 +372,7 @@ def test_fused_tts_blocks_equal_the_unfused_pairs(tts_tree, monkeypatch):
     from janus_tpu_torch.models.params import cast_floating
 
     cfg = TTSConfig(**TTS_KW, dtype="bfloat16")
-    params = t_tts.step_tree(cast_floating(params_from_jax(tts_tree),
-                                           torch.bfloat16))
+    params = cast_floating(params_from_jax(tts_tree), torch.bfloat16)
     text, emo, spk = _prompt(2, seed=4)
 
     def run():

@@ -1,13 +1,13 @@
-"""What the CPU can hold of the decode steps' two kernels and the weights
+"""What the CPU can hold of the decode steps' two kernels and the head
 widened once: the plain layer norm (alone and after the residual add it
 takes in) and the plain decode attention (alone and writing the step's new
 rows into the cache) against the JAX package at the steps' shapes (fp32,
 bf16, fp32 activations over bf16 parameters and caches, a device fill
 position, stale slots past the fill), the fused calls bit-equal to the
 port's unfused sequences, numpy emulations of each kernel's order of sums
-and split plan against the plain versions, the route function, and the TTS
-step's once-widened tree and the recognizer's once-widened head against
-the per-call casts, bit for bit. The kernels run only on the card
+and split plan against the plain versions, the route function, and the
+recognizer's once-widened head against the per-call cast, bit for bit.
+The kernels run only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import jax.numpy as jnp
@@ -638,81 +638,7 @@ def test_split_ranges_cover_the_keys_read_once(n_read, splits):
     assert max(hi - lo for lo, hi in ranges) == -(-n_read // splits)
 
 
-# -- (e) weights widened once ----------------------------------------------
-
-def _tts(dtype="bfloat16"):
-    from janus_tpu_torch.common.config import TTSConfig
-    from janus_tpu_torch.models.params import cast_floating
-    from janus_tpu_torch.models.tts import init_tts
-
-    cfg = TTSConfig(d_model=64, layers=2, num_heads=4, n_mels=16,
-                    reduction=2, max_text_tokens=32, max_mel_frames=48,
-                    dtype=dtype)
-    params = cast_floating(init_tts(torch.Generator().manual_seed(0), cfg),
-                           torch.bfloat16)
-    return cfg, params
-
-
-def test_step_tree_widens_only_the_steps_linears():
-    from janus_tpu_torch.models.tts import step_tree
-
-    cfg, params = _tts()
-    wide = step_tree(params)
-    blk, wblk = params["blocks"][0], wide["blocks"][0]
-    for name in ("q", "k", "v", "out"):
-        for key, t in blk["attn"][name].items():
-            assert wblk["attn"][name][key].dtype == torch.float32
-            assert torch.equal(wblk["attn"][name][key], t.float())
-    assert wide["mel_head"]["w"].dtype == torch.float32
-    assert wide["prenet"]["fc1"]["w"].dtype == torch.float32
-    # the layer norms, the embeddings and the position table are shared
-    assert wblk["attn_ln"]["scale"] is blk["attn_ln"]["scale"]
-    assert wide["pos_emb"] is params["pos_emb"]
-    assert params["blocks"][0]["attn"]["q"]["w"].dtype == torch.bfloat16
-    # fp32 parameters: the same leaves
-    fp32 = {"prenet": {"fc1": {"w": torch.ones(2, 2)}}, "blocks": [],
-            "mel_head": {"w": torch.ones(2)}, "stop_head": {}}
-    assert step_tree(fp32)["prenet"]["fc1"]["w"] is fp32["prenet"]["fc1"]["w"]
-
-
-@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
-def test_widened_tts_step_is_bit_equal_to_the_per_call_cast(cache_dtype):
-    """The AR step over the once-widened tree against the step over the
-    bf16 tree (whose linears widen every weight per call): the same groups,
-    flags and caches bit for bit, eagerly and through the holder's step."""
-    from janus_tpu_torch.models import tts
-    from janus_tpu_torch.runtime.step_graph import StepGraphs
-
-    cfg, params = _tts(cache_dtype)
-    rng = np.random.default_rng(2)
-    text = torch.from_numpy(rng.integers(0, 256, (3, 8)))
-    emo = torch.tensor([1, 4, 0])
-    first, done, s1 = tts.tts_prefill(params, cfg, text, emo, max_groups=6,
-                                      stop_threshold=2.0, eager=True)
-    _, _, s2 = tts.tts_prefill(params, cfg, text, emo, max_groups=6,
-                               stop_threshold=2.0, eager=True)
-    wide = tts.step_tree(params)
-    a = b = first.float()
-    for g in range(5):
-        a, da = tts._step(params, cfg, s1, a, done, g, 2.0)
-        b, db = tts._step(wide, cfg, s2, b, done, g, 2.0)
-        assert torch.equal(a, b) and torch.equal(da, db)
-    for c1, c2 in zip(s1.caches, s2.caches):
-        assert torch.equal(c1.k, c2.k) and torch.equal(c1.v, c2.v)
-    # the holder takes the widened tree once (StepGraphs keeps it for the
-    # tree) and its step equals the eager loop
-    graphs = StepGraphs()
-    eager = tts.tts_generate(params, cfg, text, emo, max_groups=6,
-                             stop_threshold=2.0, eager=True)
-    graphed = tts._generate_graphed(params, cfg, text, emo, None, 6, 261,
-                                    2.0, graphs)
-    assert torch.equal(graphed[0], eager[0])
-    assert torch.equal(graphed[1], eager[1])
-    holder = next(iter(graphs._holders.values()))
-    assert holder.step_params is graphs.derived("tts_step_fp32", None)
-    assert holder.step_params["blocks"][0]["mlp"]["fc1"]["w"].dtype == \
-        torch.float32
-
+# -- (e) the recognizer head widened once ----------------------------------
 
 def test_recognizer_head_widened_once_is_bit_equal():
     """The captured greedy step's fp32 head, made once for the tree, gives
