@@ -31,7 +31,14 @@ printing one JSON line per result:
    the row-major weight, padded to 17 rows below that, and the rescale)
    and ``torch._int_mm`` alone on either layout (``int_mm_ms``), each
    kernel of a call traced (``device_us``: two, the quantization and a
-   product);
+   product); the mixed linear (the port's own kernel) at every shape of
+   the AR step within 1e-5 (sum |x w| + |b|) of its plain version, warm
+   and cold, beside ``addmm`` over a widened weight, its launches over
+   several weights (q/k/v, the two heads) and fc1 with the GELU in its
+   epilogue beside the separate launches they replace, each programmatic
+   and not after the kernel before it in the step (``pdl_ms``,
+   ``no_pdl_ms``), and a weight written just before a programmatic call
+   read as a synchronised call reads it;
 3. demo    — the committed demo recognizer through ``SemanticEncoder`` on
    the card and on the CPU: the packets must be byte-equal; then the same
    under the int8 configuration (``quantize_tree`` weights in each mode,
@@ -79,9 +86,10 @@ printing one JSON line per result:
    the AR loop replayed from its graph and eagerly in turns (PCM equal
    bit for bit), stage times, one traced AR step of each, prefill + 4
    groups against the CPU, the captured AR step's launches (61 layer
-   norms, 30 decode attentions; at most 420 kernels, no float add, no
-   ``index_copy_`` but the holder's two output writes) and the size of its
-   once-widened weights;
+   norms, 30 decode attentions, 123 mixed linears: q/k/v and the two heads
+   one launch each, fc1's GELU in its epilogue; at most 260 kernels, no
+   float add, no GELU kernel, no ``index_copy_`` but the holder's two
+   output writes) and the size of its once-widened weights;
 8. receive_stream — ``StreamingSynthesizer`` at that width, replayed and
    eager: seconds to first audio and in all, the two streams equal, and
    the stream against the fused path;
@@ -299,16 +307,28 @@ def profile_step(torch, step, steps: int = 3) -> dict:
     graph_launches = sum(1 for e in events if e.device_type == DeviceType.CPU
                          and e.name.startswith("cudaGraphLaunch"))
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    # the union of the kernels' intervals: programmatic launches overlap
+    # the kernel before them, which a sum of their times counts twice
+    span_us, reach = 0.0, None
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        start, end = e.time_range.start, e.time_range.end
+        if reach is None or start > reach:
+            span_us, reach = span_us + end - start, end
+        elif end > reach:
+            span_us, reach = span_us + end - reach, end
     return {"wall_ms": wall_ms, "wall_ms_all": walls,
             "device_events": len(device),
             "float_adds": sum(1 for e in device if FLOAT_ADD.search(e.name)),
+            "gelu_kernels": sum(1 for e in device
+                                if "gelu" in e.name.lower()),
             "index_copies": sum(1 for e in device
                                 if "index_copy" in e.name),
             "host_kernel_launches": launches,
             "host_graph_launches": graph_launches,
             "host_calls": launches + graph_launches,
             "device_busy_ms": busy_ms if device else None,
-            "device_idle_share": (max(0.0, 1.0 - busy_ms / wall_ms)
+            "device_span_ms": span_us / 1e3 if device else None,
+            "device_idle_share": (max(0.0, 1.0 - span_us / 1e3 / wall_ms)
                                   if device else None),
             "by_op": by_op(device)}
 
@@ -867,13 +887,14 @@ def receive_flagship(torch, dev):
     out["graph"] = graph_stats(graphs)
     # every replayed AR step: 2 layer norms a layer and the final one, the
     # self-attention of each layer, and every linear through the mixed
-    # kernel (the prenet's two, six a layer, the mel and stop heads) over
-    # the bf16 tree itself: the graphs derive no copy of it
+    # kernel over the bf16 tree itself (the graphs derive no copy of it):
+    # the prenet's two (fc1 with its GELU), q/k/v in one launch, out, fc1
+    # with its GELU and fc2 a layer, the mel and stop heads in one
     ar_counts = [{k.name: n[0] for k, n in g.counts.items()}
                  for g in graphs.graphs()]
     check(ar_counts and all(c == {"layer_norm": 2 * tcfg.layers + 1,
                                   "decode_attn": tcfg.layers,
-                                  "mixed_linear": 6 * tcfg.layers + 4}
+                                  "mixed_linear": 4 * tcfg.layers + 3}
                             for c in ar_counts),
           f"receive_flagship: the captured AR steps launch {ar_counts}")
     out["captured_step_launches"] = ar_counts[0]
@@ -883,16 +904,19 @@ def receive_flagship(torch, dev):
     check(out["tts_derived_gib"] == 0, f"receive_flagship: the graphs hold "
           f"{out['tts_derived_gib']} GiB derived from the TTS tree")
     trace8 = out["batches"][str(RECEIVE_BATCHES[0])]["ar_step_trace_graph"]
-    # the captured AR step: at most 420 kernels (566 before the residual
-    # adds went into the norms and the cache writes into the attention),
-    # no add over floating values, and no index_copy_ but the holder's two
-    # output writes
+    # the captured AR step: at most 260 kernels (566 before the residual
+    # adds went into the norms and the cache writes into the attention,
+    # 320 before q/k/v and the heads shared launches and fc1 took its
+    # GELU), no add over floating values, no GELU kernel, and no
+    # index_copy_ but the holder's two output writes
     check(trace8["device_events"] is None
-          or (trace8["device_events"] <= 420 and trace8["float_adds"] == 0
+          or (trace8["device_events"] <= 260 and trace8["float_adds"] == 0
+              and trace8["gelu_kernels"] == 0
               and trace8["index_copies"] <= 2),
           f"receive_flagship: the replayed AR step ran "
           f"{trace8['device_events']} kernels, {trace8['float_adds']} float "
-          f"adds, {trace8['index_copies']} index copies")
+          f"adds, {trace8['gelu_kernels']} GELU kernels, "
+          f"{trace8['index_copies']} index copies")
     out["nvidia_smi"] = nvidia_smi_line()
     emit(out)
     return tcfg, vcfg, tts_params, voc_params
@@ -3782,13 +3806,47 @@ def main() -> None:
     # step multiplies them. Each within 1e-5 (sum |x w| + |b|) of the plain
     # version; the yardstick is one torch.addmm over a copy of the weight
     # widened before timing (the path the step took before the kernel)
+    from janus_tpu_torch.ops.layers import layer_norm_fused
     from janus_tpu_torch.ops.mixed_linear import KERNEL as MIXED
     from janus_tpu_torch.ops.mixed_linear import _launch as mx_launch
     from janus_tpu_torch.ops.mixed_linear import _sm_count as mx_sms
-    from janus_tpu_torch.ops.mixed_linear import (mixed_linear,
+    from janus_tpu_torch.ops.mixed_linear import (_launch_group,
+                                                  mixed_linear,
+                                                  mixed_linear_group,
                                                   mixed_linear_plain,
+                                                  plan_group, use_pdl,
                                                   vector_loads)
     from janus_tpu_torch.ops.mixed_linear import plan_splits as mx_splits
+
+    def mx_chain(m, k, members, gelu=False):
+        """The call after the kernel that precedes it in the step (a
+        layer norm of the rows; for fc2's K of 5120, fc1 with its GELU),
+        both in one graph, launched programmatically and not: the
+        chain's ms, and the preceding kernel's alone."""
+        src = torch.randn((m, 1280 if k == 5120 else k), generator=gen,
+                          device=dev)
+        scale = torch.ones(src.shape[1], device=dev).to(bf)
+        shift = torch.zeros(src.shape[1], device=dev).to(bf)
+        w1 = (0.02 * torch.randn((1280, 5120), generator=gen,
+                                 device=dev)).to(bf)
+
+        def before(pdl):
+            h = layer_norm_fused(src, scale, shift)
+            if k == 5120:
+                h = mx_launch(h, w1, None, gelu=True, pdl=pdl)
+            return h
+
+        def chain(pdl):
+            return _launch_group(before(pdl), members, gelu=gelu, pdl=pdl)
+
+        out = {"pdl": use_pdl(m),
+               "pdl_ms": graph_ms(lambda: chain(True), iters=50),
+               "no_pdl_ms": graph_ms(lambda: chain(False), iters=50),
+               "before_ms": graph_ms(lambda: before(True), iters=50)}
+        check(all(torch.equal(a, c) for a, c in zip(chain(True),
+                                                    chain(False))),
+              f"mixed_linear {m}x{k}: the programmatic chain differs")
+        return out
 
     mx_shapes = ((320, 1280), (1280, 1280), (1280, 5120), (5120, 1280),
                  (1280, 320), (1280, 1))
@@ -3846,6 +3904,7 @@ def main() -> None:
             if m in (FLAGSHIP_BATCH, 1):
                 row["splits_ms"] = {s_: graph_ms(lambda: mx_launch(
                     x, w, bias, splits=s_), iters=50) for s_ in (1, 2, 4, 8)}
+            row.update(mx_chain(m, k, [(w, bias)]))
             emit(row)
             check(tol_ratio <= 1.0, f"mixed_linear {m}x{k}x{n}: outside "
                   f"1e-5 (sum |x w| + |b|) of plain ({tol_ratio})")
@@ -3855,6 +3914,124 @@ def main() -> None:
                 summary["mixed_linear"] = row
             del x, w, bias, out, ref, exact, mag, wide
     torch.cuda.empty_cache()
+
+    # the step's launches over several weights (q/k/v, k without a bias;
+    # the mel and stop heads, 16-byte and value-at-a-time tiles in one
+    # launch) and fc1 with the GELU in its epilogue, at b = 8 and 1: each
+    # output within 1e-5 (sum |x w| + |b|) of its plain version; beside
+    # them the separate launches they replace (the members one a launch;
+    # fc1, then PyTorch's GELU), the plain versions, and the library's
+    # separate addmm calls over widened weights (and its GELU)
+    mx_groups = {"qkv": [(1280, True), (1280, False), (1280, True)],
+                 "heads": [(320, True), (1, True)], "fc1_gelu": [(5120, True)]}
+    for m in (FLAGSHIP_BATCH, 1):
+        for name, spec in mx_groups.items():
+            k, gelu = 1280, name == "fc1_gelu"
+            x = 2 * torch.randn((m, k), generator=gen, device=dev)
+            members = [((0.02 * torch.randn((k, n), generator=gen,
+                                            device=dev)).to(bf),
+                        (0.1 * torch.randn(n, generator=gen,
+                                           device=dev)).to(bf) if has_b
+                        else None) for n, has_b in spec]
+            wides = [(w.float(), None if b is None else b.float())
+                     for w, b in members]
+
+            def launch():
+                return _launch_group(x, members, gelu=gelu)
+
+            def separate():
+                if gelu:
+                    w, b = members[0]
+                    return [torch.nn.functional.gelu(mixed_linear(x, w, b))]
+                return [mixed_linear(x, w, b) for w, b in members]
+
+            def plain():
+                return [mixed_linear_plain(x, w, b, gelu) for w, b in members]
+
+            def library():
+                ys = [torch.mm(x, w) if b is None else torch.addmm(b, x, w)
+                      for w, b in wides]
+                return ([torch.nn.functional.gelu(y) for y in ys] if gelu
+                        else ys)
+
+            outs = (mixed_linear_group(x, members) if not gelu
+                    else [mixed_linear(x, *members[0], gelu=True)])
+            refs = plain()
+            torch.cuda.synchronize()
+            ratio = 0.0
+            for y, r, (w, b) in zip(outs, refs, members):
+                mag = x.double().abs() @ w.double().abs()
+                if b is not None:
+                    mag = mag + b.double().abs()
+                ratio = max(ratio, float(((y.double() - r.double()).abs()
+                                          / (1e-5 * mag)).max()))
+            ns = [w.shape[1] for w, _ in members]
+            plan = plan_group(m, k, ns, mx_sms(dev))
+            nbytes = 4 * m * k + sum(2 * k * n + 4 * m * n
+                                     + (0 if b is None else 2 * n)
+                                     for (w, b), n in zip(members, ns))
+            b_ms, b_by = bound_ms(sum(2.0 * m * k * n for n in ns),
+                                  PEAK_FP32, nbytes)
+            row = {"phase": "kernel", "name": "mixed_linear", "group": name,
+                   "m": m, "k": k, "n": ns, "gelu": gelu,
+                   "tiles": plan.tiles, "splits": plan.splits,
+                   "bar": "1e-5 (sum |x w| + |b|)", "tol_ratio": ratio,
+                   "max_err": max(max_abs(y, r) for y, r in zip(outs, refs)),
+                   "kernel_ms": graph_ms(launch, iters=50),
+                   "separate_ms": graph_ms(separate, iters=50),
+                   "eager_ms": time_ms(launch, iters=50),
+                   "host_us": wrapper_us(launch),
+                   "plain_ms": graph_ms(plain),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": graph_ms(library, iters=50)}
+            copies = [[(w.clone(), b) for w, b in members]
+                      for _ in range(min(64, 1 + int(64e6 // (
+                          2 * k * sum(ns)))))]
+
+            def cold():
+                for mem in copies:
+                    _launch_group(x, mem, gelu=gelu)
+
+            row["cold_ms"] = graph_ms(cold, iters=2) / len(copies)
+            del copies
+            row["splits_ms"] = {s_: graph_ms(lambda: _launch_group(
+                x, members, splits=s_, gelu=gelu), iters=50)
+                for s_ in (1, 2, 4, 8)}
+            row.update(mx_chain(m, k, members, gelu))
+            emit(row)
+            check(ratio <= 1.0, f"mixed_linear {name} m={m}: outside 1e-5 "
+                  f"(sum |x w| + |b|) of plain ({ratio})")
+            check(all(torch.equal(a, c) for a, c in zip(outs, launch())),
+                  f"mixed_linear {name} m={m}: two launches differ")
+            del x, members, wides, outs, refs
+    torch.cuda.empty_cache()
+
+    # a weight that the layer norm writes just before a programmatic call
+    # (the norm lets its dependents start once its rows are read; the call
+    # asks the L2 cache for the weight before its wait): bit-equal to the
+    # call made after a synchronize, each round's weight where the last
+    # one lay
+    x = 2 * torch.randn((FLAGSHIP_BATCH, 1280), generator=gen, device=dev)
+    scale = (0.05 * torch.randn(1280, generator=gen, device=dev)).to(bf)
+    shift = (0.01 * torch.randn(1280, generator=gen, device=dev)).to(bf)
+    srcs = [torch.randn((1280, 1280), generator=gen, device=dev).to(bf)
+            for _ in range(8)]
+    got = []
+    for src in srcs:
+        w = layer_norm_fused(src, scale, shift)
+        got.append(mx_launch(x, w, None, pdl=True))
+        del w
+    torch.cuda.synchronize()
+    same = []
+    for src, y in zip(srcs, got):
+        w = layer_norm_fused(src, scale, shift)
+        torch.cuda.synchronize()
+        same.append(torch.equal(y, mx_launch(x, w, None, pdl=False)))
+    emit({"phase": "kernel", "name": "mixed_linear",
+          "weight_written_just_before": same})
+    check(all(same), f"mixed_linear: a weight written just before the "
+          f"programmatic call was read stale ({same})")
+    del x, srcs, got
 
     # -- 3. demo checkpoint: card and CPU give the same packets ------------
     from janus_tpu_torch.audio.synthetic import render_text, voiced_phrase

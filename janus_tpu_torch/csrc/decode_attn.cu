@@ -202,6 +202,12 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
+// programmatic dependent launch: the next kernel of the stream may start
+// (one launched programmatically, the mixed linear of the TTS step's out
+// projection, waits for this one before its first read)
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 // the shared memory this thread's generic loads read is free for the TMA
 // unit's writes
 __device__ __forceinline__ void proxy_fence() {
@@ -239,6 +245,8 @@ decode_attn_kernel(const TQ* __restrict__ q, TKV* k, TKV* v,
   // a slot's rows have landed (one phase a fill)
   __shared__ __align__(8) unsigned long long bar[STAGES];
 
+  // the next kernel may start: it waits for this one before its first read
+  launch_dependents();
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid % G;           // chunk of the row: values c*E .. + E - 1

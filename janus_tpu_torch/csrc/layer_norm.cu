@@ -49,6 +49,15 @@
 // after. The residual's delta joins x's chunked loads (16 bytes, or 8 where
 // bf16 delta meets fp32 x) in the same unrolled loop, so that both are in
 // flight together, and r leaves in x's 16-byte chunks.
+//
+// A block lets the next kernel of the stream start as soon as it starts
+// (griddepcontrol.launch_dependents): a kernel launched programmatically
+// after the norm (the mixed linear, the int8 linear's quantization) then
+// runs its prologue, and asks the L2 cache for its weight, while the norm
+// runs; it waits for the norm's end before it reads or writes anything
+// (csrc/mixed_linear.cu has the measurement: the trigger placed after the
+// row was read came too late to hide anything). A kernel launched the
+// ordinary way is not affected.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +67,12 @@
 namespace {
 
 constexpr int WARP_ROWS = 4;      // rows (warps) per block, warp mode
+
+// programmatic dependent launch: the next kernel of the stream may start
+// (one launched programmatically waits for this one before its first read)
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 constexpr int WIDE_THREADS = 256;  // threads per row, block mode
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -119,6 +134,8 @@ layer_norm_kernel(const TX* __restrict__ x, const TP* __restrict__ scale,
                   TX* __restrict__ r_out, int rows, int d, float inv_d,
                   float eps) {
   __shared__ float red[TPR / 32];
+  // the next kernel may start: it waits for this one before its first read
+  launch_dependents();
   const int lane = TPR == 32 ? (threadIdx.x & 31) : threadIdx.x;
   const long long row =
       TPR == 32 ? (long long)blockIdx.x * WARP_ROWS + (threadIdx.x >> 5)

@@ -36,7 +36,8 @@ from janus_tpu_torch.models.params import (_init_attn, _init_ln, _init_mlp,
 from janus_tpu_torch.ops.attention import KVCache, merge_heads, split_heads
 from janus_tpu_torch.ops.decode_attention import attend_cache
 from janus_tpu_torch.ops.layers import (add_layer_norm, embedding_lookup,
-                                        gelu, linear, row_linear)
+                                        linear, linear_gelu, linear_group,
+                                        row_linear)
 from janus_tpu_torch.parallel.collectives import enter_model, local_heads
 from janus_tpu_torch.runtime.step_graph import (DONE_CHECK_EVERY, StepGraph,
                                                 StepGraphs, default_graphs,
@@ -130,7 +131,7 @@ def prestack_tts(params: Params) -> Params:
 def _embed_mel(params: Params, mel_groups: torch.Tensor) -> torch.Tensor:
     """``[..., S, r*n_mels] -> [..., S, d]`` prenet."""
     p = params["prenet"]
-    h = gelu(linear(mel_groups, p["fc1"]["w"], p["fc1"]["b"]))
+    h = linear_gelu(mel_groups, p["fc1"]["w"], p["fc1"]["b"])
     return linear(h, p["fc2"]["w"], p["fc2"]["b"])
 
 
@@ -146,20 +147,22 @@ def _block(blk: Params, x: torch.Tensor, delta: torch.Tensor,
     ``(x, delta)`` with the MLP's output pending. The attention writes the
     step's K/V and sees the caches' causal mask at the fill point (the
     decode kernel on the card for a step, ``attend`` for a wide
-    prompt)."""
+    prompt). q, k and v read the same rows: one launch of the mixed
+    kernel where it takes them (:func:`~..ops.layers.linear_group`), and
+    fc1's GELU in its epilogue (:func:`~..ops.layers.linear_gelu`)."""
     x, h = add_layer_norm(x, delta, **blk["attn_ln"])
     h = enter_model(h)
     p = blk["attn"]
     heads = local_heads(num_heads, p["q"]["w"])
-    q = split_heads(linear(h, p["q"]["w"], p["q"]["b"]), heads)
-    k = split_heads(linear(h, p["k"]["w"], p["k"].get("b")), heads)
-    v = split_heads(linear(h, p["v"]["w"], p["v"]["b"]), heads)
+    q, k, v = (split_heads(t, heads) for t in linear_group(
+        h, [(p["q"]["w"], p["q"]["b"]), (p["k"]["w"], p["k"].get("b")),
+            (p["v"]["w"], p["v"]["b"])]))
     x, h = add_layer_norm(x, row_linear(
         merge_heads(attend_cache(q, cache, k, v, fill)), p["out"]["w"],
         p["out"]["b"]), **blk["mlp_ln"])
     h = enter_model(h)
-    return x, row_linear(gelu(linear(h, blk["mlp"]["fc1"]["w"],
-                                     blk["mlp"]["fc1"]["b"])),
+    return x, row_linear(linear_gelu(h, blk["mlp"]["fc1"]["w"],
+                                     blk["mlp"]["fc1"]["b"]),
                          blk["mlp"]["fc2"]["w"], blk["mlp"]["fc2"]["b"])
 
 
@@ -245,9 +248,12 @@ def _forward_embedded(params: Params, cfg: TTSConfig, x: torch.Tensor,
     for blk, cache in zip(params["blocks"], state.caches):
         x, delta = _block(blk, x, delta, cfg.num_heads, cache, fill)
     _, x = add_layer_norm(x, delta, **params["ln"])
-    mel = linear(x, params["mel_head"]["w"], params["mel_head"]["b"])
-    stop = linear(x, params["stop_head"]["w"], params["stop_head"]["b"])[..., 0]
-    return mel, stop, state
+    # the two heads read the same rows: one launch where the kernel takes
+    # them
+    mel, stop = linear_group(x, [
+        (params["mel_head"]["w"], params["mel_head"]["b"]),
+        (params["stop_head"]["w"], params["stop_head"]["b"])])
+    return mel, stop[..., 0], state
 
 
 def _prompt_embedding(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,

@@ -10,7 +10,7 @@ gradient is the plain body's."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from janus_tpu_torch.ops import cuda_build
 from janus_tpu_torch.ops.mixed_linear import (mixed_linear,
+                                              mixed_linear_group,
                                               mixed_linear_plain, mixed_route)
 from janus_tpu_torch.ops.quant import (DynQuantizedWeight, QuantizedWeight,
                                        dequant, linear_int8_dynamic)
@@ -25,6 +26,8 @@ from janus_tpu_torch.parallel.collectives import exit_model, model_size
 
 __all__ = [
     "linear",
+    "linear_gelu",
+    "linear_group",
     "row_linear",
     "layer_norm",
     "layer_norm_plain",
@@ -60,9 +63,7 @@ def linear(x: torch.Tensor, w,
     if isinstance(w, QuantizedWeight):
         w = dequant(w, x.dtype)
     if w.dtype != x.dtype:
-        rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
-        if mixed_route(x.dtype, w.dtype, rows,
-                       w.dim() == 2 and w.stride(-1) == 1) == "kernel":
+        if _mixed_kernel(x, w):
             return mixed_linear(x, w, b)
         return mixed_linear_plain(x, w, b)
     if b is None:
@@ -74,6 +75,40 @@ def linear(x: torch.Tensor, w,
     # cast to the compute dtype, so ``b.to(x.dtype)`` loses nothing.
     y = torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
     return y.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+def _mixed_kernel(x: torch.Tensor, w) -> bool:
+    """Whether :func:`~janus_tpu_torch.ops.mixed_linear.mixed_route` names
+    the mixed kernel for ``x`` against the plain tensor ``w``."""
+    if not isinstance(w, torch.Tensor) or w.dtype == x.dtype:
+        return False
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    return mixed_route(x.dtype, w.dtype, rows,
+                       w.dim() == 2 and w.stride(-1) == 1) == "kernel"
+
+
+def linear_gelu(x: torch.Tensor, w,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``gelu(linear(x, w, b))`` (an MLP's first layer): where
+    :func:`~janus_tpu_torch.ops.mixed_linear.mixed_route` names the mixed
+    kernel, the GELU is taken in its epilogue (one launch, and on the CPU
+    the same plain ops); otherwise :func:`linear`, then :func:`gelu`."""
+    if _mixed_kernel(x, w):
+        return mixed_linear(x, w, b, gelu=True)
+    return gelu(linear(x, w, b))
+
+
+def linear_group(x: torch.Tensor,
+                 members: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+                 ) -> List[torch.Tensor]:
+    """``[linear(x, w, b) for (w, b) in members]`` for weights that read
+    the same rows (q, k and v; the TTS's two heads): one launch of the
+    mixed kernel (:func:`~janus_tpu_torch.ops.mixed_linear.
+    mixed_linear_group`) where the route names it for every member,
+    otherwise one :func:`linear` a member."""
+    if all(_mixed_kernel(x, w) for w, _ in members):
+        return mixed_linear_group(x, members)
+    return [linear(x, w, b) for w, b in members]
 
 
 def row_linear(x: torch.Tensor, w,

@@ -13,6 +13,11 @@ each mesh size through it, and ``chip_smoke.py`` its one-card phases.
   that concurrent groups (pytest-xdist workers) never share a port.
 - Every wait has a deadline: when a rank raises, exits or outlives the
   timeout, every rank is killed and the call raises.
+- A group whose ranks fail to join (``init_process_group`` raising, as
+  gloo's full-mesh connect does now and then on a machine where other
+  groups start at the same moment: "Connection closed by peer") is
+  stopped and started again in a fresh store, up to
+  :data:`JOIN_TRIES` times within the one deadline.
 - The server and multiprocessing's resource tracker outlive a call, so
   that the next call starts its ranks at once. :func:`stop_rank_server`
   stops both and waits for them; it runs at the exit of any process that
@@ -40,6 +45,7 @@ import torch
 __all__ = ["run_ranks", "stop_rank_server"]
 
 _PRELOAD = ["janus_tpu_torch.parallel.launch"]
+JOIN_TRIES = 3   # starts of a group whose ranks failed to join
 
 
 def _to_host(obj: Any) -> Any:
@@ -59,20 +65,22 @@ def _rank_main(fn: Callable, args: Sequence, rank: int, world_size: int,
                threads: int, timeout_s: float, conn) -> None:
     import torch.distributed as dist
 
-    ok, payload = False, b""
+    status, payload = "failed", b""
     try:
         torch.set_num_threads(threads)
         if device_type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
+        status = "join"
         dist.init_process_group(
             backend, store=dist.FileStore(store_path, world_size), rank=rank,
             world_size=world_size,
             timeout=datetime.timedelta(seconds=timeout_s))
+        status = "failed"
         payload = pickle.dumps(_to_host(fn(*args)))
-        ok = True
-    except Exception:  # reported to the parent, which raises
+        status = "ok"
+    except Exception:  # reported to the parent, which raises or retries
         payload = traceback.format_exc().encode()
-    conn.send((ok, payload))
+    conn.send((status, payload))
     conn.close()
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -88,9 +96,12 @@ def run_ranks(fn: Callable, world_size: int, device: str = "cuda",
 
     ``device`` is ``"cuda"`` (rank r on card ``r % device_count``) or
     ``"cpu"``. The group runs on NCCL when every rank has a card of its
-    own, on gloo otherwise (the CPU, or more ranks than cards). Raises ``RuntimeError`` with the rank's traceback when
-    a rank fails, and ``TimeoutError`` when the group has not finished
-    within ``timeout`` seconds; every rank is stopped either way."""
+    own, on gloo otherwise (the CPU, or more ranks than cards). A group
+    whose ranks fail to join is started again (at most
+    :data:`JOIN_TRIES` times). Raises ``RuntimeError`` with the rank's
+    traceback when a rank fails, and ``TimeoutError`` when the group has
+    not finished within ``timeout`` seconds; every rank is stopped either
+    way."""
     device_type = torch.device(device).type
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
@@ -100,10 +111,31 @@ def run_ranks(fn: Callable, world_size: int, device: str = "cuda",
     ctx = multiprocessing.get_context("forkserver")
     ctx.set_forkserver_preload(_PRELOAD)
     threads = max(1, min(4, (os.cpu_count() or 1) // world_size))
+    deadline = time.monotonic() + timeout
+    for tries in range(1, JOIN_TRIES + 1):
+        try:
+            return _run_group(ctx, fn, tuple(args), world_size, backend,
+                              device_type, threads, timeout, deadline)
+        except _JoinError as e:
+            if tries == JOIN_TRIES:
+                raise RuntimeError(f"{e} (the group was started "
+                                   f"{JOIN_TRIES} times)") from None
+
+
+class _JoinError(RuntimeError):
+    """A rank of the group failed in ``init_process_group``."""
+
+
+def _run_group(ctx, fn: Callable, args: tuple, world_size: int,
+               backend: str, device_type: str, threads: int,
+               timeout: float, deadline: float) -> List[Any]:
+    """One start of the group in a fresh store: its results, or a raise
+    (:class:`_JoinError` where a rank failed to join); every rank is
+    stopped and reaped either way."""
     tmp = tempfile.mkdtemp(prefix="janus_ranks_")
     pipes = [ctx.Pipe(duplex=False) for _ in range(world_size)]
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, tuple(args), r, world_size,
+                         args=(fn, args, r, world_size,
                                os.path.join(tmp, "store"), backend,
                                device_type, threads, timeout, pipes[r][1]))
              for r in range(world_size)]
@@ -113,7 +145,6 @@ def run_ranks(fn: Callable, world_size: int, device: str = "cuda",
             p.start()
             send.close()  # the rank holds the only write end
         waiting = {pipes[r][0]: r for r in range(world_size)}
-        deadline = time.monotonic() + timeout
         while waiting:
             left = deadline - time.monotonic()
             if left <= 0:
@@ -123,15 +154,16 @@ def run_ranks(fn: Callable, world_size: int, device: str = "cuda",
             for recv in connection.wait(list(waiting), timeout=left):
                 rank = waiting.pop(recv)
                 try:
-                    ok, payload = recv.recv()
+                    status, payload = recv.recv()
                 except EOFError:  # the rank exited before it sent
                     procs[rank].join(timeout=10)
                     raise RuntimeError(
                         f"rank {rank} exited with code "
                         f"{procs[rank].exitcode} and no result")
-                if not ok:
-                    raise RuntimeError(f"rank {rank} of {world_size} "
-                                       f"failed:\n{payload.decode()}")
+                if status != "ok":
+                    error = _JoinError if status == "join" else RuntimeError
+                    raise error(f"rank {rank} of {world_size} failed:\n"
+                                f"{payload.decode()}")
                 out[rank] = pickle.loads(payload)
         for p in procs:
             p.join(timeout=30)

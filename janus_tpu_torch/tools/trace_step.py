@@ -6,6 +6,14 @@ tts.ARGraph`), rewinds the holder and traces one replay with
 ``torch.profiler``. Every kernel of the step is listed by name with its
 grid and block, its count in the step and its device time; the matrix
 products (cuBLAS's and the port's own linear kernels) are summed apart.
+The step's timeline gives each kernel's start, end and the gap before it
+(negative where a programmatic launch started before the kernel before
+it ended), summed by the kind of the kernel and of the one before it
+(norm, attention, GELU, mixed linear, other), and the device's span: the
+union of the kernels' intervals, which a sum of their times overstates
+once kernels overlap. Before the trace the step is timed bare on the
+host's clock: ``wall_ms`` is the median over rounds of 16 replays (the
+holder rewound before each round) of a round's time over its replays.
 
 Usage: ``python -m janus_tpu_torch.tools.trace_step [--batch 8 1]
 [--groups 256] [--out trace.json]``; prints one JSON line a batch (the
@@ -20,6 +28,7 @@ import json
 import os
 import re
 import tempfile
+import time
 from typing import Dict, List, Optional
 
 import torch
@@ -31,7 +40,8 @@ from janus_tpu_torch.models.params import cast_floating
 from janus_tpu_torch.models.tokenizer import ByteTokenizer
 from janus_tpu_torch.runtime.step_graph import StepGraphs
 
-__all__ = ["PRODUCT", "kernel_rows", "trace_ar_step", "main"]
+__all__ = ["PRODUCT", "KINDS", "kernel_rows", "kind_of", "timeline",
+           "gaps_by_kind", "span_us", "trace_ar_step", "main"]
 
 # the names of matrix-product kernels: cuBLAS / cuBLASLt (gemm, gemv,
 # xmma, cutlass) and the port's own linears
@@ -39,14 +49,80 @@ PRODUCT = re.compile(r"gemm|gemv|xmma|cutlass|mixed_linear|stream_product"
                      r"|tile_product", re.IGNORECASE)
 
 
+# a kernel's kind, by name: the step's own kernels and PyTorch's GELU
+KINDS = (("norm", re.compile(r"layer_norm")),
+         ("attention", re.compile(r"decode_attn|attention", re.IGNORECASE)),
+         ("gelu", re.compile(r"gelu", re.IGNORECASE)),
+         ("mixed linear", re.compile(r"mixed_linear")))
+
+
+def kind_of(name: str) -> str:
+    for kind, pattern in KINDS:
+        if pattern.search(name):
+            return kind
+    return "other"
+
+
+def _kernels(trace: dict) -> List[dict]:
+    return [e for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel"]
+
+
+def timeline(trace: dict) -> List[dict]:
+    """The device kernels of a Chrome trace in order of start: ``{name,
+    kind, start_us, end_us, gap_us}``, times from the first kernel's
+    start, the gap from the end of the kernel before (none for the
+    first)."""
+    events = sorted(_kernels(trace), key=lambda e: float(e["ts"]))
+    rows: List[dict] = []
+    t0 = float(events[0]["ts"]) if events else 0.0
+    for e in events:
+        start = float(e["ts"]) - t0
+        end = start + float(e.get("dur", 0.0))
+        rows.append({"name": e["name"][:120], "kind": kind_of(e["name"]),
+                     "start_us": start, "end_us": end,
+                     "gap_us": start - rows[-1]["end_us"] if rows else None})
+    return rows
+
+
+def gaps_by_kind(rows: List[dict]) -> Dict[str, dict]:
+    """Each kernel's gap and time by its kind and the kind of the kernel
+    before it: ``{"<kind> after <kind>": {count, mean_us, mean_gap_us,
+    min_gap_us, max_gap_us}}``."""
+    out: Dict[str, dict] = {}
+    for prev, row in zip(rows, rows[1:]):
+        key = f"{row['kind']} after {prev['kind']}"
+        acc = out.setdefault(key, {"count": 0, "us": 0.0, "gaps": []})
+        acc["count"] += 1
+        acc["us"] += row["end_us"] - row["start_us"]
+        acc["gaps"].append(row["gap_us"])
+    return {key: {"count": a["count"], "mean_us": a["us"] / a["count"],
+                  "mean_gap_us": sum(a["gaps"]) / a["count"],
+                  "min_gap_us": min(a["gaps"]), "max_gap_us": max(a["gaps"])}
+            for key, a in sorted(out.items(), key=lambda kv: -kv[1]["count"])}
+
+
+def span_us(rows: List[dict]) -> float:
+    """The union of the kernels' intervals: the time the device ran at
+    least one of them."""
+    total, reach = 0.0, None
+    for row in sorted(rows, key=lambda r: r["start_us"]):
+        start, end = row["start_us"], row["end_us"]
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total
+
+
 def kernel_rows(trace: dict) -> List[dict]:
     """The device kernels of a Chrome trace (``export_chrome_trace``),
     grouped by name, grid and block: ``{name, grid, block, count,
     total_us}``, longest total first."""
     rows: Dict[tuple, dict] = {}
-    for e in trace.get("traceEvents", []):
-        if e.get("cat") != "kernel":
-            continue
+    for e in _kernels(trace):
         args = e.get("args", {})
         key = (e["name"], tuple(args.get("grid", ())),
                tuple(args.get("block", ())))
@@ -81,6 +157,16 @@ def trace_ar_step(batch: int, groups: int = 256, prompt: int = 32,
     with graphs.lock:
         holder = tts_mod.ar_graph(graphs, params, cfg, batch, prompt + 3,
                                   groups, 2.0, dev)
+        walls = []
+        for _ in range(9):
+            holder.group.zero_()
+            holder.steps = 0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(16):
+                holder.advance()
+            torch.cuda.synchronize(dev)
+            walls.append(1e3 * (time.perf_counter() - t0) / 16)
         holder.group.zero_()
         holder.steps = 0
         holder.advance()
@@ -93,13 +179,19 @@ def trace_ar_step(batch: int, groups: int = 256, prompt: int = 32,
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            rows = kernel_rows(json.load(f))
+            trace = json.load(f)
+    rows, steps = kernel_rows(trace), timeline(trace)
     products = [r for r in rows if PRODUCT.search(r["name"])]
     record = {
         "batch": batch, "groups": groups, "prompt": prompt,
         "device": torch.cuda.get_device_name(dev),
+        "wall_ms": sorted(walls)[len(walls) // 2],
         "kernels": sum(r["count"] for r in rows),
         "busy_ms": sum(r["total_us"] for r in rows) / 1e3,
+        "span_ms": span_us(steps) / 1e3,
+        "first_to_last_ms": (steps[-1]["end_us"] / 1e3 if steps else 0.0),
+        "gaps_ms": sum(r["gap_us"] for r in steps[1:]) / 1e3,
+        "by_kind_pair": gaps_by_kind(steps),
         "products": sum(r["count"] for r in products),
         "products_ms": sum(r["total_us"] for r in products) / 1e3,
         "product_rows": products,
@@ -107,7 +199,8 @@ def trace_ar_step(batch: int, groups: int = 256, prompt: int = 32,
     }
     if out:
         with open(out, "w") as f:
-            json.dump({**record, "rows": rows}, f, indent=1)
+            json.dump({**record, "rows": rows, "timeline": steps}, f,
+                      indent=1)
     return record
 
 

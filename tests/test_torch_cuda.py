@@ -607,6 +607,120 @@ def test_mixed_linear_raises_on_what_it_cannot_take(dev):
     assert KERNEL.launches == before
 
 
+def test_mixed_linear_group_is_each_member_at_the_group_plan(dev):
+    """One launch for q/k/v (k without a bias) and for the mel and stop
+    heads (N 320 and 1: 16-byte and value-at-a-time tiles in one launch):
+    each output within 1e-5 (sum |x w| + |b|) of the plain version and bit
+    for bit the member launched alone at the group's splits and rows (the
+    same order of sums); two launches bit-equal; one launch counted."""
+    from janus_tpu_torch.ops.mixed_linear import (KERNEL, _launch,
+                                                  _sm_count,
+                                                  mixed_linear_group,
+                                                  mixed_linear_plain,
+                                                  plan_group)
+
+    for m in (1, 8):
+        for spec in ([(1280, "bfloat16"), (1280, None), (1280, "bfloat16")],
+                     [(320, "bfloat16"), (1, "bfloat16")],
+                     [(100, "float32"), (72, None), (1, None), (8, "bfloat16")]):
+            x, _, _ = _mixed_case(dev, m, 1280, 1, seed=m)
+            members = [_mixed_case(dev, 1, 1280, n, bias, seed=n + i)[1:]
+                       for i, (n, bias) in enumerate(spec)]
+            plan = plan_group(m, 1280, [n for n, _ in spec], _sm_count(dev))
+            before = KERNEL.launches
+            ys = mixed_linear_group(x, members)
+            assert KERNEL.launches == before + 1
+            for y, (w, b) in zip(ys, members):
+                ref = mixed_linear_plain(x, w, b)
+                assert y.shape == ref.shape
+                assert bool(((y - ref).double().abs()
+                             <= _mixed_bar(x, w, b)).all())
+                alone = _launch(x, w, b, splits=plan.splits, rows=plan.rows)
+                assert torch.equal(y, alone)
+            again = mixed_linear_group(x, members)
+            assert all(torch.equal(a, c) for a, c in zip(ys, again))
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_mixed_linear_gelu_epilogue_holds_the_bar(dev, m):
+    """fc1 with the exact GELU in the epilogue: within 1e-5 (sum |x w| +
+    |b|) of gelu(mixed_linear_plain); two launches bit-equal; the CPU-side
+    option off gives the plain product's kernel."""
+    from janus_tpu_torch.ops.layers import gelu, linear_gelu
+    from janus_tpu_torch.ops.mixed_linear import (mixed_linear,
+                                                  mixed_linear_plain)
+
+    x, w, b = _mixed_case(dev, m, 1280, 5120, seed=m)
+    y = mixed_linear(x, w, b, gelu=True)
+    ref = gelu(mixed_linear_plain(x, w, b))
+    assert bool(((y - ref).double().abs() <= _mixed_bar(x, w, b)).all())
+    assert torch.equal(y, mixed_linear(x, w, b, gelu=True))
+    assert torch.equal(y, linear_gelu(x, w, b))
+
+
+@pytest.mark.parametrize("pdl", [True, False])
+def test_mixed_linear_reads_a_weight_written_just_before(dev, pdl):
+    """The layer norm writes the weight (bf16 rows of width N) and lets its
+    dependents start once its rows are read; the programmatic call right
+    after it, whose blocks ask the L2 cache for that weight before their
+    wait, gives the bits of the same call made after a synchronize. Each
+    round's weight lands where the last one lay (the allocator reuses the
+    block), so a read before the norm's writes would see the old one."""
+    from janus_tpu_torch.ops.layers import layer_norm_fused
+    from janus_tpu_torch.ops.mixed_linear import _launch
+
+    k, n = 1280, 1280
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = 2 * torch.randn((8, k), generator=g, device=dev)
+    scale = (0.05 * torch.randn(n, generator=g, device=dev)).bfloat16()
+    shift = (0.01 * torch.randn(n, generator=g, device=dev)).bfloat16()
+    srcs = [torch.randn((k, n), generator=g, device=dev).bfloat16()
+            for _ in range(6)]
+    got = []
+    for src in srcs:
+        w = layer_norm_fused(src, scale, shift)
+        got.append(_launch(x, w, None, pdl=pdl))
+        del w
+    torch.cuda.synchronize()
+    for src, y in zip(srcs, got):
+        w = layer_norm_fused(src, scale, shift)
+        torch.cuda.synchronize()
+        assert torch.equal(y, _launch(x, w, None, pdl=False))
+
+
+def test_mixed_linear_group_and_gelu_replay_from_a_graph(dev):
+    """The grouped launch and fc1's GELU epilogue, programmatic after a
+    layer norm, captured: each replay bit-equal to the eager calls."""
+    from janus_tpu_torch.ops.layers import layer_norm_fused
+    from janus_tpu_torch.ops.mixed_linear import (mixed_linear,
+                                                  mixed_linear_group)
+
+    x, w1, b1 = _mixed_case(dev, 8, 1280, 5120, seed=3)
+    members = [_mixed_case(dev, 1, 1280, 1280, bias, seed=i)[1:]
+               for i, bias in enumerate(("bfloat16", None, "bfloat16"))]
+    scale = torch.ones(1280, device=dev).bfloat16()
+    shift = torch.zeros(1280, device=dev).bfloat16()
+    xs = x.clone()
+
+    def step():
+        h = layer_norm_fused(xs, scale, shift)
+        return mixed_linear_group(h, members) + [mixed_linear(h, w1, b1,
+                                                              gelu=True)]
+
+    step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for seed in range(3):
+        g = torch.Generator(device=dev).manual_seed(300 + seed)
+        xs.copy_(torch.randn(xs.shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = step()
+        assert all(torch.equal(a, c) for a, c in zip(outs, want))
+
+
 def test_mixed_linear_records_its_least_work(dev):
     from janus_tpu_torch.ops.mixed_linear import KERNEL, mixed_linear
 
@@ -1544,8 +1658,9 @@ def test_decode_steps_launch_the_new_kernels_in_their_graphs(dev):
                         eager=True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     counts = {k.name: n[0] for k, n in tgraphs.graphs()[0].counts.items()}
-    # and the mixed-dtype linear: the prenet's two, six a layer, the mel
-    # and stop heads
+    # and the mixed-dtype linear: the prenet's two (fc1 with its GELU),
+    # q/k/v in one, out, fc1 with its GELU and fc2 a layer, the two heads
+    # in one
     assert counts == {"layer_norm": 2 * tcfg.layers + 1,
                       "decode_attn": tcfg.layers,
-                      "mixed_linear": 6 * tcfg.layers + 4}
+                      "mixed_linear": 4 * tcfg.layers + 3}

@@ -6,8 +6,11 @@ width), bit-equal to the per-call promotion ``linear`` ran before it; the
 route and the split plan; the autograd function's gradient; a numpy
 emulation of the kernel's order of sums against the plain version at the
 card's bar, and a generation run through that emulation against the JAX
-package; the AR step over the bf16 tree itself (no widened copy) with the
-captured step's path bit-equal to the eager loop. The kernel runs only on
+package; the grouped launch (q/k/v, the two heads) and fc1's GELU
+epilogue: their plain routes are the separate calls bit for bit, their
+plan, and their emulation at the card's bar; the AR step over the bf16
+tree itself (no widened copy) with the captured step's path bit-equal to
+the eager loop. The kernel runs only on
 the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import numpy as np
@@ -20,9 +23,11 @@ from janus_tpu.ops.layers import linear as j_linear
 from janus_tpu_torch.ops import layers as t_layers
 from janus_tpu_torch.ops import mixed_linear as ml
 from janus_tpu_torch.ops.mixed_linear import (MAX_ROWS, mixed_linear,
+                                              mixed_linear_group,
                                               mixed_linear_plain,
-                                              mixed_route, plan_rows,
-                                              plan_splits)
+                                              mixed_route, plan_group,
+                                              plan_rows, plan_splits,
+                                              use_pdl)
 
 # the AR step's linears at small width (d 64; flagship d 1280): the prenet
 # (r mels -> d, d -> d), q/k/v/out (d -> d), fc1 (d -> 4d), fc2 (4d -> d),
@@ -174,16 +179,94 @@ def test_autograd_function_gradient_is_the_plain_one(monkeypatch, bias):
         assert torch.equal(a, c)
 
 
+# -- one launch for several weights, and fc1's GELU --------------------------
+
+# q/k/v (k without a bias) and the two heads at small width
+GROUPS = {"qkv": [(D, D, "bfloat16"), (D, D, None), (D, D, "bfloat16")],
+          "heads": [(D, 32, "bfloat16"), (D, 1, "bfloat16")]}
+
+
+def _members(kind, seed):
+    out = []
+    for i, (k, n, bias) in enumerate(GROUPS[kind]):
+        _, w, b = _case(1, k, n, bias, seed=seed + i)
+        out.append((w, b))
+    return out
+
+
+@pytest.mark.parametrize("kind", sorted(GROUPS))
+@pytest.mark.parametrize("m", [1, 8])
+def test_group_and_gelu_plain_routes_are_the_separate_calls(kind, m):
+    """On the CPU the grouped entry is the separate plain calls and the
+    GELU option is ``gelu`` of the plain call, bit for bit, through
+    ``ops/mixed_linear.py`` and through ``linear_group`` /
+    ``linear_gelu``."""
+    x, _, _ = _case(m, D, 1, None, seed=m)
+    x = x.reshape(1, m, D)
+    members = _members(kind, seed=10 * m)
+    want = [mixed_linear_plain(x, w, b) for w, b in members]
+    for got in (mixed_linear_group(x, members),
+                t_layers.linear_group(x, members)):
+        assert len(got) == len(want)
+        for g, c in zip(got, want):
+            assert g.shape == c.shape and torch.equal(g, c)
+    for w, b in members:
+        want = t_layers.gelu(mixed_linear_plain(x, w, b))
+        assert torch.equal(mixed_linear(x, w, b, gelu=True), want)
+        assert torch.equal(mixed_linear_plain(x, w, b, gelu=True), want)
+        assert torch.equal(t_layers.linear_gelu(x, w, b),
+                           t_layers.gelu(t_layers.linear(x, w, b)))
+
+
+def test_group_of_other_dtypes_is_one_linear_a_member():
+    """Where the route does not name the kernel for every member (same
+    dtypes, as the prefill's bf16 x bf16), ``linear_group`` is the
+    separate ``linear`` calls."""
+    x, w, b = _case(8, D, D, "float32", seed=1)
+    members = [(w.float(), b), (w.float(), None)]
+    got = t_layers.linear_group(x, members)
+    for g, (ww, bb) in zip(got, members):
+        assert torch.equal(g, t_layers.linear(x, ww, bb))
+
+
+@pytest.mark.parametrize("m,k,ns,sms,tile0,tiles,splits,rows", [
+    (8, 1280, [1280] * 3, 132, (0, 20, 40), 60, 4, 4),
+    (1, 1280, [1280] * 3, 132, (0, 20, 40), 60, 4, 1),
+    (8, 1280, [320, 1], 132, (0, 5), 6, 8, 4),
+    (1, 1280, [320, 1], 132, (0, 5), 6, 8, 1),
+    (8, 1280, [5120], 132, (0,), 80, 2, 4),
+    (8, 320, [1280], 132, (0,), 20, 4, 4),
+    (8, 5120, [1280], 132, (0,), 20, 8, 4),
+    (16, 1280, [100, 28, 64], 132, (0, 2, 3), 4, 8, 4),
+    (8, 64, [64] * 3, 132, (0, 1, 2), 3, 1, 4),
+    (8, 1280, [1280] * 3, 40, (0, 20, 40), 60, 1, 4),
+    (65, 1280, [1280] * 3, 132, (0, 20, 40), 60, 0, 8)])
+def test_plan_group(m, k, ns, sms, tile0, tiles, splits, rows):
+    """Each member's tiles one after another (a narrow member a tile of
+    its own), the splits of ``plan_splits`` over all the tiles (4 for the
+    step's q/k/v, 8 for its heads) and the rows of ``plan_rows``; one
+    member plans as ``plan_splits``."""
+    plan = plan_group(m, k, ns, sms)
+    assert plan == (tile0, tiles, splits, rows)
+    if len(ns) == 1:
+        assert plan.splits == plan_splits(m, k, ns[0], sms)
+
+
+def test_use_pdl_at_every_row_count_the_kernel_takes():
+    assert all(use_pdl(m) for m in (1, 8, 16, 64))
+    assert not use_pdl(0) and not use_pdl(MAX_ROWS + 1)
+
+
 # -- the kernel's order of sums, emulated -----------------------------------
 
-def emulate(x, w, b=None, splits=None, rows=None):
+def emulate(x, w, b=None, splits=None, rows=None, gelu=False):
     """The kernel's arithmetic in numpy: each split's range of K (starting
     on multiples of 8), each k-lane's fused multiply-adds over its k-rows
     in increasing order (32 / row groups k-lanes), the four k-lanes of a
     warp as (0 + 1) + (2 + 3), the warps in order, the splits in order,
-    then the bias, all in float32. A fused multiply-add is emulated in
-    float64 (the product exact, the sum rounded twice: within an ulp of
-    the card's)."""
+    then the bias, all in float32, then with ``gelu`` the exact GELU. A
+    fused multiply-add is emulated in float64 (the product exact, the sum
+    rounded twice: within an ulp of the card's)."""
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1]).numpy().astype(np.float64)
     wd = w.float().numpy().astype(np.float64)
@@ -218,7 +301,17 @@ def emulate(x, w, b=None, splits=None, rows=None):
         total = block if total is None else total + block
     if b is not None:
         total = total + b.float().numpy()
-    return torch.from_numpy(total.reshape(lead + (n,)))
+    y = torch.from_numpy(total.reshape(lead + (n,)))
+    return t_layers.gelu(y) if gelu else y
+
+
+def emulate_group(x, members, gelu=False):
+    """One grouped launch emulated: every member at the group's splits and
+    rows (:func:`plan_group` over all members' columns)."""
+    m = x.numel() // x.shape[-1]
+    plan = plan_group(m, x.shape[-1], [w.shape[1] for w, _ in members])
+    return [emulate(x, w, b, plan.splits, plan.rows, gelu)
+            for w, b in members]
 
 
 @pytest.mark.parametrize("m", [1, 8, 16, 64])
@@ -242,6 +335,24 @@ def test_emulated_kernel_sums_hold_the_card_bar(k, n, m):
             assert np.all(np.abs((got - ref).numpy()) <= bar), rows
 
 
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("kind", sorted(GROUPS))
+def test_emulated_group_and_gelu_hold_the_card_bar(kind, m):
+    """A grouped launch at its plan (the group's splits, not each
+    member's), and fc1 with the GELU in its epilogue: within 1e-5 (sum |x
+    w| + |b|) of the separate plain calls and of ``gelu`` of the plain
+    call."""
+    x, _, _ = _case(m, D, 1, None, seed=3 * m)
+    members = _members(kind, seed=m)
+    for got, (w, b) in zip(emulate_group(x, members), members):
+        ref = mixed_linear_plain(x, w, b)
+        assert np.all(np.abs((got - ref).numpy()) <= _bar(x, w, b, 1e-5))
+    x, w, b = _case(m, D, 4 * D, "bfloat16", seed=m + 1)
+    got = emulate(x, w, b, gelu=True)
+    ref = t_layers.gelu(mixed_linear_plain(x, w, b))
+    assert np.all(np.abs((got - ref).numpy()) <= _bar(x, w, b, 1e-5))
+
+
 def _tts_cfgs(dtype="bfloat16"):
     from janus_tpu.common.config import TTSConfig as JTTSConfig
     from janus_tpu_torch.common.config import TTSConfig
@@ -253,7 +364,8 @@ def _tts_cfgs(dtype="bfloat16"):
 
 def test_generation_through_the_emulated_kernel_follows_jax(monkeypatch):
     """bf16 parameters, every mixed linear of the AR steps (and the
-    speaker projection) computed in the kernel's order of sums: the JAX
+    speaker projection) computed in the kernel's order of sums, grouped
+    as the card launches them and with fc1's GELU in the epilogue: the JAX
     package's bar for bf16 weights (1e-2, ``tests/test_torch_tts.py``),
     equal ``n_frames``. (The port's seeded weights, handed to JAX; its
     loop jitted, ~2 s against ~5 s eager.)"""
@@ -274,11 +386,16 @@ def test_generation_through_the_emulated_kernel_follows_jax(monkeypatch):
     spk = rng.standard_normal((2, D)).astype(np.float32)
     calls = []
 
-    def kernel_order(x, w, b=None):
+    def kernel_order(x, w, b=None, gelu=False):
         calls.append(tuple(x.shape))
-        return emulate(x, w, b)
+        return emulate(x, w, b, gelu=gelu)
+
+    def group_order(x, members):
+        calls.append(tuple(x.shape))
+        return emulate_group(x, members)
 
     monkeypatch.setattr(t_layers, "mixed_linear", kernel_order)
+    monkeypatch.setattr(t_layers, "mixed_linear_group", group_order)
     mel, n = t_tts.tts_generate(
         tp16, tc, torch.from_numpy(text), torch.from_numpy(emo),
         speaker=torch.from_numpy(spk), max_groups=8, stop_threshold=2.0)
@@ -287,8 +404,10 @@ def test_generation_through_the_emulated_kernel_follows_jax(monkeypatch):
     ref_mel, ref_n = generate(
         jp16, jc, jnp.asarray(text), jnp.asarray(emo),
         speaker=jnp.asarray(spk), max_groups=8, stop_threshold=2.0)
-    # the speaker projection, then 7 steps of 2 x 6 + 4 linears
-    assert len(calls) == 1 + 7 * (6 * tc.layers + 4)
+    # the speaker projection, then 7 steps of 2 x 4 + 3 launches: the
+    # prenet's two (fc1 with its GELU), q/k/v in one, out, fc1 with its
+    # GELU and fc2 a layer, the two heads in one
+    assert len(calls) == 1 + 7 * (4 * tc.layers + 3)
     np.testing.assert_array_equal(n.numpy(), np.asarray(ref_n))
     np.testing.assert_allclose(mel.numpy(), np.asarray(ref_mel), rtol=0,
                                atol=1e-2)
@@ -335,3 +454,34 @@ def test_graph_step_over_the_bf16_tree_equals_the_eager_loop(cache_dtype):
             assert torch.equal(p, q)
         a, b = got[2:4], want[2:4]
     assert MAX_ROWS == 64
+
+
+def test_trace_step_timeline_gaps_and_span():
+    """``tools/trace_step.py`` on a hand-made trace: kernels in order of
+    start with the gap before each (negative where a programmatic launch
+    overlapped the kernel before), summed by the kinds of a kernel and the
+    one before it, and the union of the intervals beside their sum."""
+    from janus_tpu_torch.tools.trace_step import (gaps_by_kind, kernel_rows,
+                                                  kind_of, span_us, timeline)
+
+    events = [("void layer_norm_kernel<float>", 100.0, 3.0),
+              ("void (anonymous namespace)::mixed_linear<4, 2>", 101.0, 8.0),
+              ("decode_attn_kernel<float>", 112.0, 5.0),
+              ("void (anonymous namespace)::mixed_linear<4, 2>", 116.0, 8.0),
+              ("GeluCUDAKernelImpl", 130.0, 1.0)]
+    trace = {"traceEvents": [{"cat": "cpu_op", "name": "aten::mm",
+                              "ts": 0.0, "dur": 500.0}]
+             + [{"cat": "kernel", "name": n, "ts": t, "dur": d}
+                for n, t, d in reversed(events)]}
+    rows = timeline(trace)
+    assert [r["kind"] for r in rows] == ["norm", "mixed linear", "attention",
+                                         "mixed linear", "gelu"]
+    assert [r["gap_us"] for r in rows] == [None, -2.0, 3.0, -1.0, 6.0]
+    pairs = gaps_by_kind(rows)
+    assert pairs["mixed linear after norm"] == {
+        "count": 1, "mean_us": 8.0, "mean_gap_us": -2.0, "min_gap_us": -2.0,
+        "max_gap_us": -2.0}
+    assert sum(p["count"] for p in pairs.values()) == len(rows) - 1
+    assert span_us(rows) == 9.0 + 12.0 + 1.0
+    assert sum(r["total_us"] for r in kernel_rows(trace)) == 25.0
+    assert kind_of("ampere_sgemm_64x32") == "other"

@@ -371,6 +371,47 @@ def test_run_ranks_raises_when_a_rank_fails_or_hangs(mode):
         assert time.monotonic() - t0 < 60
 
 
+@pytest.mark.parametrize("failed_joins,ok", [(0, True), (1, True),
+                                              (2, True), (3, False)])
+def test_run_ranks_starts_a_group_again_when_its_ranks_fail_to_join(
+        monkeypatch, failed_joins, ok):
+    """A group whose ranks fail in ``init_process_group`` (gloo's
+    full-mesh connect, "Connection closed by peer", when other groups
+    start at the same moment) is started again in a fresh store, up to
+    ``JOIN_TRIES`` times within the one deadline; a rank's own failure is
+    not retried."""
+    from janus_tpu_torch.parallel import launch
+
+    starts = []
+
+    def run_group(*a):
+        starts.append(a[-1])  # the deadline, one for every start
+        if len(starts) <= failed_joins:
+            raise launch._JoinError("rank 0 of 2 failed:\nConnection "
+                                    "closed by peer")
+        return ["rank 0", "rank 1"]
+
+    monkeypatch.setattr(launch, "_run_group", run_group)
+    if ok:
+        assert run_ranks(_failing_rank, 2, device="cpu") == ["rank 0",
+                                                            "rank 1"]
+    else:
+        with pytest.raises(RuntimeError, match="started 3 times"):
+            run_ranks(_failing_rank, 2, device="cpu")
+    assert len(starts) == min(failed_joins + 1, launch.JOIN_TRIES)
+    assert len(set(starts)) == 1
+
+    def rank_fails(*a):
+        starts.append(a[-1])
+        raise RuntimeError("rank 1 of 2 failed: its own error")
+
+    starts.clear()
+    monkeypatch.setattr(launch, "_run_group", rank_fails)
+    with pytest.raises(RuntimeError, match="its own error"):
+        run_ranks(_failing_rank, 2, device="cpu")
+    assert len(starts) == 1
+
+
 def _helper_children() -> set:
     """This process's children that are multiprocessing helpers: the
     forkserver and the resource tracker."""
@@ -406,16 +447,21 @@ def test_no_rank_process_outlives_its_caller():
             "timeout=120))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=root,
-                            start_new_session=True, stdout=subprocess.PIPE)
-    out, _ = proc.communicate(timeout=180)
-    assert proc.returncode == 0 and out.strip().startswith(b"[")
+                            start_new_session=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+    out, err = proc.communicate(timeout=180)
+    assert proc.returncode == 0 and out.strip().startswith(b"["), (
+        proc.returncode, out[-200:], err[-2000:].decode(errors="replace"))
     left = []
     for pid in filter(str.isdigit, os.listdir("/proc")):
         try:
             with open(f"/proc/{pid}/stat") as f:
-                fields = f.read().rsplit(")", 1)[1].split()
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ")[:160]
         except (FileNotFoundError, ProcessLookupError):
             continue
+        fields = stat.rsplit(")", 1)[1].split()
         if int(fields[3]) == proc.pid and fields[0] != "Z":
-            left.append(pid)
+            left.append((pid, fields[0], cmd))
     assert left == []
