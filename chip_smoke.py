@@ -54,7 +54,14 @@ printing one JSON line per result:
    and by count: ``by_op``), the graphs' capture ms and pool; the
    captured step's launches (97 layer norms, 64 decode attentions), at
    most 460 kernels, no add over floating values and no ``index_copy_``
-   but the output column's;
+   but the output column's. Everything before the loop (the wire decode,
+   the frontend, the encoder, the cross K/V, the prefill) is one replay
+   of a captured ``EncodeGraph``: its results bit-equal to the same front
+   issued op by op (``front.bits_*``: the encoder output, tokens, codes,
+   f0, rms), both timed in turns at b 8 x 10 s and at one 2 s phrase
+   (``turns_*_ms``), the host's calls of each (``encode_host_calls``),
+   one replayed front traced by ``tools/trace_step.py`` (``trace_*``:
+   kernels, busy, span, wall) and each front's capture ms and pool MiB;
 4b. whisper_dropin — the drop-in path of a Whisper checkpoint on phase
    4's weights: a synthetic large-v3-shaped ``vocab.json`` /
    ``merges.txt`` (51,866 ids, the specials at large-v3's ids) through
@@ -64,8 +71,9 @@ printing one JSON line per result:
    bit-equal after the encoder's fusion); ``SemanticEncoder(tokenizer=
    bpe)`` with the four-token ``sot_sequence``, captured by ``warmup``
    at ``prompt_len`` 4 and replayed against eager in turns (equal tokens
-   and packets, ``encode_batch_submit`` at b = 8, K1-K3 launched), then
-   the same under the int8 configuration (K4 launched);
+   and packets, ``encode_batch_submit`` at b = 8, K1-K3 launched, the
+   captured front bit-equal to the eager one), then the same under the
+   int8 configuration (K4 launched);
 5. flagship int8 — the same model with dynamic-int8 weights and int8
    cross K/V (the analogue of CTranslate2 ``compute_type='int8'``): times,
    launches (K4 once per decoder layer and forward, the replayed steps'
@@ -74,7 +82,9 @@ printing one JSON line per result:
    plain cross-attention, token agreement with phase 4, and the replayed
    loop against the eager one as in phase 4; the replayed step traced
    (at most 600 kernels) beside the same step captured with the linear
-   as it ran before its kernel (``decode_step_graph_before``);
+   as it ran before its kernel (``decode_step_graph_before``); the
+   captured front against the eager one as in phase 4 (bits, turns at
+   b 8, host calls);
 6. receive_demo — the committed demo TTS, vocoder and speaker encoder
    through ``Synthesizer`` on the card and on the CPU (Morse bytes equal;
    TTS modes: the same sample count and the PCM within a stated bar),
@@ -114,7 +124,8 @@ printing one JSON line per result:
    b = 64, then ``SessionManager``'s tick loop over 32 sessions fed
    through ``push_audio`` one 32 ms chunk a tick, synchronous and
    overlapped (``overlap_speedup``), on the native ring buffers; the
-   scaling and the tick loop with the decode replayed and eager;
+   scaling and the tick loop with the decode replayed and eager, and the
+   scaling with the front captured and eager in turns;
 12. server_demo — ``JanusServer`` with the demo bundle on the card and on
    the CPU: health, the WebSocket control plane through a stdlib client,
    a spoken phrase through the live duplex on loopback UDP, the phrase
@@ -304,6 +315,8 @@ def profile_step(torch, step, steps: int = 3) -> dict:
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     launches = sum(1 for e in events if e.device_type == DeviceType.CPU
                    and e.name.startswith("cudaLaunchKernel"))
+    api_calls = sum(1 for e in events if e.device_type == DeviceType.CPU
+                    and HOST_API.match(e.name))
     graph_launches = sum(1 for e in events if e.device_type == DeviceType.CPU
                          and e.name.startswith("cudaGraphLaunch"))
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
@@ -326,11 +339,19 @@ def profile_step(torch, step, steps: int = 3) -> dict:
             "host_kernel_launches": launches,
             "host_graph_launches": graph_launches,
             "host_calls": launches + graph_launches,
+            "host_api_calls": api_calls,
             "device_busy_ms": busy_ms if device else None,
             "device_span_ms": span_us / 1e3 if device else None,
             "device_idle_share": (max(0.0, 1.0 - span_us / 1e3 / wall_ms)
                                   if device else None),
             "by_op": by_op(device)}
+
+
+# the host's calls that put work on the device: kernel launches through
+# the runtime API (cuda*) and the low-level API (cu*, which cuBLAS uses),
+# graph launches, copies and fills
+HOST_API = re.compile(r"cu(da)?(LaunchKernel|LaunchCooperativeKernel|"
+                      r"GraphLaunch|Memcpy|Memset)")
 
 
 # PyTorch's add (or subtraction) kernel over floating values: what a
@@ -409,6 +430,94 @@ def graph_stats(graphs) -> dict:
     return {"graphs": len(gs), "capture_ms": [g.capture_ms for g in gs],
             "pool_mib": graphs.pool_bytes() / 2 ** 20,
             "replays": graphs.replays}
+
+
+def front_stats(enc) -> list:
+    """Each captured front (``EncodeGraph``) of an encoder: its bucket,
+    padded batch and wire dtype, capture ms, the MiB its capture added to
+    the graphs' shared pool, and its replays."""
+    return [{"bucket": h.audio.shape[1], "batch": h.audio.shape[0],
+             "wire": str(h.audio.dtype).replace("torch.", ""),
+             "capture_ms": h.graph.capture_ms,
+             "pool_mib": h.pool_bytes / 2 ** 20, "replays": h.graph.replays}
+            for h in enc._graphs.holders("encode")]
+
+
+def greedy_keys(enc) -> list:
+    """The keys of an encoder's greedy holders (batch at 2, prompt_len at
+    5)."""
+    return [k for k in enc._graphs._holders if k[0] == "greedy"]
+
+
+def check_fronts(name, enc) -> list:
+    """The encoder's encodes went through its captured fronts: at least
+    one front, and every encode a replay of one."""
+    fronts = front_stats(enc)
+    check(fronts and sum(f["replays"] for f in fronts) > 0,
+          f"{name}: no encode replayed a captured front ({fronts})")
+    return fronts
+
+
+def eager_front(enc):
+    """The encoder with its front issued op by op from Python and its
+    greedy loop still replayed (the send path before the front was
+    captured): a context."""
+    return mock.patch.object(enc, "_graphed", lambda: False)
+
+
+def front_bits(torch, enc, phrases, name) -> dict:
+    """One encode of ``phrases`` through the captured front and one through
+    the eager front: the tokens, the energy and pitch codes, f0 and rms
+    bit-equal, and the front's encoder output bit-equal to
+    ``encode_front`` run eagerly on the same uploaded inputs."""
+    from janus_tpu_torch.runtime.codec import duration_bucket, encode_front
+
+    graph = enc.encode_batch_submit(phrases)._arrays
+    with eager_front(enc):
+        eager = enc.encode_batch_submit(phrases)._arrays
+    bucket = duration_bucket(max(len(p) for p in phrases), enc.buckets)
+    with torch.no_grad(), enc._graphs.lock:
+        h = enc.encode_graph(bucket, 1 << (len(phrases) - 1).bit_length())
+        ref = encode_front(enc.params, enc.cfg, enc._compute_dtype, h.audio,
+                           h.n_valid, h.n_frames)[0]
+        enc_equal = torch.equal(h.enc, ref)
+    names = ("tokens", "energy_code", "pitch_code", "f0", "rms")
+    equal = {n: torch.equal(a, b) for n, a, b in zip(names, graph, eager)}
+    equal["enc"] = enc_equal
+    check(all(equal.values()), f"{name}: the captured front differs from "
+          f"the eager one: {equal}")
+    return equal
+
+
+def front_turns(torch, enc, phrases, name, rounds: int = 3) -> dict:
+    """ms of encodes of ``phrases`` through the captured front and through
+    the eager front (the loop replayed in both), in turns (graph, eager,
+    eager, graph, ...), after one of each: equal results throughout."""
+    ref = enc.encode_batch(phrases)
+    with eager_front(enc):
+        check(enc.encode_batch(phrases) == ref, f"{name}: eager front")
+    ms = {"graph": [], "eager": []}
+    for eager in (False, True, True, False) * rounds:
+        with eager_front(enc) if eager else contextlib.nullcontext():
+            res, t = synced_ms(torch, lambda: enc.encode_batch(phrases))
+        ms["eager" if eager else "graph"].append(t)
+        check(res == ref, f"{name}: the {'eager' if eager else 'captured'} "
+              f"front gives {res}, the first {ref}")
+    return ms
+
+
+def front_host_calls(torch, enc, bucket: int, batch: int) -> dict:
+    """The front of (bucket, batch) issued op by op from Python over its
+    static buffers, against one replay of its capture (``profile_step``):
+    the host's calls, kernels, wall, device busy, span and idle share."""
+    keys = ("host_api_calls", "host_calls", "device_events", "wall_ms",
+            "device_busy_ms", "device_span_ms", "device_idle_share")
+    with torch.no_grad(), enc._graphs.lock:
+        h = enc.encode_graph(bucket, batch)
+        eager = profile_step(torch, h._step)
+        graph = profile_step(torch, h.graph.replay)
+    return {"eager": {k: eager[k] for k in keys},
+            "captured": {k: graph[k] for k in keys}}
 
 
 def int8_linear_before(torch, x, qw, b=None):
@@ -1347,6 +1456,8 @@ def duplex_flagship(torch, kernels, asr_params, tcfg, vcfg, tts_params,
                   f"launched {name}: {launches}")
         runs[mode] = {
             "warmup_s": warm_s,
+            "fronts": (front_stats(enc) if eager
+                       else check_fronts("duplex_flagship", enc)),
             "graph": {"encoder": graph_stats(enc._graphs),
                       "synthesizer": graph_stats(syn.streamer()._graphs)},
             "turns": [{k: v for k, v in t.items()
@@ -1419,12 +1530,15 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
         for k in kernels:
             k.launches = 0
 
-    def check_launches(where, launches, batches):
+    def check_launches(where, launches, batches, captured=0):
+        # a front captured inside the window ran once eagerly first (its
+        # warm-up), then replayed
         check(launches["mel_fused"] >= batches
-              and launches["flash_attn"] == acfg.encoder_layers * batches
+              and launches["flash_attn"]
+              == acfg.encoder_layers * (batches + captured)
               and launches["yin_block_sums"] >= batches,
               f"sessions_flagship {where}: launches {launches} for "
-              f"{batches} encode batches")
+              f"{batches} encode batches, {captured} fronts captured")
 
     # (a) batch scaling: ms per encode_batch, best of 2 after a warm-up
     # (which captures the decode step), then once with the eager loop
@@ -1447,7 +1561,10 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
             phrases))
         check(res == first, f"sessions_flagship b={b}: the eager encode "
               f"gives {res}, the replayed one {first}")
+        front_ms = front_turns(torch, enc, phrases, f"sessions_flagship "
+                               f"b={b}", rounds=1)
         scaling[str(b)] = {"encode_ms": times, "best_ms": min(times),
+                           "front_turns_ms": front_ms,
                            "audio_s_per_s": b * 2.0 / (min(times) / 1e3),
                            "eager_ms": eager_ms,
                            "eager_audio_s_per_s": b * 2.0 / (eager_ms / 1e3),
@@ -1473,6 +1590,7 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
                 encoded.dtype, 1, acfg.max_decode_tokens, torch.bfloat16,
                 False, enc.tokenizer.eot, enc.device))
     scaling_graph = graph_stats(enc._graphs)
+    scaling_fronts = check_fronts("sessions_flagship", enc)
     del enc, enc_eager, audio, mel, encoded
     torch.cuda.empty_cache()
 
@@ -1516,6 +1634,7 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
         mgr._consume_vad = timed(mgr._consume_vad)
         for i in range(SESSION_COUNT):
             mgr.add_session(f"s{i}")
+        fronts = len(serve_enc._graphs.holders("encode"))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -1536,11 +1655,13 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
         finally:
             del serve_enc.encode_batch_submit
         launches = read_launches()
+        captured = len(serve_enc._graphs.holders("encode")) - fronts
         check_launches(f"tick loop ({mode_cfg.runtime.max_inflight_encodes} "
-                       f"in flight)", launches, len(sizes))
+                       f"in flight)", launches, len(sizes), captured)
         return {"seconds": seconds, "packets": packets,
                 "audio_s_per_s": total_audio_s / seconds,
                 "encode_batches": len(sizes), "batch_sizes": sizes,
+                "fronts_captured": captured,
                 "vad_ms_per_tick_mean": float(np.mean(tick_vad_ms)),
                 "vad_ms_per_tick_max": float(np.max(tick_vad_ms)),
                 "launches": launches,
@@ -1585,6 +1706,8 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
                  "bfloat16, max_decode_tokens 24, bucket 2 s",
           "scaling": scaling, "decode_step_b64": step,
           "decode_step_b64_graph": step_graph, "scaling_graph": scaling_graph,
+          "scaling_fronts": scaling_fronts,
+          "tick_loop_fronts": check_fronts("sessions tick loop", graph_enc),
           "tick_loop_graph": graph_stats(graph_enc._graphs),
           "tick_loop": {"sessions": SESSION_COUNT, "ticks": n_ticks,
                         "audio_s": total_audio_s,
@@ -2795,10 +2918,11 @@ def whisper_dropin(torch, kernels, params, fcfg, phrases) -> dict:
                                  buckets=(bucket,), device="cuda", eager=True)
 
     _, warmup_ms = synced_ms(torch, benc.warmup)
-    keys = list(benc._graphs._holders)
-    check(len(keys) == 1 and keys[0][2] == 1 and keys[0][5] == len(sot),
+    keys = greedy_keys(benc)
+    check(len(keys) == 1 and keys[0][2] == 1 and keys[0][5] == len(sot)
+          and len(benc._graphs.holders("encode")) == 1,
           f"warmup captured {[(k[2], k[5]) for k in keys]} (batch, "
-          f"prompt_len)")
+          f"prompt_len) and {front_stats(benc)}")
     benc_eager.warmup()
 
     def run(enc):
@@ -2818,8 +2942,12 @@ def whisper_dropin(torch, kernels, params, fcfg, phrases) -> dict:
         tokens and packets throughout."""
         acfg = enc.cfg.asr
         reset_launches(kernels)
+        fronts = len(enc._graphs.holders("encode"))
         packets, tokens, res, first_ms = run(enc)
         launches = read_launches(kernels)
+        # a front captured by this encode ran once eagerly before its
+        # capture (its warm-up), then replayed
+        captured = len(enc._graphs.holders("encode")) - fronts
         ms = {"graph": [], "eager": []}
         for eager in (True, False, True, False):
             p, t, _, m = run(enc_eager if eager else enc)
@@ -2833,7 +2961,7 @@ def whisper_dropin(torch, kernels, params, fcfg, phrases) -> dict:
               and len(packets) == FLAGSHIP_BATCH
               and all(np.isfinite(r["f0"]) and np.isfinite(r["rms"])
                       for r in res), f"{name}: results {res}")
-        keys = list(enc._graphs._holders)
+        keys = greedy_keys(enc)
         check(all(k[5] == len(sot) for k in keys)
               and any(k[2] == FLAGSHIP_BATCH for k in keys),
               f"{name}: holders {[(k[2], k[5]) for k in keys]}")
@@ -2843,22 +2971,28 @@ def whisper_dropin(torch, kernels, params, fcfg, phrases) -> dict:
                 enc.mel_frame_budget(bucket) // 2, torch.bfloat16, len(sot),
                 acfg.max_decode_tokens, torch.bfloat16,
                 acfg.decode_cross_kv_int8, bpe.eot, enc.device)
-            check(holder.graph.replays > 0 and len(enc._graphs._holders)
-                  == len(keys), f"{name}: the b = 8 holder was not replayed")
+            check(holder.graph.replays > 0
+                  and len(enc._graphs.holders("greedy")) == len(keys),
+                  f"{name}: the b = 8 holder was not replayed")
             step = profile_graph_step(torch, holder)
+        bits = front_bits(torch, enc, phrases, name)
+        check(launches["flash_attn"] == acfg.encoder_layers * (1 + captured),
+              f"{name}: {launches['flash_attn']} flash_attn launches, "
+              f"{captured} fronts captured")
         return launches, {
             "first_encode_ms": first_ms, "submit_ms": ms,
+            "fronts_captured_by_first": captured,
             "encode_batch_ms": sync_ms,
             "holders": [{"batch": k[2], "prompt_len": k[5]} for k in keys],
             "decode_step_graph": step, "graph": graph_stats(enc._graphs),
+            "front_bits": bits, "fronts": check_fronts(name, enc),
             "tokens_equal_eager": True, "packets_byte_equal_eager": True,
             "texts": [r["text"][:80] for r in res][:2],
             "tokens_row0": tokens[0].tolist()}
 
     launches, dense = graph_and_eager(benc, benc_eager, "whisper_dropin")
     check(all(launches[k] > 0 for k in
-              ("mel_fused", "flash_attn", "yin_block_sums"))
-          and launches["flash_attn"] == fcfg.asr.encoder_layers,
+              ("mel_fused", "flash_attn", "yin_block_sums")),
           f"whisper_dropin launches {launches}")
     del benc, benc_eager
     torch.cuda.empty_cache()
@@ -4104,7 +4238,9 @@ def main() -> None:
     fcfg = fcfg.override(**{"asr.max_decode_tokens": 24})
     bucket = int(SR * FLAGSHIP_SECONDS)
     t0 = time.perf_counter()
-    fenc = SemanticEncoder(fcfg, buckets=(bucket,), device="cuda")
+    # the 2 s bucket too, for the one-phrase encode of the front's turns
+    fenc = SemanticEncoder(fcfg, buckets=(SESSION_BUCKET, bucket),
+                           device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     phrases = [voiced_phrase(f0=140.0 + 15 * i, seconds=FLAGSHIP_SECONDS,
@@ -4131,7 +4267,7 @@ def main() -> None:
     # self- and the cross-attention of each layer
     n_dec = fcfg.asr.decoder_layers
     step_counts = [{k.name: n[0] for k, n in g.counts.items()}
-                   for g in fenc._graphs.graphs()]
+                   for g in fenc._graphs.graphs("greedy")]
     check(step_counts and all(c == {"layer_norm": 3 * n_dec + 1,
                                     "decode_attn": 2 * n_dec}
                               for c in step_counts),
@@ -4154,6 +4290,28 @@ def main() -> None:
         (e2e_eager if eager else e2e).append(ms)
         check(res == results, f"flagship: the {'eager' if eager else 'graph'}"
               f" encode gives {res}, the first {results}")
+
+    # the front (everything before the greedy loop): one replay of its
+    # capture against its ops issued from Python, bit for bit, in turns at
+    # b 8 x 10 s and at one 2 s phrase; the host's calls of each; one
+    # replayed front traced
+    from janus_tpu_torch.tools.trace_step import trace_front
+
+    one = [voiced_phrase(f0=150.0, seconds=2.0, amp=0.12, seed=0)]
+    front = {"bits_b8": front_bits(torch, fenc, phrases, "flagship"),
+             "bits_b1": front_bits(torch, fenc, one, "flagship b1"),
+             "turns_b8_ms": front_turns(torch, fenc, phrases, "flagship"),
+             "turns_b1_2s_ms": front_turns(torch, fenc, one, "flagship b1"),
+             "encode_host_calls": front_host_calls(torch, fenc, bucket,
+                                                   FLAGSHIP_BATCH),
+             "encode_host_calls_b1": front_host_calls(torch, fenc,
+                                                      SESSION_BUCKET, 1),
+             "trace_b8": trace_front(fenc, bucket, FLAGSHIP_BATCH),
+             "trace_b1_2s": trace_front(fenc, SESSION_BUCKET, 1),
+             "fronts": check_fronts("flagship", fenc)}
+    calls = front["encode_host_calls"]["captured"]
+    check(calls["device_events"] in (None, 0) or calls["host_calls"] == 1,
+          f"flagship: a replayed front made {calls['host_calls']} host calls")
 
     # the same stages, one at a time, synchronised around each
     acfg, pcfg = fcfg.asr, fcfg.prosody
@@ -4258,7 +4416,7 @@ def main() -> None:
           "decode_step_graph": decode_step_graph,
           "captured_step_launches": step_counts[0],
           "head_fp32_gib": head_gib,
-          "graph": graph_stats(fenc._graphs),
+          "graph": graph_stats(fenc._graphs), "front": front,
           "graph_tokens_equal_eager": True, "nvidia_smi": nvidia_smi_line(),
           "texts": [r["text"] for r in results][:2],
           "f0": [r["f0"] for r in results]})
@@ -4310,7 +4468,7 @@ def main() -> None:
     # the prefill's forward runs eagerly (counted by the patch), every step
     # is a replay of the captured one
     forwards[0] += qenc._graphs.replays - replays
-    q_step_counts = {k.name: n[0] for g in qenc._graphs.graphs()
+    q_step_counts = {k.name: n[0] for g in qenc._graphs.graphs("greedy")
                      for k, n in g.counts.items()}
     check(q_launches["mel_fused"] >= 1, f"int8 mel launches {q_launches}")
     check(q_launches["flash_attn"] == qcfg.asr.encoder_layers,
@@ -4343,6 +4501,12 @@ def main() -> None:
               f"{'eager' if eager else 'graph'} encode gives {res}, the "
               f"first {q_results}")
     del qenc_eager
+    q_front = {"bits_b8": front_bits(torch, qenc, phrases, "flagship_int8"),
+               "turns_b8_ms": front_turns(torch, qenc, phrases,
+                                          "flagship_int8"),
+               "encode_host_calls": front_host_calls(torch, qenc, bucket,
+                                                     FLAGSHIP_BATCH),
+               "fronts": check_fronts("flagship_int8", qenc)}
 
     # the two stages the int8 weights and K/V change, three times each as
     # phase 4 times them (the eager decode once)
@@ -4458,7 +4622,7 @@ def main() -> None:
           "e2e_ms": q_e2e, "e2e_eager_ms": q_e2e_eager,
           "rtf": min(q_e2e) / 1e3 / audio_s,
           "captured_step_launches": q_step_counts,
-          "graph": graph_stats(qenc._graphs),
+          "graph": graph_stats(qenc._graphs), "front": q_front,
           "graph_tokens_equal_eager": True, "nvidia_smi": nvidia_smi_line(),
           "decode_step_graph": q_decode_step_graph,
           "decode_step_graph_before": q_decode_step_before,

@@ -29,9 +29,10 @@ from janus_tpu_torch.ops.decode_attention import attend_cache
 from janus_tpu_torch.ops.flash import flash_attention
 from janus_tpu_torch.ops.layers import (add_layer_norm, conv1d,
                                         embedding_lookup, gelu, linear,
-                                        row_linear, sinusoid_positions)
+                                        linear_into, row_linear,
+                                        sinusoid_positions)
 from janus_tpu_torch.ops.mel_fused import log_mel_spectrogram_fused
-from janus_tpu_torch.ops.quant import QuantKVT, quantize_kv_t
+from janus_tpu_torch.ops.quant import QuantKVT, empty_kv_t, quantize_kv_t
 from janus_tpu_torch.parallel.collectives import (all_gather, axis_index,
                                                   axis_size, enter_model,
                                                   local_heads)
@@ -49,6 +50,7 @@ __all__ = [
     "greedy_decode",
     "GreedyGraph",
     "greedy_graph",
+    "greedy_key",
     "prepare_mel",
     "transcribe_mel",
 ]
@@ -166,21 +168,49 @@ def init_decode_state(params: Params, cfg: ASRConfig, enc: torch.Tensor,
 
 
 def _cross_kv(params: Params, cfg: ASRConfig, enc: torch.Tensor,
-              cross_kv_int8: bool) -> Tuple[List, List]:
-    """Each decoder layer's cross-attention K and V of ``enc``."""
+              cross_kv_int8: bool, out: Optional[Tuple[List, List]] = None
+              ) -> Tuple[List, List]:
+    """Each decoder layer's cross-attention K and V of ``enc``, written in
+    place into ``out`` (a :class:`DecodeState`'s ``(cross_k, cross_v)``,
+    a decode loop's static buffers) or into new buffers of that layout
+    (:func:`_cross_kv_buffers`), with no second copy: a dense K/V is the
+    product's own output (:func:`~..ops.layers.linear_into`), an int8 one
+    is quantized layer by layer into its :class:`~..ops.quant.QuantKVT`."""
+    if out is None:
+        out = _cross_kv_buffers(params, cfg, enc, cross_kv_int8)
     blocks = params["decoder"]["blocks"]
     heads = local_heads(cfg.num_heads, blocks[0]["cross"]["k"]["w"])
     enc = enter_model(enc)
-    ks, vs = [], []
-    for blk in blocks:
-        p = blk["cross"]
-        ks.append(split_heads(linear(enc, p["k"]["w"], p["k"].get("b")),
-                              heads))
-        vs.append(split_heads(linear(enc, p["v"]["w"], p["v"]["b"]), heads))
-    if cross_kv_int8:
-        ks = [quantize_kv_t(k) for k in ks]
-        vs = [quantize_kv_t(v) for v in vs]
-    return ks, vs
+    for blk, dk, dv in zip(blocks, *out):
+        for p, dst in ((blk["cross"]["k"], dk), (blk["cross"]["v"], dv)):
+            if isinstance(dst, QuantKVT):
+                quantize_kv_t(split_heads(linear(enc, p["w"], p.get("b")),
+                                          heads), out=dst)
+            else:
+                linear_into(enc, p["w"], p.get("b"), merge_heads(dst))
+    return out
+
+
+def _cross_kv_buffers(params: Params, cfg: ASRConfig, enc: torch.Tensor,
+                      cross_kv_int8: bool) -> Tuple[List, List]:
+    """Uninitialised cross K and V buffers for ``enc[..., T, d]``, one
+    each a decoder layer: dense ``[..., H, T, Dh]`` head views of one
+    ``[..., T, H·Dh]`` tensor in ``enc``'s dtype (the layout of the
+    product), or int8 :class:`~..ops.quant.QuantKVT` in the K4 kernel's
+    padded layout."""
+    blocks = params["decoder"]["blocks"]
+    heads = local_heads(cfg.num_heads, blocks[0]["cross"]["k"]["w"])
+    dh = cfg.d_model // cfg.num_heads
+    lead, t = tuple(enc.shape[:-2]), enc.shape[-2]
+
+    def one():
+        if cross_kv_int8:
+            return empty_kv_t(lead + (heads,), t, dh, enc.device)
+        return split_heads(torch.empty(lead + (t, heads * dh),
+                                       dtype=enc.dtype, device=enc.device),
+                           heads)
+
+    return [one() for _ in blocks], [one() for _ in blocks]
 
 
 def _self_qkv(blk: Params, cfg: ASRConfig, h: torch.Tensor):
@@ -345,11 +375,13 @@ class GreedyGraph:
     by :func:`init_decode_state` itself, so they have the eager path's
     layout and strides.
 
-    :meth:`decode` fills it for one call (zeroes the self caches, copies
-    the new cross K/V in, prefills eagerly, sets the counters) and
-    replays the step; :meth:`advance` is one replay, which the host
-    refuses when it would write past the caches or read past the
-    position table."""
+    :meth:`prime` fills it for one call with device work only, which a
+    caller may capture (the encoder's front graph does): the self caches
+    zeroed, the cross K/V of ``enc`` written in place into the static
+    buffers, the prefill, the first token. :meth:`loop` replays the step
+    from there; :meth:`decode` is the two. :meth:`advance` is one replay,
+    which the host refuses when it would write past the caches or read
+    past the position table."""
 
     def __init__(self, graphs: StepGraphs, params: Params, cfg: ASRConfig,
                  batch: int, enc_frames: int, enc_dtype, prompt_len: int,
@@ -403,21 +435,17 @@ class GreedyGraph:
         self.graph.replay()
         self.fill += 1
 
-    def decode(self, enc: torch.Tensor, prompt: torch.Tensor) -> torch.Tensor:
-        """:func:`greedy_decode` of ``enc`` on the static state."""
+    def prime(self, enc: torch.Tensor, prompt: torch.Tensor) -> None:
+        """The start of :func:`greedy_decode` of ``enc`` on the static
+        state, as device work over static tensors only (no read-back, no
+        upload): a capture of it replays it for the next ``enc``."""
         st = self.state
         for c in st.self_caches:
             c.k.zero_()
             c.v.zero_()
             c.length = 0
-        ks, vs = _cross_kv(self.params, self.cfg, enc, self.cross_kv_int8)
-        for dst, src in zip(st.cross_k + st.cross_v, ks + vs):
-            if isinstance(dst, QuantKVT):
-                dst.q.copy_(src.q)
-                dst.scale.copy_(src.scale)
-            else:
-                dst.copy_(src)
-        del ks, vs
+        _cross_kv(self.params, self.cfg, enc, self.cross_kv_int8,
+                  out=(st.cross_k, st.cross_v))
         first_logits, _ = decoder_prefill(self.params, self.cfg, prompt, st)
         first = torch.argmax(first_logits, dim=-1).to(torch.int32)
         self.out.fill_(self.eot_id)
@@ -425,12 +453,31 @@ class GreedyGraph:
         self.done.copy_(first == self.eot_id)
         self.tok.copy_(first)
         self.pos.fill_(self.prompt_len)
+
+    def loop(self) -> torch.Tensor:
+        """The steps after :meth:`prime`: replays, with the ``done`` flags
+        read back every ``DONE_CHECK_EVERY`` steps; the tokens
+        ``[B, max_new]`` (a copy: the buffer serves the next call)."""
         self.fill = self.prompt_len
         for step in range(1, self.max_new):
             if step % DONE_CHECK_EVERY == 1 and bool(self.done.all()):
                 break
             self.advance()
         return self.out[:, :self.max_new].clone()
+
+    def decode(self, enc: torch.Tensor, prompt: torch.Tensor) -> torch.Tensor:
+        """:func:`greedy_decode` of ``enc`` on the static state."""
+        self.prime(enc, prompt)
+        return self.loop()
+
+
+def greedy_key(cfg: ASRConfig, batch: int, enc_frames: int, enc_dtype,
+               prompt_len: int, max_new: int, cache_dtype,
+               cross_kv_int8: bool, eot_id: int) -> tuple:
+    """The key of a :class:`GreedyGraph` in its :class:`~janus_tpu_torch.
+    runtime.step_graph.StepGraphs` (its kind first)."""
+    return ("greedy", cfg, batch, enc_frames, enc_dtype, prompt_len,
+            max_new, cache_dtype, cross_kv_int8, eot_id)
 
 
 def greedy_graph(graphs: StepGraphs, params: Params, cfg: ASRConfig,
@@ -440,8 +487,8 @@ def greedy_graph(graphs: StepGraphs, params: Params, cfg: ASRConfig,
     """The :class:`GreedyGraph` of ``graphs`` for this shape and tree,
     captured at its first request (so an encoder can capture its buckets
     up front). Call with ``graphs.lock`` held."""
-    key = ("greedy", cfg, batch, enc_frames, enc_dtype, prompt_len, max_new,
-           cache_dtype, cross_kv_int8, eot_id)
+    key = greedy_key(cfg, batch, enc_frames, enc_dtype, prompt_len, max_new,
+                     cache_dtype, cross_kv_int8, eot_id)
     return graphs.holder(params, key, lambda: GreedyGraph(
         graphs, params, cfg, batch, enc_frames, enc_dtype, prompt_len,
         max_new, cache_dtype, cross_kv_int8, eot_id, device))

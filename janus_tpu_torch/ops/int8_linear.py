@@ -144,11 +144,12 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _launch(x: torch.Tensor, qw, b: Optional[torch.Tensor],
-            splits: Optional[int] = None, pdl: Optional[bool] = None):
+            splits: Optional[int] = None, pdl: Optional[bool] = None,
+            out: Optional[torch.Tensor] = None):
     """One call of the kernel: ``(y, xq, x_scale)``, the quantized rows and
     their scales as the first launch wrote them. ``splits`` and ``pdl``
     override :func:`plan_splits` (0: the warpgroup product, at any row
-    count) and :func:`use_pdl`."""
+    count) and :func:`use_pdl`; ``y`` is ``out`` where one is given."""
     q, scale = qw.q, qw.scale
     if x.device.type != "cuda":
         raise ValueError(f"int8_linear kernel: {x.device} is not a CUDA "
@@ -181,7 +182,17 @@ def _launch(x: torch.Tensor, qw, b: Optional[torch.Tensor],
     if x2.data_ptr() % 16:  # a view into a row: the kernel loads 16 bytes
         x2 = x2.clone()
     m = x2.shape[0]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if out is None:
+        y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    elif (out.dtype != x.dtype or out.device != x.device
+          or tuple(out.shape) != tuple(x.shape[:-1]) + (n,)
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(
+            f"int8_linear kernel: out {out.dtype} {tuple(out.shape)} on "
+            f"{out.device} is not a contiguous, 16-byte aligned "
+            f"{x.dtype} {tuple(x.shape[:-1]) + (n,)} on {x.device}")
+    else:
+        y = out.view(m, n)
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     xs = torch.empty((m,), dtype=torch.float32, device=x.device)
     if m > 0:
@@ -214,9 +225,11 @@ def _launch(x: torch.Tensor, qw, b: Optional[torch.Tensor],
 
 
 def int8_linear(x: torch.Tensor, qw,
-                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+                b: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel on a CUDA tensor: fp32 or bf16 ``x[..., K]``, ``qw`` a
     ``(q, scale)`` pair with ``q[K, N]`` int8 K-contiguous (see
     :func:`k_contiguous`), K a multiple of 32, ``scale`` and ``b`` ``[N]``
-    fp32 or bf16; anything else raises."""
-    return _launch(x, qw, b)[0]
+    fp32 or bf16; anything else raises. ``out`` (contiguous ``[..., N]`` in
+    x's dtype) is where the product writes ``y``."""
+    return _launch(x, qw, b, out=out)[0]

@@ -10,6 +10,7 @@ gradient is the plain body's."""
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +27,7 @@ from janus_tpu_torch.parallel.collectives import exit_model, model_size
 
 __all__ = [
     "linear",
+    "linear_into",
     "linear_gelu",
     "linear_group",
     "row_linear",
@@ -75,6 +77,31 @@ def linear(x: torch.Tensor, w,
     # cast to the compute dtype, so ``b.to(x.dtype)`` loses nothing.
     y = torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
     return y.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+def linear_into(x: torch.Tensor, w, b: Optional[torch.Tensor],
+                out: torch.Tensor) -> torch.Tensor:
+    """:func:`linear` written into ``out`` (contiguous, of its shape and
+    dtype) with the same ops, so the same bits, and no second buffer: the
+    product's own output is ``out`` (the dense ``matmul`` / ``addmm`` with
+    ``out=``, the int8 kernel's ``out``). A mixed-dtype product, and one
+    that autograd records (``out=`` takes no gradient), is computed, then
+    copied."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (x, w, b)):
+        return out.copy_(linear(x, w, b))
+    if isinstance(w, DynQuantizedWeight):
+        return linear_int8_dynamic(x, w, b, out=out)
+    if isinstance(w, QuantizedWeight):
+        w = dequant(w, x.dtype)
+    if w.dtype != x.dtype or not out.is_contiguous():
+        return out.copy_(linear(x, w, b))
+    if b is None:
+        return torch.matmul(x, w, out=out)
+    torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w,
+                out=out.view(-1, w.shape[-1]))
+    return out
 
 
 def _mixed_kernel(x: torch.Tensor, w) -> bool:
@@ -325,7 +352,16 @@ def sinusoid_positions(length: int, channels: int,
                        device="cpu") -> torch.Tensor:
     """Whisper-style sinusoidal position embedding ``[length, channels]``:
     first half sin, second half cos, log-spaced timescales (float64 numpy,
-    cast to float32)."""
+    cast to float32). The table is made once per (shape, device) and
+    shared by every caller, which must not write to it: an encode then
+    uploads nothing, so a captured encode can run it."""
+    return _sinusoid_table(int(length), int(channels), float(max_timescale),
+                           torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_table(length: int, channels: int, max_timescale: float,
+                    device: torch.device) -> torch.Tensor:
     assert channels % 2 == 0
     log_inc = np.log(max_timescale) / (channels // 2 - 1)
     inv = np.exp(-log_inc * np.arange(channels // 2))

@@ -97,19 +97,30 @@ def quantize_kv(x: torch.Tensor) -> QuantKV:
 _ROW_ALIGN = 16  # bytes: the K4 kernel's widest load
 
 
-def quantize_kv_t(x: torch.Tensor) -> QuantKVT:
+def empty_kv_t(lead: tuple, t: int, dh: int, device) -> QuantKVT:
+    """A zeroed :class:`QuantKVT` for ``[*lead, T, Dh]``: ``q[*lead, Dh,
+    T]`` whose rows are stored ``_ROW_ALIGN``-byte aligned (zero padding
+    past ``T``, outside the view), ``scale[*lead, T]`` fp32."""
+    rows = torch.zeros(tuple(lead) + (dh, -(-t // _ROW_ALIGN) * _ROW_ALIGN),
+                       dtype=torch.int8, device=device)
+    scale = torch.zeros(tuple(lead) + (t,), dtype=torch.float32,
+                        device=device)
+    return QuantKVT(q=rows[..., :t], scale=scale)
+
+
+def quantize_kv_t(x: torch.Tensor,
+                  out: Optional[QuantKVT] = None) -> QuantKVT:
     """Per-position int8 quantization of ``[..., T, Dh]`` into the
-    head-dim-major layout ``q[..., Dh, T]``, ``scale[..., T]``; the
-    rows of ``q`` are stored ``_ROW_ALIGN``-byte aligned (zero padding past
-    ``T``, outside the view)."""
+    head-dim-major layout of :func:`empty_kv_t`, written into ``out`` (a
+    decode loop's static buffers) or into a new one."""
     xf = x.float()
     scale = _scale_of(xf.abs().amax(dim=-1))
     q = _round_int8(xf / scale[..., None])
-    t, dh = q.shape[-2:]
-    rows = torch.zeros(q.shape[:-2] + (dh, -(-t // _ROW_ALIGN) * _ROW_ALIGN),
-                       dtype=torch.int8, device=q.device)
-    rows[..., :t] = q.transpose(-1, -2)
-    return QuantKVT(q=rows[..., :t], scale=scale)
+    if out is None:
+        out = empty_kv_t(q.shape[:-2], *q.shape[-2:], device=q.device)
+    out.q.copy_(q.transpose(-1, -2))
+    out.scale.copy_(scale)
+    return out
 
 
 def dequant_kv(x, dtype=torch.bfloat16):
@@ -135,16 +146,19 @@ def dequant(qw, dtype=torch.float32) -> torch.Tensor:
 
 
 def linear_int8_dynamic(x: torch.Tensor, qw,
-                        b: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        b: Optional[torch.Tensor] = None,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full int8 path: per-row dynamic activation quantization, int8 x
     int8 -> int32 (exact), then ``acc * x_scale * w_scale`` and the bias
     in fp32 and one cast to ``x.dtype``, in the JAX package's order. ``qw``
     is any ``(q, scale)`` pair. A CPU tensor runs the plain version; a CUDA
     tensor launches the kernel (its weight K-contiguous, see
-    :func:`column_major`) or raises."""
+    :func:`column_major`) or raises. ``out`` (contiguous, of the result's
+    shape and dtype) takes the result: the kernel writes it there."""
     if x.device.type == "cpu":
-        return int8_linear_plain(x, qw, b)
-    return int8_linear(x, qw, b)
+        y = int8_linear_plain(x, qw, b)
+        return y if out is None else out.copy_(y)
+    return int8_linear(x, qw, b, out=out)
 
 
 def quantize_tree(params: Any, min_size: int = 4096,

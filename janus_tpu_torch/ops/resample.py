@@ -151,16 +151,26 @@ def _decimate_matmul_weights(factor: int, num_taps: int,
     return w, num_taps_r, overlap
 
 
+@functools.lru_cache(maxsize=None)
+def _decimate_matmul_table(factor: int, num_taps: int, block_out: int,
+                           device: torch.device) -> torch.Tensor:
+    """:func:`_decimate_matmul_weights`' tap matrix on ``device``, made
+    once per (shape, device) and shared (callers must not write to it), so
+    that a call uploads nothing and a captured encode can run it."""
+    return torch.from_numpy(_decimate_matmul_weights(
+        factor, num_taps, block_out)[0]).to(device)
+
+
 def _decimate_fir(x: torch.Tensor, factor: int, num_taps: int,
                   block_out: int = 256) -> torch.Tensor:
     """``y[m] = Σ_j h[j]·x[factor·m + j − D]`` evaluated ``block_out``
     outputs at a time: ``y = c_f @ W[:chunk] + head_{f+1} @ W[chunk:]``
     over non-overlapping chunks of the padded signal (two fp32 matmuls)."""
-    w_np, num_taps_r, overlap = _decimate_matmul_weights(
+    _, num_taps_r, overlap = _decimate_matmul_weights(
         factor, num_taps, block_out)
     half = num_taps_r // 2
     chunk = factor * block_out
-    w = torch.from_numpy(w_np).to(x.device)
+    w = _decimate_matmul_table(factor, num_taps, block_out, x.device)
     w_main, w_tail = w[:chunk], w[chunk:]
 
     batch_shape = x.shape[:-1]

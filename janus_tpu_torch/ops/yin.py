@@ -40,11 +40,23 @@ __all__ = [
 PITCH_TAGS = ("Deep", "Normal", "High")
 
 
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(x, dim=-1)``, the same bits on every run. PyTorch
+    scans a tensor that is one row (numel == the scanned size) on CUDA
+    with CUB's single-pass scan, whose float sums follow the blocks'
+    timing (a one-phrase encode's f0 moved in its last bits from run to
+    run); beside a zero row it takes the row-wise scan, each row's sums
+    in a fixed order. On the CPU the rows are scanned alike."""
+    if x.numel() != x.shape[-1]:
+        return torch.cumsum(x, dim=-1)
+    return torch.cumsum(torch.stack([x, torch.zeros_like(x)]), dim=-1)[0]
+
+
 def _cmndf(d: torch.Tensor) -> torch.Tensor:
     """Cumulative-mean-normalized difference: y[0]=1,
     y[τ] = d[τ]·τ / Σ_{k=1..τ} d[k] (1 where the running sum is 0)."""
     tau = torch.arange(d.shape[-1], dtype=d.dtype, device=d.device)
-    running = torch.cumsum(d, dim=-1) - d[..., :1]  # excludes τ=0
+    running = _cumsum(d) - d[..., :1]  # excludes τ=0
     y = torch.where(running > 0.0,
                     d * tau / torch.clamp_min(running, 1e-30),
                     torch.ones_like(d))
@@ -138,7 +150,7 @@ def _difference_function(x: torch.Tensor, n_lags: int,
     if n_lags_out is None:
         n_lags_out = n_lags
     a = x[..., :n_lags]
-    csum0 = F.pad(torch.cumsum(x * x, dim=-1), (1, 0))
+    csum0 = F.pad(_cumsum(x * x), (1, 0))
     tau = torch.arange(n_lags_out, device=x.device)
     energy = csum0[..., tau + n_lags] - csum0[..., tau]
     e0 = energy[..., :1]
@@ -291,7 +303,7 @@ def _track_difference_dft(padded: torch.Tensor, n_hops: int, r: int,
     # route's ~1e-6 relative noise would fabricate CMNDF dips there, so
     # those rows' cross is snapped to zero from exact block energies.
     arow = torch.sum(zblocks, dim=-1)                 # [b, n_blocks]
-    acs = F.pad(torch.cumsum(arow, dim=-1), (1, 0))
+    acs = F.pad(_cumsum(arow), (1, 0))
     k_idx = torch.arange(n_hops, device=padded.device)
     ae = acs[:, k_idx + r] - acs[:, k_idx]            # [b, n_hops]
     cross = torch.where(ae[..., None] > 0.0, cross, torch.zeros_like(cross))
@@ -326,7 +338,7 @@ def _track_difference(audio: torch.Tensor, buf: int, hop: int,
     cross = _window_sums(bs, n_hops, r)
 
     # energy_k[τ] = Σ_{j=τ}^{τ+n_lags-1} w_k[j]² from squared prefix sums
-    s0 = F.pad(torch.cumsum(padded * padded, dim=-1), (1, 0))
+    s0 = F.pad(_cumsum(padded * padded), (1, 0))
     k_idx = torch.arange(n_hops, device=audio.device)
     tau = torch.arange(n_lags_out, device=audio.device)[None, :]
     base = (hop * k_idx)[:, None] + tau

@@ -10,6 +10,14 @@ then host-side token decode and the MessagePack packet. Phrases are
 padded into duration buckets and the batch to the next power of two, as
 in the JAX package.
 
+The JAX package jits the whole encode into one program per bucket. On the
+card the port runs everything before the greedy loop (the wire decode,
+the frontend, the encoder, the cross K/V, the prefill and the first
+token) as one replay of a captured :class:`EncodeGraph` per (bucket,
+padded batch, wire dtype), then the loop's replays; ``eager=True``, the
+CPU and a mesh of more than one rank run :meth:`SemanticEncoder.
+_encode_impl` op by op, which is the oracle the graph is held to.
+
 With a ``mesh`` the encode is the JAX package's pod layout, written as
 explicit SPMD: the lanes are split over ``data`` (each data rank runs the
 frontend, K1 and K3, on its own lanes, as ``shard_map`` does there), the
@@ -43,10 +51,11 @@ from janus_tpu_torch.parallel.collectives import (all_gather, axis_index,
                                                   axis_size, use_mesh)
 from janus_tpu_torch.parallel.sharding import (ASR_PARTITION_RULES,
                                                shard_params)
-from janus_tpu_torch.runtime.step_graph import StepGraphs, use_graphs
+from janus_tpu_torch.runtime.step_graph import (StepGraph, StepGraphs,
+                                                use_graphs)
 
-__all__ = ["SemanticEncoder", "PendingEncode", "duration_bucket",
-           "mel_frame_budget", "DEFAULT_BUCKETS"]
+__all__ = ["SemanticEncoder", "PendingEncode", "EncodeGraph", "encode_front",
+           "duration_bucket", "mel_frame_budget", "DEFAULT_BUCKETS"]
 
 
 class PendingEncode:
@@ -101,6 +110,133 @@ def duration_bucket(n_samples: int,
     return buckets[-1]
 
 
+def encode_front(params, cfg: JanusConfig, compute_dtype,
+                 audio_48k: torch.Tensor, n_valid: torch.Tensor,
+                 n_16k_frames: int, sp_mesh=None) -> Tuple[torch.Tensor, ...]:
+    """The encode before its decode loop, as the JAX package's
+    ``_encode_impl`` runs it: ``audio_48k[B, T48]`` in the wire dtype
+    (int16, μ-law uint8 or float32, zero-padded) and ``n_valid[B]`` →
+    (enc ``[B, n_16k_frames // 2, d_model]``, energy_code[B],
+    pitch_code[B], mean_f0[B], rms[B]). Device work only, no read-back and
+    no upload, so :class:`EncodeGraph` captures it."""
+    acfg, pcfg = cfg.asr, cfg.prosody
+    if audio_48k.dtype == torch.int16:
+        # int16 wire: the exact inverse of the capture-side
+        # int16 -> float32 / 32768 conversion; divide (not multiply by
+        # 1/32768) to round like the reference
+        audio_48k = audio_48k.float() / 32768.0
+    elif audio_48k.dtype == torch.uint8:
+        audio_48k = ulaw_decode(audio_48k)
+
+    t48 = audio_48k.shape[-1]
+    sample_mask = (torch.arange(t48, device=audio_48k.device)[None, :]
+                   < n_valid[:, None])
+    rms = rms_energy(audio_48k, sample_mask)
+    energy_code = classify_energy(rms, pcfg.energy_quiet, pcfg.energy_loud)
+
+    audio_16k = decimate_48k_to_16k(audio_48k)
+    if pcfg.yin_rate == 16_000:
+        track = yin_track(audio_16k, 16_000, pcfg.yin_window_16k,
+                          pcfg.yin_hop_16k, pcfg.yin_tolerance,
+                          fmin=pcfg.fmin_hz, fmax=pcfg.fmax_hz)
+        # ceil for both: the decimator emits ceil(n / 3) samples
+        n16 = -(-n_valid // 3)
+        n_hops = -(-n16 // pcfg.yin_hop_16k)
+    else:
+        # the native capture rate (aubio's 4096/512 geometry)
+        track = yin_track(audio_48k, cfg.audio.sample_rate,
+                          pcfg.yin_window, pcfg.hop, pcfg.yin_tolerance,
+                          fmin=pcfg.fmin_hz, fmax=pcfg.fmax_hz)
+        n_hops = -(-n_valid // pcfg.hop)
+    f0 = mean_voiced_pitch(track, n_valid=n_hops)
+    pitch_code = classify_pitch(f0, pcfg.pitch_deep_hz, pcfg.pitch_high_hz)
+
+    mel = asr_mod.prepare_mel(audio_16k, acfg, pad_to_frames=n_16k_frames)
+    enc = asr_mod.encode_audio(params, acfg, mel.to(compute_dtype),
+                               sp_mesh=sp_mesh)
+    return enc, energy_code, pitch_code, f0, rms
+
+
+class EncodeGraph:
+    """The send path up to the greedy loop for one (bucket, padded batch,
+    wire dtype) and one tree, captured as one :class:`~janus_tpu_torch.
+    runtime.step_graph.StepGraph`, as the JAX package compiles its encode
+    per shape.
+
+    It owns the static inputs (``audio[b, bucket]`` in the wire dtype and
+    ``n_valid[b]``, each with a pinned host twin), the static outputs
+    (``enc``, ``energy_code``, ``pitch_code``, ``f0``, ``rms``; allocated
+    outside the graphs' pool) and the :class:`~janus_tpu_torch.models.asr.
+    GreedyGraph` of its shape. Its step runs :func:`encode_front` (K3,
+    K1, and K2 with the encoder's products), then :meth:`GreedyGraph.
+    prime`: the cross K/V written in place into the loop's static
+    buffers, the self caches zeroed, the prefill and the first token. On
+    the CPU the step runs eagerly over the same buffers. It holds what it
+    needs of its encoder, not the encoder (which owns it)."""
+
+    def __init__(self, graphs: StepGraphs, params, cfg: JanusConfig,
+                 compute_dtype, prompt: torch.Tensor, eot: int, bucket: int,
+                 batch: int, wire_dtype: torch.dtype, device: torch.device):
+        acfg = cfg.asr
+        self.params, self.cfg, self.compute_dtype = params, cfg, compute_dtype
+        self.n_frames = mel_frame_budget(acfg, bucket)
+        self.greedy = asr_mod.greedy_graph(
+            graphs, params, acfg, batch, self.n_frames // 2, compute_dtype,
+            prompt.shape[-1], acfg.max_decode_tokens, compute_dtype,
+            acfg.decode_cross_kv_int8, eot, device)
+        self.prompt = prompt.expand(batch, prompt.shape[-1])
+        pinned = device.type == "cuda"
+        self.audio = torch.zeros((batch, bucket), dtype=wire_dtype,
+                                 device=device)
+        self.n_valid = torch.zeros((batch,), dtype=torch.long, device=device)
+        self.host_audio = torch.zeros((batch, bucket), dtype=wire_dtype,
+                                      pin_memory=pinned)
+        self.host_n_valid = torch.zeros((batch,), dtype=torch.long,
+                                        pin_memory=pinned)
+        # recorded after each upload: the next call rewrites the pinned
+        # buffers only once the copies have read them
+        self.uploaded = torch.cuda.Event() if pinned else None
+        self.enc = torch.zeros((batch, self.n_frames // 2, acfg.d_model),
+                               dtype=compute_dtype, device=device)
+        self.energy_code = torch.zeros((batch,), dtype=torch.int32,
+                                       device=device)
+        self.pitch_code = torch.zeros_like(self.energy_code)
+        self.f0 = torch.zeros((batch,), dtype=torch.float32, device=device)
+        self.rms = torch.zeros_like(self.f0)
+        before = graphs.pool_bytes()
+        self.graph = StepGraph(self._step, device,
+                               **graphs.capture_args(device))
+        # what this capture added to the shared pool
+        self.pool_bytes = graphs.pool_bytes() - before
+
+    def _step(self) -> None:
+        out = encode_front(self.params, self.cfg, self.compute_dtype,
+                           self.audio, self.n_valid, self.n_frames)
+        for dst, src in zip((self.enc, self.energy_code, self.pitch_code,
+                             self.f0, self.rms), out):
+            dst.copy_(src)
+        self.greedy.prime(self.enc, self.prompt)
+
+    def run(self, audio: np.ndarray, n_valid: np.ndarray):
+        """One encode of a padded wire batch: one non-blocking upload into
+        the static inputs, one replay of the front, the greedy loop. Returns
+        (tokens, energy_code, pitch_code, f0, rms), copies of the static
+        outputs that the next call may overwrite. Call with the graphs'
+        lock held."""
+        if self.uploaded is not None:
+            self.uploaded.synchronize()
+        self.host_audio.numpy()[...] = audio
+        self.host_n_valid.numpy()[...] = n_valid
+        self.audio.copy_(self.host_audio, non_blocking=True)
+        self.n_valid.copy_(self.host_n_valid, non_blocking=True)
+        if self.uploaded is not None:
+            self.uploaded.record()
+        self.graph.replay()
+        tokens = self.greedy.loop()
+        return (tokens,) + tuple(t.clone() for t in (
+            self.energy_code, self.pitch_code, self.f0, self.rms))
+
+
 class SemanticEncoder:
     """Batched phrase → (text, prosody) encoder with a host-side packet
     assembler. ``asr_params`` is a tree of tensors or arrays in the
@@ -124,6 +260,7 @@ class SemanticEncoder:
         # the eager Python loop (True), see asr.greedy_decode
         self.eager = eager
         self._graphs = StepGraphs()
+        self._prompts: dict = {}
         self.cfg = cfg or JanusConfig()
         self.tokenizer = tokenizer or ByteTokenizer()
         if asr_params is None:
@@ -157,67 +294,67 @@ class SemanticEncoder:
     @torch.no_grad()
     def _encode_impl(self, audio_48k: torch.Tensor, n_valid: torch.Tensor,
                      n_16k_frames: int) -> Tuple[torch.Tensor, ...]:
-        """``audio_48k[B, T48]`` int16 or float32 (zero-padded),
+        """``audio_48k[B, T48]`` in the wire dtype (zero-padded),
         ``n_valid[B]`` true lengths → (tokens[B, N], energy_code[B],
-        pitch_code[B], mean_f0[B], rms[B])."""
-        acfg, pcfg = self.cfg.asr, self.cfg.prosody
+        pitch_code[B], mean_f0[B], rms[B]), op by op: the eager path, and
+        the oracle of :class:`EncodeGraph`."""
         data = axis_size(self.mesh, "data")
         if data > 1:
             # this data rank's lanes (the batch is padded to tile "data")
             lane = axis_index(self.mesh, "data")
             audio_48k = audio_48k.chunk(data)[lane]
             n_valid = n_valid.chunk(data)[lane]
-        if audio_48k.dtype == torch.int16:
-            # int16 wire: the exact inverse of the capture-side
-            # int16 -> float32 / 32768 conversion; divide (not multiply by
-            # 1/32768) to round like the reference
-            audio_48k = audio_48k.float() / 32768.0
-        elif audio_48k.dtype == torch.uint8:
-            audio_48k = ulaw_decode(audio_48k)
-
-        t48 = audio_48k.shape[-1]
-        sample_mask = (torch.arange(t48, device=audio_48k.device)[None, :]
-                       < n_valid[:, None])
-        rms = rms_energy(audio_48k, sample_mask)
-        energy_code = classify_energy(rms, pcfg.energy_quiet, pcfg.energy_loud)
-
-        audio_16k = decimate_48k_to_16k(audio_48k)
-        if pcfg.yin_rate == 16_000:
-            track = yin_track(audio_16k, 16_000, pcfg.yin_window_16k,
-                              pcfg.yin_hop_16k, pcfg.yin_tolerance,
-                              fmin=pcfg.fmin_hz, fmax=pcfg.fmax_hz)
-            # ceil for both: the decimator emits ceil(n / 3) samples
-            n16 = -(-n_valid // 3)
-            n_hops = -(-n16 // pcfg.yin_hop_16k)
-        else:
-            # the native capture rate (aubio's 4096/512 geometry)
-            track = yin_track(audio_48k, self.cfg.audio.sample_rate,
-                              pcfg.yin_window, pcfg.hop, pcfg.yin_tolerance,
-                              fmin=pcfg.fmin_hz, fmax=pcfg.fmax_hz)
-            n_hops = -(-n_valid // pcfg.hop)
-        f0 = mean_voiced_pitch(track, n_valid=n_hops)
-        pitch_code = classify_pitch(f0, pcfg.pitch_deep_hz, pcfg.pitch_high_hz)
-
-        mel = asr_mod.prepare_mel(audio_16k, acfg, pad_to_frames=n_16k_frames)
+        acfg = self.cfg.asr
         sp_mesh = self.mesh if axis_size(self.mesh, "seq") > 1 else None
-        sot = self.tokenizer.sot_sequence()
         with use_mesh(self.mesh):
-            enc = asr_mod.encode_audio(self.params, acfg,
-                                       mel.to(self._compute_dtype),
-                                       sp_mesh=sp_mesh)
-            prompt = torch.tensor(sot, dtype=torch.long,
-                                  device=enc.device).expand(
-                                      audio_48k.shape[0], len(sot))
+            enc, *prosody = encode_front(
+                self.params, self.cfg, self._compute_dtype, audio_48k,
+                n_valid, n_16k_frames, sp_mesh=sp_mesh)
+            prompt = self._prompt(enc.device).expand(audio_48k.shape[0], -1)
             tokens = asr_mod.greedy_decode(
                 self.params, acfg, enc, prompt, self.tokenizer.eot,
                 max_new=acfg.max_decode_tokens,
                 cache_dtype=self._compute_dtype,
                 cross_kv_int8=acfg.decode_cross_kv_int8, eager=self.eager,
                 graphs=self._graphs)
-        out = (tokens, energy_code, pitch_code, f0, rms)
+        out = (tokens, *prosody)
         if data > 1:
             out = tuple(all_gather(a, self.mesh, "data") for a in out)
         return out
+
+    def _prompt(self, device: torch.device) -> torch.Tensor:
+        """The tokenizer's prompt ``[L]`` on ``device``, made once."""
+        p = self._prompts.get(device)
+        if p is None:
+            p = self._prompts[device] = torch.tensor(
+                self.tokenizer.sot_sequence(), dtype=torch.long,
+                device=device)
+        return p
+
+    def _graphed(self) -> bool:
+        """Whether an encode replays its :class:`EncodeGraph` (see
+        :func:`~janus_tpu_torch.runtime.step_graph.use_graphs`)."""
+        with use_mesh(self.mesh):
+            return use_graphs(self.device, self.eager)
+
+    def encode_graph(self, bucket: int, batch: int) -> EncodeGraph:
+        """The :class:`EncodeGraph` of ``bucket`` samples at ``batch``
+        padded lanes in the configured wire dtype, captured at its first
+        request. Call with ``self._graphs.lock`` held."""
+        rt = self.cfg.runtime
+        wire_dtype = (torch.uint8 if rt.encode_transfer_ulaw else
+                      torch.int16 if rt.encode_transfer_int16 else
+                      torch.float32)
+        acfg, sot = self.cfg.asr, self.tokenizer.sot_sequence()
+        key = ("encode", bucket, batch, wire_dtype) + asr_mod.greedy_key(
+            acfg, batch, self.mel_frame_budget(bucket) // 2,
+            self._compute_dtype, len(sot), acfg.max_decode_tokens,
+            self._compute_dtype, acfg.decode_cross_kv_int8,
+            self.tokenizer.eot)
+        return self._graphs.holder(self.params, key, lambda: EncodeGraph(
+            self._graphs, self.params, self.cfg, self._compute_dtype,
+            self._prompt(self.device), self.tokenizer.eot, bucket, batch,
+            wire_dtype, self.device))
 
     # -- host path ---------------------------------------------------------
 
@@ -257,9 +394,14 @@ class SemanticEncoder:
         elif self.cfg.runtime.encode_transfer_int16:
             batch = np.clip(np.round(batch * 32768.0),
                             -32768, 32767).astype(np.int16)
-        audio = torch.from_numpy(batch).to(self.device)
-        nv = torch.from_numpy(n_valid).to(self.device)
-        arrays = self._encode_impl(audio, nv, self.mel_frame_budget(bucket))
+        if self._graphed():
+            with torch.no_grad(), use_mesh(self.mesh), self._graphs.lock:
+                arrays = self.encode_graph(bucket, b_pad).run(batch, n_valid)
+        else:
+            audio = torch.from_numpy(batch).to(self.device)
+            nv = torch.from_numpy(n_valid).to(self.device)
+            arrays = self._encode_impl(audio, nv,
+                                       self.mel_frame_budget(bucket))
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -343,20 +485,14 @@ class SemanticEncoder:
         """Run one silent phrase of ``bucket`` samples (default the
         smallest bucket) through the whole encode: cuBLAS handles, the
         kernels' build and load, and the allocator's pools are set up
-        before the first real phrase. On the graph path the decode step of
-        one phrase in every bucket is captured too, so that no capture
-        happens inside a live turn."""
+        before the first real phrase. On the graph path the front and the
+        decode step of one phrase in every bucket are captured too, so that
+        no capture happens inside a live turn (other batch sizes are
+        captured at their first encode)."""
         b = bucket or self.buckets[0]
         self.encode_batch([np.zeros(b, dtype=np.float32)])
-        acfg = self.cfg.asr
-        with use_mesh(self.mesh), self._graphs.lock:
-            if not use_graphs(self.device, self.eager):
-                return
+        if not self._graphed():
+            return
+        with torch.no_grad(), use_mesh(self.mesh), self._graphs.lock:
             for bucket_ in self.buckets:
-                asr_mod.greedy_graph(
-                    self._graphs, self.params, acfg, 1,
-                    self.mel_frame_budget(bucket_) // 2, self._compute_dtype,
-                    len(self.tokenizer.sot_sequence()),
-                    acfg.max_decode_tokens, self._compute_dtype,
-                    acfg.decode_cross_kv_int8, self.tokenizer.eot,
-                    self.device)
+                self.encode_graph(bucket_, 1)

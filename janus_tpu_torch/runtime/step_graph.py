@@ -229,8 +229,14 @@ class StepGraphs:
             self._stream = torch.cuda.Stream(device)
         return {"pool": self._pool, "stream": self._stream}
 
-    def graphs(self) -> List[StepGraph]:
-        return [h.graph for h in self._holders.values()]
+    def holders(self, kind: Optional[str] = None) -> List[object]:
+        """The holders, or those whose key starts with ``kind`` (a tuple
+        key's first item: ``"greedy"``, ``"encode"``, ``"ar"``)."""
+        return [h for k, h in self._holders.items()
+                if kind is None or (isinstance(k, tuple) and k[0] == kind)]
+
+    def graphs(self, kind: Optional[str] = None) -> List[StepGraph]:
+        return [h.graph for h in self.holders(kind)]
 
     @property
     def replays(self) -> int:

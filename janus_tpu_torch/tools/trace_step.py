@@ -1,4 +1,5 @@
-"""Trace one replayed AR step of the flagship TTS on the card.
+"""Trace one replayed AR step of the flagship TTS, or one replayed send
+front of the large-v3 recognizer, on the card.
 
 Builds ``TTSConfig.flagship()`` with random bf16 weights from a seed,
 generates once through the captured step (:class:`~janus_tpu_torch.models.
@@ -15,21 +16,27 @@ once kernels overlap. Before the trace the step is timed bare on the
 host's clock: ``wall_ms`` is the median over rounds of 16 replays (the
 holder rewound before each round) of a round's time over its replays.
 
+:func:`trace_front` does the same for the front an encoder replays
+before its greedy loop (:class:`~janus_tpu_torch.runtime.codec.
+EncodeGraph`: the frontend, the encoder, the cross K/V and the prefill),
+and :func:`trace_replays` for any replay.
+
 Usage: ``python -m janus_tpu_torch.tools.trace_step [--batch 8 1]
-[--groups 256] [--out trace.json]``; prints one JSON line a batch (the
-full table goes to ``--out`` where given). Needs a card: the profiler's
-device events are the measurement.
+[--groups 256] [--front SECONDS] [--out trace.json]``; prints one JSON
+line a batch (the full table goes to ``--out`` where given). Needs a
+card: the profiler's device events are the measurement.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -41,12 +48,13 @@ from janus_tpu_torch.models.tokenizer import ByteTokenizer
 from janus_tpu_torch.runtime.step_graph import StepGraphs
 
 __all__ = ["PRODUCT", "KINDS", "kernel_rows", "kind_of", "timeline",
-           "gaps_by_kind", "span_us", "trace_ar_step", "main"]
+           "gaps_by_kind", "span_us", "trace_replays", "trace_ar_step",
+           "trace_front", "main"]
 
 # the names of matrix-product kernels: cuBLAS / cuBLASLt (gemm, gemv,
-# xmma, cutlass) and the port's own linears
-PRODUCT = re.compile(r"gemm|gemv|xmma|cutlass|mixed_linear|stream_product"
-                     r"|tile_product", re.IGNORECASE)
+# xmma, cutlass, nvjet) and the port's own linears
+PRODUCT = re.compile(r"gemm|gemv|xmma|cutlass|nvjet|mixed_linear"
+                     r"|stream_product|tile_product", re.IGNORECASE)
 
 
 # a kernel's kind, by name: the step's own kernels and PyTorch's GELU
@@ -135,46 +143,35 @@ def kernel_rows(trace: dict) -> List[dict]:
     return sorted(rows.values(), key=lambda r: -r["total_us"])
 
 
-@torch.no_grad()
-def trace_ar_step(batch: int, groups: int = 256, prompt: int = 32,
-                  device="cuda", out: Optional[str] = None) -> dict:
-    """One replayed AR step at ``batch`` lanes, a ``prompt``-wide text and a
-    budget of ``groups``, traced; returns the summary record."""
+def trace_replays(replay: Callable[[], None], device: torch.device,
+                  rewind: Callable[[], None] = lambda: None,
+                  rounds: int = 9, per_round: int = 16,
+                  out: Optional[str] = None) -> dict:
+    """``replay()`` (one replay of a captured graph) timed bare and then
+    traced once: ``wall_ms`` is the median over ``rounds`` of a round's
+    time over its ``per_round`` replays (``rewind()`` before each round
+    and before the traced replay), then every kernel of the traced replay
+    with its grid and block, the products summed apart, the timeline's
+    gaps by kind, and the device's span."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = resolve_device(device)
-    tok = ByteTokenizer()
-    cfg = TTSConfig.flagship()
-    params = cast_floating(tts_mod.init_tts(
-        torch.Generator(device=dev).manual_seed(0), cfg,
-        text_vocab=tok.vocab_size), torch.bfloat16)
-    graphs = StepGraphs()
-    text = torch.zeros((batch, prompt), dtype=torch.long, device=dev)
-    emo = torch.zeros((batch,), dtype=torch.long, device=dev)
-    tts_mod.tts_generate(params, cfg, text, emo, max_groups=groups,
-                         text_vocab=tok.vocab_size, stop_threshold=2.0,
-                         graphs=graphs)
-    with graphs.lock:
-        holder = tts_mod.ar_graph(graphs, params, cfg, batch, prompt + 3,
-                                  groups, 2.0, dev)
-        walls = []
-        for _ in range(9):
-            holder.group.zero_()
-            holder.steps = 0
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            for _ in range(16):
-                holder.advance()
-            torch.cuda.synchronize(dev)
-            walls.append(1e3 * (time.perf_counter() - t0) / 16)
-        holder.group.zero_()
-        holder.steps = 0
-        holder.advance()
-        torch.cuda.synchronize(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            holder.advance()
-            torch.cuda.synchronize(dev)
+    walls = []
+    for _ in range(rounds):
+        rewind()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(per_round):
+            replay()
+        torch.cuda.synchronize(device)
+        walls.append(1e3 * (time.perf_counter() - t0) / per_round)
+    rewind()
+    replay()
+    torch.cuda.synchronize(device)
+    rewind()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize(device)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -183,8 +180,7 @@ def trace_ar_step(batch: int, groups: int = 256, prompt: int = 32,
     rows, steps = kernel_rows(trace), timeline(trace)
     products = [r for r in rows if PRODUCT.search(r["name"])]
     record = {
-        "batch": batch, "groups": groups, "prompt": prompt,
-        "device": torch.cuda.get_device_name(dev),
+        "device": torch.cuda.get_device_name(device),
         "wall_ms": sorted(walls)[len(walls) // 2],
         "kernels": sum(r["count"] for r in rows),
         "busy_ms": sum(r["total_us"] for r in rows) / 1e3,
@@ -204,12 +200,78 @@ def trace_ar_step(batch: int, groups: int = 256, prompt: int = 32,
     return record
 
 
+@torch.no_grad()
+def trace_ar_step(batch: int, groups: int = 256, prompt: int = 32,
+                  device="cuda", out: Optional[str] = None) -> dict:
+    """One replayed AR step at ``batch`` lanes, a ``prompt``-wide text and a
+    budget of ``groups``, traced; returns the summary record."""
+    dev = resolve_device(device)
+    tok = ByteTokenizer()
+    cfg = TTSConfig.flagship()
+    params = cast_floating(tts_mod.init_tts(
+        torch.Generator(device=dev).manual_seed(0), cfg,
+        text_vocab=tok.vocab_size), torch.bfloat16)
+    graphs = StepGraphs()
+    text = torch.zeros((batch, prompt), dtype=torch.long, device=dev)
+    emo = torch.zeros((batch,), dtype=torch.long, device=dev)
+    tts_mod.tts_generate(params, cfg, text, emo, max_groups=groups,
+                         text_vocab=tok.vocab_size, stop_threshold=2.0,
+                         graphs=graphs)
+    with graphs.lock:
+        holder = tts_mod.ar_graph(graphs, params, cfg, batch, prompt + 3,
+                                  groups, 2.0, dev)
+
+        def rewind():
+            holder.group.zero_()
+            holder.steps = 0
+
+        record = trace_replays(holder.advance, dev, rewind, out=out)
+    return {"batch": batch, "groups": groups, "prompt": prompt, **record}
+
+
+@torch.no_grad()
+def trace_front(encoder, bucket: int, batch: int,
+                out: Optional[str] = None) -> dict:
+    """One replay of ``encoder``'s captured front (:class:`~janus_tpu_torch.
+    runtime.codec.EncodeGraph`) at ``bucket`` samples and ``batch`` padded
+    lanes, over whatever its static inputs hold (an encode before it
+    captures it and leaves its audio there), traced; the summary record.
+    A replay writes only static buffers, so replays need no rewind."""
+    with encoder._graphs.lock:
+        holder = encoder.encode_graph(bucket, batch)
+        record = trace_replays(holder.graph.replay, encoder.device,
+                               rounds=5, per_round=4, out=out)
+    return {"bucket": bucket, "batch": batch, **record}
+
+
+def _flagship_front(batch: int, seconds: float, device,
+                    out: Optional[str] = None) -> dict:
+    """The large-v3 recognizer (random bf16 weights from seed 0) encoding
+    ``batch`` voiced phrases of ``seconds``, then its front traced."""
+    from janus_tpu_torch.audio.synthetic import voiced_phrase
+    from janus_tpu_torch.common.config import ASRConfig, JanusConfig
+    from janus_tpu_torch.runtime.codec import SemanticEncoder, duration_bucket
+
+    cfg = dataclasses.replace(JanusConfig(), asr=ASRConfig.large_v3())
+    cfg = cfg.override(**{"asr.max_decode_tokens": 24})
+    phrases = [voiced_phrase(f0=140.0 + 15 * i, seconds=seconds, amp=0.12,
+                             seed=i) for i in range(batch)]
+    bucket = duration_bucket(len(phrases[0]))
+    enc = SemanticEncoder(cfg, buckets=(bucket,), device=device)
+    enc.encode_batch(phrases)
+    return trace_front(enc, bucket, 1 << (batch - 1).bit_length(), out)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[8, 1])
     ap.add_argument("--groups", type=int, default=256)
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--front", type=float, default=None, metavar="SECONDS",
+                    help="trace the large-v3 recognizer's captured front "
+                         "(the encode before its greedy loop) at phrases of "
+                         "SECONDS instead of the AR step")
     ap.add_argument("--out", default=None,
                     help="write each batch's full table to OUT with the "
                          "batch before the extension")
@@ -219,8 +281,12 @@ def main(argv=None) -> None:
         if args.out:
             stem, ext = os.path.splitext(args.out)
             out = f"{stem}_b{b}{ext or '.json'}"
-        print(json.dumps(trace_ar_step(b, args.groups, args.prompt,
-                                       args.device, out)), flush=True)
+        if args.front:
+            record = _flagship_front(b, args.front, args.device, out)
+        else:
+            record = trace_ar_step(b, args.groups, args.prompt, args.device,
+                                   out)
+        print(json.dumps(record), flush=True)
 
 
 if __name__ == "__main__":

@@ -1194,6 +1194,132 @@ def test_capture_beside_another_threads_work(dev):
     assert torch.equal(graphed, eager)
 
 
+def _front_encoders(dev, int8: bool):
+    """The demo recognizer on the card through its captured front and
+    eagerly (bf16, so K2 takes the encoder; under ``int8`` dynamic-int8
+    weights and int8 cross K/V, so the int8 linear and K4 run too)."""
+    import dataclasses
+
+    from janus_tpu_torch.common.config import ASRConfig, JanusConfig
+    from janus_tpu_torch.models.params import cast_floating, load_npz_params
+    from janus_tpu_torch.ops.quant import quantize_tree
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+
+    cfg = dataclasses.replace(JanusConfig(), asr=dataclasses.replace(
+        ASRConfig.demo(), dtype="bfloat16", decode_cross_kv_int8=int8))
+    tree = load_npz_params("checkpoints/demo_asr.npz")
+    if int8:
+        tree = quantize_tree(cast_floating(tree, torch.bfloat16),
+                             mode="dynamic")
+    return [SemanticEncoder(cfg, tree, buckets=(96_000,), device=dev,
+                            eager=eager) for eager in (False, True)]
+
+
+def _front_phrases(seed: int):
+    from janus_tpu_torch.audio.synthetic import render_text, voiced_phrase
+
+    texts = (("alpha bravo", "fox golf hotel"), ("kilo lima", "mike"))[seed]
+    return [render_text(t, 48_000, seed=seed + i) for i, t in
+            enumerate(texts)] + [voiced_phrase(f0=150.0, seconds=1.2,
+                                               amp=0.1, seed=seed)]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+def test_encode_front_graph_equals_eager_on_the_card(dev, int8):
+    """``encode_batch`` on the card replays one captured front per (bucket,
+    padded batch) and the greedy loop: the encoder output, tokens, codes,
+    f0 and rms equal the eager path's bit for bit, two batches in turn
+    through one holder; the replay launches the front's kernels (K1, K3,
+    K2 a layer, the prefill's attention; the int8 linear under int8) and
+    its cross K/V land in the loop's static buffers in place."""
+    from janus_tpu_torch.ops.cuda_build import KERNELS
+    from janus_tpu_torch.ops.quant import QuantKVT
+    from janus_tpu_torch.runtime.codec import encode_front
+
+    graph, eager = _front_encoders(dev, int8)
+    graph.warmup()
+    with graph._graphs.lock:
+        holder = graph.encode_graph(96_000, 4)
+        counts = {k.name: n[0] for k, n in holder.graph.counts.items()}
+        cross = holder.greedy.state.cross_k[0]
+        ptr = (cross.q if isinstance(cross, QuantKVT) else cross).data_ptr()
+    layers = graph.cfg.asr.decoder_layers
+    assert counts["mel_fused"] == 1 and counts["yin_block_sums"] == 1
+    assert counts["flash_attn"] == graph.cfg.asr.encoder_layers
+    # the prefill's self-attention, and its cross-attention where dense
+    assert counts["decode_attn"] == layers * (1 if int8 else 2)
+    assert counts.get("cross_attn_int8", 0) == (layers if int8 else 0)
+    assert (counts.get("int8_linear", 0) > 0) == int8
+    for seed in (0, 1, 0):
+        phrases = _front_phrases(seed)
+        before = {k: KERNELS[k].launches for k in counts}
+        got = graph.encode_batch(phrases)
+        torch.cuda.synchronize()
+        assert all(KERNELS[k].launches - before[k] >= n
+                   for k, n in counts.items())
+        assert got == eager.encode_batch(phrases)
+        batch, n_valid = holder.host_audio.numpy(), holder.host_n_valid
+        audio, nv = torch.from_numpy(batch.copy()).to(dev), n_valid.to(dev)
+        tokens, *prosody = eager._encode_impl(audio, nv, 200)
+        with graph._graphs.lock:
+            out = holder.run(batch.copy(), n_valid.numpy().copy())
+            ref_enc = encode_front(eager.params, eager.cfg,
+                                   eager._compute_dtype, audio, nv, 200)[0]
+            assert torch.equal(holder.enc, ref_enc)
+        for a, b in zip(out, [tokens] + prosody):
+            assert torch.equal(a, b)
+    cross = holder.greedy.state.cross_k[0]
+    assert (cross.q if isinstance(cross, QuantKVT) else cross
+            ).data_ptr() == ptr
+    assert holder.graph.capture_ms > 0 and holder.pool_bytes >= 0
+
+
+def test_yin_prefix_sums_of_one_row_repeat_bit_for_bit(dev):
+    """A one-phrase encode's YIN prefix sums are one row: scanned beside a
+    zero row, their bits repeat from call to call and equal the row's
+    scan inside a batch."""
+    from janus_tpu_torch.ops.yin import _cumsum
+
+    x = torch.randn((3, 400_000), device=dev) ** 2
+    first = _cumsum(x[:1])
+    for _ in range(20):
+        assert torch.equal(_cumsum(x[:1]), first)
+    assert torch.equal(_cumsum(x)[:1], first)
+
+
+def test_encode_front_capture_beside_another_threads_work(dev):
+    """A front captured (thread-local mode) while a second thread keeps
+    launching products and reading results back: the capture succeeds and
+    the replayed encode equals the eager one."""
+    import threading
+    import time
+
+    graph, eager = _front_encoders(dev, False)
+    phrases = _front_phrases(0)
+    ref = eager.encode_batch(phrases)
+    stop, done = threading.Event(), []
+
+    def busy():
+        a = torch.randn(1024, 1024, device=dev)
+        while not stop.is_set():
+            for _ in range(20):
+                a = torch.tanh(a @ a)
+            done.append(float(a[0, 0]))
+            torch.cuda.current_stream(dev).synchronize()
+
+    t = threading.Thread(target=busy)
+    t.start()
+    try:
+        while not done:
+            time.sleep(0.01)
+        got = graph.encode_batch(phrases)
+    finally:
+        stop.set()
+        t.join()
+    assert got == ref
+    assert graph._graphs.holders("encode")[0].graph.capture_ms > 0
+
+
 def test_capture_beside_a_collection_that_frees_another_graph(dev):
     """A graph torn down by the capturing thread during a capture
     invalidates the capture (``CUDAGraph.cpp ... operation not permitted
@@ -1281,8 +1407,11 @@ def test_bpe_encoder_four_token_prompt_on_the_card(dev, tmp_path):
         return enc, [None if p is None else p.serialize() for p in pkts]
 
     card, graphed = packets("cuda")
-    keys = list(card._graphs._holders)
-    assert keys and all(k[5] == 4 for k in keys) and card._graphs.replays > 0
+    # the greedy holders' keys (and the fronts', which end with theirs)
+    keys = [k[-10:] for k in card._graphs._holders]
+    assert keys and all(k[0] == "greedy" and k[5] == 4 for k in keys)
+    assert card._graphs.replays > 0
+    assert len(card._graphs.holders("encode")) == 1
     _, eager = packets("cuda", eager=True)
     _, cpu = packets("cpu")
     assert graphed == eager == cpu
