@@ -4,13 +4,14 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the seven hand-written CUDA
+Run from the root of a checkout. It builds the nine hand-written CUDA
 kernels from ``janus_tpu_torch/csrc`` (one ``nvcc`` per source, all at
 once, into ``build/janus_tpu_torch/``) and runs these phases, each
 printing one JSON line per result:
 
 1. device  — the card, its power limit, the kernel build time;
-2. kernels — each kernel against its plain PyTorch version on the card at
+2. kernels — each kernel (the decode loops' condition too) against its
+   plain PyTorch version on the card at
    the main path's shapes, with times, the card's bound and, where one
    PyTorch call computes the same function, that call's time. Every
    kernel is timed as device time (``kernel_ms``: launches replayed from a
@@ -103,6 +104,17 @@ printing one JSON line per result:
 8. receive_stream — ``StreamingSynthesizer`` at that width, replayed and
    eager: seconds to first audio and in all, the two streams equal, and
    the stream against the fused path;
+8b. device_loop — the decode loops as the reference compiles them, each
+   a WHILE node around the captured step whose exit the card decides
+   (``csrc/loop_graph.cu``): at flagship width and b = 8, on copies of
+   the trees pushed so that every lane ends at step 2, 9 or 17, or never
+   (``eot_at``, ``stop_at``), the trips (== the step) and device ms of the
+   recognizer's and the AR loop, their tokens, mel and ``n_frames`` equal
+   to the eager loop's; each loop traced against its step replayed alone,
+   and a run that finds every lane done; ``encode_batch_submit`` at b 8 x
+   10 s and b 1 x 2 s: its return ms, ``is_ready()`` right after, no
+   synchronize or device->host copy in it (the profiler's host calls),
+   at most two graph launches, and its result equal to ``encode_batch``;
 9. duplex_demo — the live link with the committed demo bundle: three
    rendered phrases through ``sender_main.main_loop`` (VAD, segmenter,
    encode, packet, link at 48000 baud) → localhost UDP →
@@ -425,11 +437,15 @@ def profile_graph_step(torch, holder) -> dict:
 
 
 def graph_stats(graphs) -> dict:
-    """Capture ms and pool MiB of a caller's step graphs."""
-    gs = graphs.graphs()
+    """Capture ms and pool MiB of a caller's step graphs, its loop graphs'
+    build ms (the WHILE node around a captured step: no pool of its
+    own), its graph launches and the decode steps they ran."""
+    gs, loops = graphs.graphs(), graphs.loops()
     return {"graphs": len(gs), "capture_ms": [g.capture_ms for g in gs],
             "pool_mib": graphs.pool_bytes() / 2 ** 20,
-            "replays": graphs.replays}
+            "loops": len(loops), "loop_build_ms": [lp.build_ms
+                                                   for lp in loops],
+            "replays": graphs.replays, "steps": graphs.steps}
 
 
 def front_stats(enc) -> list:
@@ -993,7 +1009,7 @@ def receive_flagship(torch, dev):
         "bar_rel": 5e-2, "rel": rel,
         "max_abs": float((on_card - on_cpu).abs().max()),
         "ref_peak": float(on_cpu.abs().max()), "cpu_s": round(cpu_s, 2)}
-    out["graph"] = graph_stats(graphs)
+    out["graph"] = graph_stats(graphs)  # reads the loops' trips back
     # every replayed AR step: 2 layer norms a layer and the final one, the
     # self-attention of each layer, and every linear through the mixed
     # kernel over the bf16 tree itself (the graphs derive no copy of it):
@@ -1501,6 +1517,299 @@ def duplex_flagship(torch, kernels, asr_params, tcfg, vcfg, tts_params,
           "eager": runs["eager"]})
 
 
+# device->host reads and waits the host may not make between a submit's
+# start and its result (the profiler's names of the runtime calls and of
+# PyTorch's scalar read)
+HOST_WAIT = re.compile(r"Synchronize|^cudaMemcpy$|^cudaMemcpy2D$|"
+                       r"_local_scalar_dense|^aten::item$")
+
+
+def eot_at(torch, params, step: int, eot: int):
+    """The recognizer tree with the decoder's position row ``step`` pushed
+    far along the eot embedding: with a one-token prompt every lane emits
+    eot at that step (``tests/test_torch_decode_graphs.py::_asr_eot_at``)."""
+    dec = dict(params["decoder"])
+    pos = dec["pos_emb"].clone()
+    e = dec["token_emb"][eot].float()
+    pos[step] += (1000.0 * e / e.norm()).to(pos.dtype)
+    return {**params, "decoder": {**dec, "pos_emb": pos}}
+
+
+def stop_at(torch, params, tcfg, step):
+    """The TTS tree whose stop head reads one channel of the final norm
+    and fires at AR step ``step`` in every lane, where that step's
+    position row is pushed far along the channel; at none for None
+    (``tests/test_torch_decode_graphs.py::_tts_stop_at``). The norm's
+    output there is near sqrt(d) in that channel and near N(0, 1) at the
+    other steps: the head's bias, -sqrt(d) / 2, parts the two."""
+    from janus_tpu_torch.models.tts import audio_pos_base
+
+    pos = params["pos_emb"].clone()
+    if step is not None:
+        pos[audio_pos_base(tcfg) + step - 1, 5] += 1000.0
+    head = params["stop_head"]
+    w = torch.zeros_like(head["w"])
+    w[5, 0] = 1.0
+    bias = -0.5 * pos.shape[1] ** 0.5
+    return {**params, "pos_emb": pos,
+            "stop_head": {"w": w, "b": torch.full_like(head["b"], bias)}}
+
+
+def event_ms(torch, fn) -> tuple:
+    """``(fn(), device ms)`` between two CUDA events around the call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
+    """The decode loops as the reference compiles them: each a WHILE node
+    around the captured step, its exit decided on the card. At flagship
+    width (large-v3 and the flagship TTS, b = 8), on copies of the trees
+    whose position row (the recognizer) or stop head (the TTS) is pushed
+    so that every lane ends at step 2, 9 or 17, or never: the loop's trips
+    (== the step) and device ms, its tokens, mel and ``n_frames`` against
+    the eager loop's bit for bit; the step's span inside the loop against
+    the step replayed alone, and a run that skips at once. Then the
+    submit: its return ms at b 8 x 10 s and b 1 x 2 s, ``is_ready()`` right
+    after, and no wait or device->host copy in it (the profiler's host
+    calls). Returns the phase's kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from janus_tpu_torch.audio.synthetic import voiced_phrase
+    from janus_tpu_torch.models import asr as asr_mod
+    from janus_tpu_torch.models import tts as tts_mod
+    from janus_tpu_torch.models.tokenizer import ByteTokenizer
+    from janus_tpu_torch.ops.resample import decimate_48k_to_16k
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+    from janus_tpu_torch.tools.trace_step import trace_replays
+
+    from janus_tpu_torch.common import device as device_mod
+
+    dev = device_mod.resolve_device("cuda")
+    bf = torch.bfloat16
+    acfg = fcfg.asr
+    reset_launches(kernels)
+    out = {"phase": "device_loop", "nvidia_smi": nvidia_smi_line(),
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "route": "WHILE conditional node around the captured step "
+                    "(csrc/loop_graph.cu)"}
+
+    # (a) the recognizer's loop at forced exits, b 8 x 10 s
+    enc = SemanticEncoder(fcfg, asr_params=asr_params,
+                          buckets=(SESSION_BUCKET, int(SR * FLAGSHIP_SECONDS)),
+                          device="cuda")
+    phrases = [voiced_phrase(f0=140.0 + 15 * i, seconds=FLAGSHIP_SECONDS,
+                             amp=0.12, seed=i) for i in range(FLAGSHIP_BATCH)]
+    audio = torch.from_numpy(np.stack(phrases)).to(dev)
+    n16 = enc.mel_frame_budget(int(SR * FLAGSHIP_SECONDS))
+    with torch.no_grad():
+        mel = asr_mod.prepare_mel(decimate_48k_to_16k(audio), acfg,
+                                  pad_to_frames=n16)
+        encoded = asr_mod.encode_audio(enc.params, acfg, mel.to(bf))
+    eot = enc.tokenizer.eot
+    prompt = torch.full((FLAGSHIP_BATCH, 1), enc.tokenizer.sot,
+                        dtype=torch.long, device=dev)
+    greedy = {}
+    for k in (2, 9, 17, None):
+        tree = enc.params if k is None else eot_at(torch, enc.params, k, eot)
+        graphs = StepGraphs()
+        with torch.no_grad(), graphs.lock:
+            h = asr_mod.greedy_graph(graphs, tree, acfg, FLAGSHIP_BATCH,
+                                     encoded.shape[-2], bf, 1,
+                                     acfg.max_decode_tokens, bf, False, eot,
+                                     dev)
+            eager = asr_mod.greedy_decode(
+                tree, acfg, encoded, prompt, eot,
+                max_new=acfg.max_decode_tokens, cache_dtype=bf, eager=True)
+            ms = []
+            for _ in range(3):
+                h.prime(encoded, prompt)
+                (tokens, trips), t = event_ms(torch, h.run_loop)
+                ms.append(t)
+                check(torch.equal(tokens, eager), f"device_loop: the "
+                      f"recognizer's loop graph differs from the eager loop "
+                      f"(exit {k})")
+            want = acfg.max_decode_tokens - 1 if k is None else k
+            row = {"trips": int(trips), "loop_ms": ms,
+                   "step_capture_ms": h.graph.capture_ms,
+                   "loop_build_ms": h.loop.build_ms,
+                   "pool_mib": graphs.pool_bytes() / 2 ** 20}
+            check(int(trips) == want, f"device_loop: the recognizer's loop "
+                  f"ran {int(trips)} steps, the while_loop {want} (exit {k})")
+            if k is None:
+                # the loop traced against the step replayed alone, and a
+                # run whose lanes are all done before it
+                row["loop_trace"] = trace_replays(
+                    h.loop.run, dev, lambda: h.prime(encoded, prompt),
+                    rounds=3, per_round=1)
+                row["step_trace"] = trace_replays(
+                    h.advance, dev, lambda: h.prime(encoded, prompt),
+                    rounds=3, per_round=16)
+                row["step_span_in_loop_ms"] = (
+                    row["loop_trace"]["span_ms"] / max(int(trips), 1))
+                h.done.fill_(True)
+                h.loop.trips.zero_()
+                _, t = event_ms(torch, lambda: [h.loop.run()
+                                                for _ in range(100)])
+                row["skipped_run_us"] = 10.0 * t
+                check(int(h.loop.trips) == 0, "device_loop: a loop whose "
+                      "lanes were all done ran a step")
+            greedy["never" if k is None else str(k)] = row
+        del graphs, h
+    out["greedy_b8_10s"] = greedy
+    torch.cuda.empty_cache()
+
+    # (b) the submit: its return, nothing read back, its result
+    one = [voiced_phrase(f0=150.0, seconds=2.0, amp=0.12, seed=0)]
+    submits = {}
+    for name, phr in (("b8_10s", phrases), ("b1_2s", one)):
+        want = enc.encode_batch(phr)  # captures the shape's graphs
+        ret, ready, total = [], [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = enc.encode_batch_submit(phr)
+            ret.append(1e3 * (time.perf_counter() - t0))
+            ready.append(pending.is_ready())
+            res = pending.result()
+            total.append(1e3 * (time.perf_counter() - t0))
+            check(res == want, f"device_loop: a submit's result at {name} "
+                  f"differs from encode_batch's")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            pending = enc.encode_batch_submit(phr)
+        calls = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CPU]
+        res = pending.result()
+        waits = [n for n in calls if HOST_WAIT.search(n)]
+        # the enqueue alone: the upload and the two launches, the host's
+        # padding and wire conversion left out
+        with torch.no_grad(), enc._graphs.lock:
+            holder = enc.encode_graph(enc.buckets[0 if name == "b1_2s"
+                                                  else 1], len(phr))
+            batch = holder.host_audio.numpy().copy()
+            n_valid = holder.host_n_valid.numpy().copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            holder.run(batch, n_valid)
+            enqueue_ms = 1e3 * (time.perf_counter() - t0)
+            holder.greedy.loop.account(int(holder.trips))
+        submits[name] = {
+            "submit_return_ms": ret, "ready_after_submit": ready,
+            "result_ms": total, "enqueue_ms": enqueue_ms,
+            "host_waits": waits,
+            "graph_launches": sum(n.startswith("cudaGraphLaunch")
+                                  for n in calls),
+            "host_api_calls": sum(1 for n in calls if HOST_API.match(n))}
+        check(not waits and res == want, f"device_loop: the submit at {name} "
+              f"waited on the device ({waits})")
+        check(submits[name]["graph_launches"] <= 2, f"device_loop: a submit "
+              f"made {submits[name]['graph_launches']} graph launches")
+    out["submit"] = submits
+    # three submits at b 8 x 10 s in a row, none harvested before the
+    # third: the uploads that waited for an earlier encode's copy with one
+    # pinned twin, and with one twin an encode in flight (the encoder's)
+    want8 = enc.encode_batch(phrases)
+    with enc._graphs.lock:
+        holder = enc.encode_graph(enc.buckets[1], FLAGSHIP_BATCH)
+    twins, waits = holder.twins, {}
+    for n in (1, len(twins)):
+        holder.twins = twins[:n]
+        torch.cuda.synchronize()
+        before = holder.upload_waits
+        pending = [enc.encode_batch_submit(phrases) for _ in range(3)]
+        waits[str(n)] = holder.upload_waits - before
+        check(all(p_.result() == want8 for p_ in pending), "device_loop: "
+              "three submits in a row gave another result")
+    holder.twins = twins
+    out["upload_waits_three_submits"] = waits
+    check(waits[str(len(twins))] == 0, f"device_loop: a submit waited for "
+          f"an upload with a twin an encode in flight ({waits})")
+    check(not any(submits["b8_10s"]["ready_after_submit"]),
+          "device_loop: an encode at b 8 x 10 s was ready as its submit "
+          "returned")
+    out["encoder_graph"] = graph_stats(enc._graphs)
+    del enc, encoded, mel, audio
+    torch.cuda.empty_cache()
+
+    # (c) the AR loop at forced stops, b 8, the flagship's 256 groups
+    vocab = ByteTokenizer().vocab_size
+    text = torch.zeros((FLAGSHIP_BATCH, 32), dtype=torch.long, device=dev)
+    emo = torch.zeros((FLAGSHIP_BATCH,), dtype=torch.long, device=dev)
+    ar = {}
+    for k in (2, 9, 17, None):
+        tree = stop_at(torch, tts_params, tcfg, k)
+        graphs = StepGraphs()
+        kw = dict(max_groups=RECEIVE_GROUPS, text_vocab=vocab,
+                  stop_threshold=0.5)
+        with torch.no_grad():
+            mel_g, n_g = tts_mod.tts_generate(tree, tcfg, text, emo,
+                                              graphs=graphs, **kw)
+            mel_e, n_e = tts_mod.tts_generate(tree, tcfg, text, emo,
+                                              eager=True, **kw)
+            check(torch.equal(mel_g, mel_e) and torch.equal(n_g, n_e),
+                  f"device_loop: the AR loop graph differs from the eager "
+                  f"loop (stop {k})")
+            with graphs.lock:
+                (h,) = graphs.holders("ar")
+                prompt_emb = tts_mod._prompt_embedding(tree, tcfg, text, emo,
+                                                       None, vocab)
+                ms = []
+                for _ in range(3):
+                    h.start(prompt_emb)
+                    trips, t = event_ms(torch, h.run_loop)
+                    ms.append(t)
+            graphs.settle()
+        want = RECEIVE_GROUPS - 1 if k is None else k
+        check(int(trips) == want and n_g.tolist() == [
+            (want + 1) * tcfg.reduction] * FLAGSHIP_BATCH,
+            f"device_loop: the AR loop ran {int(trips)} steps, the "
+            f"while_loop {want} (stop {k}); n_frames {n_g.tolist()}")
+        row = {"trips": int(trips), "loop_ms": ms,
+               "n_frames": int(n_g[0]), "step_capture_ms": h.graph.capture_ms,
+               "loop_build_ms": h.loop.build_ms,
+               "pool_mib": graphs.pool_bytes() / 2 ** 20}
+        if k is None:
+            def rewind():
+                h.prev.copy_(saved[0])
+                h.done.copy_(saved[1])
+                h.group.zero_()
+                h.loop.trips.zero_()
+
+            with graphs.lock:
+                h.start(prompt_emb)
+                saved = [t_.clone() for t_ in (h.prev, h.done)]
+                row["loop_trace"] = trace_replays(h.loop.run, dev, rewind,
+                                                  rounds=3, per_round=1)
+
+                def rewind_step():
+                    rewind()
+                    h.steps = 0
+
+                row["step_trace"] = trace_replays(h.advance, dev,
+                                                  rewind_step, rounds=3,
+                                                  per_round=16)
+            row["step_span_in_loop_ms"] = (row["loop_trace"]["span_ms"]
+                                           / max(int(trips), 1))
+        ar["never" if k is None else str(k)] = row
+        del graphs, h, tree, mel_g, mel_e
+        torch.cuda.empty_cache()
+    out["ar_b8_256_groups"] = ar
+    out["launches"] = read_launches(kernels)
+    check(out["launches"]["loop_graph"] > 0, f"device_loop: launches "
+          f"{out['launches']}")
+    emit(out)
+    return out["launches"]
+
+
 def sessions_flagship(torch, kernels, asr_params) -> dict:
     """The multi-session serving runtime at large-v3 width on the phase-4
     weights: (a) encode batch scaling, (b) the serving tick loop,
@@ -1618,9 +1927,21 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
     def run_mode(mode_cfg, serve_enc) -> dict:
         submit = serve_enc.encode_batch_submit
         mgr = SessionManager(mode_cfg, encoder=serve_enc)
-        sizes, tick_vad_ms, vad_ms = [], [], [0.0]
-        serve_enc.encode_batch_submit = lambda phrases: (
-            sizes.append(len(phrases)), submit(phrases))[1]
+        sizes, tick_vad_ms, vad_ms, submit_ms = [], [], [0.0], []
+
+        def timed_submit(phrases):
+            sizes.append(len(phrases))
+            t0 = time.perf_counter()
+            out = submit(phrases)
+            submit_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        def upload_waits():
+            return sum(h.upload_waits
+                       for h in serve_enc._graphs.holders("encode"))
+
+        serve_enc.encode_batch_submit = timed_submit
+        waits0 = upload_waits()
 
         def timed(fn):
             def call(*args):
@@ -1662,6 +1983,12 @@ def sessions_flagship(torch, kernels, asr_params) -> dict:
                 "audio_s_per_s": total_audio_s / seconds,
                 "encode_batches": len(sizes), "batch_sizes": sizes,
                 "fronts_captured": captured,
+                # a submit's return, and the uploads that waited for an
+                # earlier encode's copy (one pinned twin an encode in
+                # flight: none should)
+                "submit_ms_mean": float(np.mean(submit_ms)),
+                "submit_ms_max": float(np.max(submit_ms)),
+                "upload_waits": upload_waits() - waits0,
                 "vad_ms_per_tick_mean": float(np.mean(tick_vad_ms)),
                 "vad_ms_per_tick_max": float(np.max(tick_vad_ms)),
                 "launches": launches,
@@ -1915,12 +2242,24 @@ def server_demo(torch, kernels) -> dict:
     return launches
 
 
+def settle_loops() -> None:
+    """Read back the trips of the loop runs that the bare model functions
+    made on the module's own graphs (the tools call them), so that their
+    bodies' launches are counted in the phase that ran them."""
+    from janus_tpu_torch.runtime.step_graph import default_graphs
+
+    for kind in ("asr", "tts"):
+        default_graphs(kind).settle()
+
+
 def reset_launches(kernels) -> None:
+    settle_loops()
     for k in kernels:
         k.launches = 0
 
 
 def read_launches(kernels) -> dict:
+    settle_loops()
     return {k.name: k.launches for k in kernels}
 
 
@@ -2971,9 +3310,9 @@ def whisper_dropin(torch, kernels, params, fcfg, phrases) -> dict:
                 enc.mel_frame_budget(bucket) // 2, torch.bfloat16, len(sot),
                 acfg.max_decode_tokens, torch.bfloat16,
                 acfg.decode_cross_kv_int8, bpe.eot, enc.device)
-            check(holder.graph.replays > 0
+            check(holder.loop.runs > 0
                   and len(enc._graphs.holders("greedy")) == len(keys),
-                  f"{name}: the b = 8 holder was not replayed")
+                  f"{name}: the b = 8 holder's loop never ran")
             step = profile_graph_step(torch, holder)
         bits = front_bits(torch, enc, phrases, name)
         check(launches["flash_attn"] == acfg.encoder_layers * (1 + captured),
@@ -3133,9 +3472,13 @@ def main() -> None:
     smi = nvidia_smi_line()
     build_s = cuda_build.build_all()
     kind = torch.cuda.get_device_name(0)
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "kernel_build_s": round(build_s, 3)})
+          "cuda": torch.version.cuda, "driver": driver[0] if driver else None,
+          "kernel_build_s": round(build_s, 3)})
 
     summary = {}
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -4167,6 +4510,48 @@ def main() -> None:
           f"programmatic call was read stale ({same})")
     del x, srcs, got
 
+    # the decode loops' condition kernel (the port's own: the while_loop's
+    # cond, which the loop graphs' WHILE node tests on the card) against
+    # its plain version at the flagship's lanes: the trip count and the
+    # value it sets, for done and live lanes, before, at and past the limit
+    from janus_tpu_torch.ops.loop_graph import KERNEL as LOOP
+    from janus_tpu_torch.ops.loop_graph import (loop_condition,
+                                                loop_condition_plain)
+
+    errs = []
+    for p in (0.0, 0.5, 1.0):
+        done = torch.rand(FLAGSHIP_BATCH, generator=gen, device=dev) < p
+        for trips, limit, add in ((0, 23, 0), (22, 23, 1), (5, 255, 1),
+                                  (255, 255, 0)):
+            t = torch.tensor(trips, dtype=torch.int32, device=dev)
+            got = loop_condition(done, t.clone(), limit, add)
+            want = loop_condition_plain(done, t, limit, add)
+            errs.append(max(abs(int(got[0]) - int(want[0])),
+                            abs(int(got[1]) - int(want[1]))))
+    done = torch.zeros(FLAGSHIP_BATCH, dtype=torch.bool, device=dev)
+    t = torch.zeros((), dtype=torch.int32, device=dev)
+    # the flags and the count read, the count and the value written; a
+    # test a lane
+    b_ms, b_by = bound_ms(FLAGSHIP_BATCH, PEAK_FP32, FLAGSHIP_BATCH + 12)
+    row = {"phase": "kernel", "name": "loop_graph", "batch": FLAGSHIP_BATCH,
+           "max_err": float(max(errs)), "cases": len(errs),
+           "kernel_ms": graph_ms(lambda: loop_condition(done, t, 1 << 30,
+                                                        1), iters=50),
+           "eager_ms": time_ms(lambda: loop_condition(done, t, 1 << 30, 1),
+                               iters=50),
+           "host_us": wrapper_us(lambda: loop_condition(done, t, 1 << 30,
+                                                        1)),
+           "plain_ms": graph_ms(lambda: loop_condition_plain(
+               done, t, 1 << 30, 1), iters=50),
+           "bound_ms": b_ms, "bound_by": b_by,
+           # no PyTorch call sets a graph's conditional handle
+           "library_ms": None}
+    emit(row)
+    check(row["max_err"] == 0, f"loop_graph: the condition kernel differs "
+          f"from its plain version ({errs})")
+    summary["loop_graph"] = row
+    del done, t
+
     # -- 3. demo checkpoint: card and CPU give the same packets ------------
     from janus_tpu_torch.audio.synthetic import render_text, voiced_phrase
     from janus_tpu_torch.common.config import ASRConfig, JanusConfig
@@ -4248,9 +4633,12 @@ def main() -> None:
                for i in range(FLAGSHIP_BATCH)]
     fenc.encode_batch(phrases)  # warm-up: cuBLAS/cuDNN handles, allocator
 
-    kernels = (MEL, FLASH, YIN, CROSS, LNORM, DECODE, INT8, MIXED)
+    kernels = (MEL, FLASH, YIN, CROSS, LNORM, DECODE, INT8, MIXED, LOOP)
     for k in kernels:
         k.launches = 0
+    loop_base = sum(lp.runs + lp.trips_run
+                    for lp in fenc._graphs.loops("greedy"))
+    trips_base = sum(lp.trips_run for lp in fenc._graphs.loops("greedy"))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4274,6 +4662,15 @@ def main() -> None:
           f"flagship: the captured steps launch {step_counts}")
     check(launches["layer_norm"] > 0 and launches["decode_attn"] > 0
           and launches["int8_linear"] == 0, f"flagship launches {launches}")
+    # the loop's condition: once before its WHILE node, once after each
+    # body that ran (24 tokens: 23 bodies under random weights, no eot)
+    loops = fenc._graphs.loops("greedy")
+    check(launches["loop_graph"] == sum(lp.runs + lp.trips_run
+                                        for lp in loops) - loop_base
+          and launches["decode_attn"] == 2 * n_dec * (
+              sum(lp.trips_run for lp in loops) - trips_base + 1),
+          f"flagship: launches {launches} for the loop's "
+          f"{sum(lp.trips_run for lp in loops) - trips_base} bodies")
     check(len(results) == FLAGSHIP_BATCH
           and all(np.isfinite(r["f0"]) and np.isfinite(r["rms"])
                   and r["f0"] > 0 for r in results),
@@ -4455,7 +4852,8 @@ def main() -> None:
     all_kernels = kernels
     for k in all_kernels:
         k.launches = 0
-    replays = qenc._graphs.replays
+    fronts0 = sum(h.graph.replays for h in qenc._graphs.holders("encode"))
+    steps0 = qenc._graphs.steps
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4465,9 +4863,10 @@ def main() -> None:
     q_first_ms = 1e3 * (time.perf_counter() - t0)
     q_launches = {k.name: k.launches for k in all_kernels}
     q_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    # the prefill's forward runs eagerly (counted by the patch), every step
-    # is a replay of the captured one
-    forwards[0] += qenc._graphs.replays - replays
+    # the prefill's forward runs in the front's replay, every step in the
+    # loop graph's bodies (their trips read back at the harvest)
+    forwards[0] += (sum(h.graph.replays for h in qenc._graphs.holders(
+        "encode")) - fronts0) + (qenc._graphs.steps - steps0)
     q_step_counts = {k.name: n[0] for g in qenc._graphs.graphs("greedy")
                      for k, n in g.counts.items()}
     check(q_launches["mel_fused"] >= 1, f"int8 mel launches {q_launches}")
@@ -4664,6 +5063,12 @@ def main() -> None:
               f"{name} launches {receive_launches[name]}")
     check(not errors.records, f"the synthesizer logged errors: "
           f"{errors.records}")
+    torch.cuda.empty_cache()
+
+    # -- 8b. device_loop: the loops' exits on the card, the submit ---------
+    receive_launches["device_loop"] = device_loop(
+        torch, all_kernels, flagship_asr_params, fcfg, flagship_tts[0],
+        flagship_tts[2])
     torch.cuda.empty_cache()
 
     # -- 9-10. the live duplex link ----------------------------------------

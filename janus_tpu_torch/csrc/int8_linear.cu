@@ -41,8 +41,11 @@
 // Design.
 // - quantize_rows: a block of 128 threads a row, 16-byte loads held in
 //   registers from the row's amax (shuffles) to its quantization. It lets
-//   the next launch start at once (programmatic dependent launch), so that
-//   the product's weight loads overlap it.
+//   the next launch start (programmatic dependent launch), so that the
+//   product's weight loads overlap it: at once where it was itself launched
+//   after the kernel before had finished (M <= 64), after its own wait
+//   where it was launched programmatically (M > 64), so that the product
+//   never reads a weight that the kernel before it is still writing.
 // - stream_product (M <= 64): the weight is the A operand, y^T = q^T xq^T
 //   with mma.sync m16n8k32 s8: 16 output channels a warp, the activation
 //   rows fill n = 8 (NT tiles of 8 for up to 64 rows), so no half-empty tile
@@ -458,8 +461,18 @@ quantize_rows(const TX* __restrict__ x, int8_t* __restrict__ xq,
               float* __restrict__ xs, int k) {
   constexpr int E = 16 / sizeof(TX);
   __shared__ float part[QT / 32];
-  launch_dependents();
-  wait_prerequisites();  // x is the previous kernel's
+  if (gridDim.x > STREAM_ROWS) {
+    // launched programmatically before the tile product, which asks for
+    // the weight before its own wait: let it start only once the kernel
+    // before has finished, so that a weight that kernel wrote is visible
+    wait_prerequisites();  // x is the previous kernel's
+    launch_dependents();
+  } else {
+    // launched after the kernel before has finished: the streamed
+    // product's weight loads may overlap the whole quantization
+    launch_dependents();
+    wait_prerequisites();
+  }
   const int tid = threadIdx.x, row = blockIdx.x;
   const uint4* src = reinterpret_cast<const uint4*>(x + (long long)row * k);
   const int nv = k / E;

@@ -37,7 +37,7 @@ from janus_tpu_torch.parallel.collectives import (all_gather, axis_index,
                                                   axis_size, enter_model,
                                                   local_heads)
 from janus_tpu_torch.parallel.ring_attention import ring_attention
-from janus_tpu_torch.runtime.step_graph import (DONE_CHECK_EVERY, StepGraph,
+from janus_tpu_torch.runtime.step_graph import (LoopGraph, StepGraph,
                                                 StepGraphs, default_graphs,
                                                 use_graphs)
 
@@ -315,15 +315,17 @@ def greedy_decode(params: Params, cfg: ASRConfig, enc: torch.Tensor,
     otherwise be held until the tokens are read.
 
     On the card the prefill runs eagerly (its width is the prompt's) and
-    each step is a replay of one captured step (:class:`GreedyGraph`,
-    from ``graphs``, the caller's :class:`~janus_tpu_torch.runtime.
-    step_graph.StepGraphs`, or the module's own): the loop returns once
-    the last step is enqueued, having read the ``done`` flags back once
-    every ``DONE_CHECK_EVERY`` steps (a lane that is done writes
-    ``eot_id``, which is what the early exit leaves, so reading late
-    changes nothing). On the CPU, with ``eager=True``, or under a mesh of
-    more than one rank, the steps run eagerly from Python and the flags
-    are read back before every step."""
+    the steps are one launch of a loop graph (:class:`GreedyGraph`, from
+    ``graphs``, the caller's :class:`~janus_tpu_torch.runtime.step_graph.
+    StepGraphs`, or the module's own): a WHILE conditional node around the
+    captured step, whose condition, ``~all(done)`` within ``max_new - 1``
+    steps, the card tests before every step, as the JAX package's
+    ``lax.while_loop`` tests its own. The function returns once the run is
+    enqueued, having read nothing back; the loop's trip count is read
+    when its graphs are settled (:meth:`~janus_tpu_torch.runtime.
+    step_graph.StepGraphs.settle`). On the CPU, with ``eager=True``, or
+    under a mesh of more than one rank, the steps run eagerly from Python
+    and the flags are read back before every step."""
     if max_new is None:
         max_new = cfg.max_decode_tokens
     if use_graphs(enc.device, eager):
@@ -355,19 +357,24 @@ def greedy_decode(params: Params, cfg: ASRConfig, enc: torch.Tensor,
 
 def _greedy_graphed(params, cfg, enc, prompt, eot_id, max_new, cache_dtype,
                     cross_kv_int8, graphs: StepGraphs) -> torch.Tensor:
-    """:func:`greedy_decode` through a :class:`GreedyGraph` of ``graphs``
-    (on the CPU its step runs eagerly over the static buffers)."""
+    """:func:`greedy_decode` through a :class:`GreedyGraph` of ``graphs``:
+    :meth:`GreedyGraph.prime`, then its loop graph (on the CPU the same
+    loop runs eagerly over the static buffers). The run's trips are
+    deferred to :meth:`~janus_tpu_torch.runtime.step_graph.StepGraphs.
+    settle`."""
     with graphs.lock:
-        return greedy_graph(graphs, params, cfg, prompt.shape[0],
-                            enc.shape[-2], enc.dtype, prompt.shape[-1],
-                            max_new, cache_dtype, cross_kv_int8, eot_id,
-                            enc.device).decode(enc, prompt)
+        h = greedy_graph(graphs, params, cfg, prompt.shape[0], enc.shape[-2],
+                         enc.dtype, prompt.shape[-1], max_new, cache_dtype,
+                         cross_kv_int8, eot_id, enc.device)
+        tokens, trips = h.decode(enc, prompt)
+        if h.loop is not None:
+            h.loop.defer(trips)
+        return tokens
 
 
 class GreedyGraph:
     """The greedy loop's static state for one shape and one tree, and its
-    step captured over it (:class:`~janus_tpu_torch.runtime.step_graph.
-    StepGraph`): the self caches, the cross K/V (dense, or int8
+    step captured over it: the self caches, the cross K/V (dense, or int8
     :class:`~janus_tpu_torch.ops.quant.QuantKVT` in the K4 kernel's
     padded layout), the token fed to the step, the fill position (a
     device counter the step advances), the ``done`` flags and the output
@@ -378,10 +385,16 @@ class GreedyGraph:
     :meth:`prime` fills it for one call with device work only, which a
     caller may capture (the encoder's front graph does): the self caches
     zeroed, the cross K/V of ``enc`` written in place into the static
-    buffers, the prefill, the first token. :meth:`loop` replays the step
-    from there; :meth:`decode` is the two. :meth:`advance` is one replay,
-    which the host refuses when it would write past the caches or read
-    past the position table."""
+    buffers, the prefill, the first token, the loop's ``trips`` zeroed.
+    :attr:`graph` is the step captured; :attr:`loop` the ``while_loop``
+    after the prime (:class:`~janus_tpu_torch.runtime.step_graph.LoopGraph`
+    of at most ``max_new - 1`` steps around that graph; none at ``max_new``
+    1), whose exit the card decides: :meth:`run_loop` launches it and reads
+    nothing back; :meth:`decode` is the two. :meth:`advance` replays one
+    step alone (for traces of a step), which the host refuses when it
+    would write past the caches or read past the position table. A shape
+    whose loop would read past the position table raises here, before any
+    capture."""
 
     def __init__(self, graphs: StepGraphs, params: Params, cfg: ASRConfig,
                  batch: int, enc_frames: int, enc_dtype, prompt_len: int,
@@ -391,6 +404,12 @@ class GreedyGraph:
         self.prompt_len, self.max_new = prompt_len, max_new
         self.cross_kv_int8, self.eot_id = cross_kv_int8, eot_id
         self.cache_len = prompt_len + max_new
+        rows = params["decoder"]["pos_emb"].shape[0]
+        # the loop's last step reads this position (its caches hold it)
+        last = prompt_len + max_new - 2
+        if max_new > 1 and last >= rows:
+            raise ValueError(f"position {last} lies outside the decoder's "
+                             f"position table of {rows} rows")
         enc = torch.zeros((batch, enc_frames, cfg.d_model), dtype=enc_dtype,
                           device=device)
         self.state = init_decode_state(params, cfg, enc,
@@ -409,8 +428,10 @@ class GreedyGraph:
         # (the same fp32 values the eager step widens per call)
         self.head = graphs.derived("asr_head_fp32", lambda: params[
             "decoder"]["token_emb"].float())
-        self.graph = StepGraph(self._step, device,
+        self.graph = StepGraph(self._step, device, keep=True,
                                **graphs.capture_args(device))
+        self.loop = (LoopGraph(self.graph, self.done, max_new - 1)
+                     if max_new > 1 else None)
 
     def _step(self) -> None:
         logits, _ = _decoder_forward(self.params, self.cfg, self.tok[:, None],
@@ -425,6 +446,9 @@ class GreedyGraph:
 
     def advance(self) -> None:
         """One step: a replay (on the CPU, the step run eagerly)."""
+        if self.fill is None:
+            raise RuntimeError("the fill point after a loop run is the "
+                               "device's: prime before stepping")
         rows = self.params["decoder"]["pos_emb"].shape[0]
         if self.fill + 1 > self.cache_len:
             raise ValueError(f"KV cache overflow: {self.fill} + 1 > "
@@ -453,22 +477,29 @@ class GreedyGraph:
         self.done.copy_(first == self.eot_id)
         self.tok.copy_(first)
         self.pos.fill_(self.prompt_len)
+        if self.loop is not None:
+            self.loop.trips.zero_()
+        self.fill = self.prompt_len  # the host's count, for advance()
 
-    def loop(self) -> torch.Tensor:
-        """The steps after :meth:`prime`: replays, with the ``done`` flags
-        read back every ``DONE_CHECK_EVERY`` steps; the tokens
-        ``[B, max_new]`` (a copy: the buffer serves the next call)."""
-        self.fill = self.prompt_len
-        for step in range(1, self.max_new):
-            if step % DONE_CHECK_EVERY == 1 and bool(self.done.all()):
-                break
-            self.advance()
-        return self.out[:, :self.max_new].clone()
+    def run_loop(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The steps after :meth:`prime`: one run of :attr:`loop`, nothing
+        read back. Returns the tokens ``[B, max_new]`` and the run's trips
+        (int32), copies that the next call does not overwrite. The fill
+        point is then the device's: :meth:`advance` waits for a
+        :meth:`prime`."""
+        if self.loop is None:
+            trips = torch.zeros((), dtype=torch.int32, device=self.out.device)
+        else:
+            trips = self.loop.run()
+        self.fill = None
+        return self.out[:, :self.max_new].clone(), trips
 
-    def decode(self, enc: torch.Tensor, prompt: torch.Tensor) -> torch.Tensor:
-        """:func:`greedy_decode` of ``enc`` on the static state."""
+    def decode(self, enc: torch.Tensor, prompt: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:func:`greedy_decode` of ``enc`` on the static state: the tokens
+        and the trips, as :meth:`run_loop`."""
         self.prime(enc, prompt)
-        return self.loop()
+        return self.run_loop()
 
 
 def greedy_key(cfg: ASRConfig, batch: int, enc_frames: int, enc_dtype,

@@ -39,7 +39,7 @@ from janus_tpu_torch.ops.layers import (add_layer_norm, embedding_lookup,
                                         linear, linear_gelu, linear_group,
                                         row_linear)
 from janus_tpu_torch.parallel.collectives import enter_model, local_heads
-from janus_tpu_torch.runtime.step_graph import (DONE_CHECK_EVERY, StepGraph,
+from janus_tpu_torch.runtime.step_graph import (LoopGraph, StepGraph,
                                                 StepGraphs, default_graphs,
                                                 use_graphs)
 
@@ -383,10 +383,16 @@ def tts_generate(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
     float32 output buffer, so under bf16 parameters the steps run float32
     activations against bf16 weights, as in the JAX package.
 
-    On the card each step is a replay of the captured step of an
-    :class:`ARGraph` (from ``graphs``, or the module's own), bit-equal to
-    the eager step; on the CPU, with ``eager=True`` or under a mesh of
-    more than one rank the steps run eagerly from Python."""
+    On the card the prefill runs eagerly and the steps are one launch of
+    the loop graph of an :class:`ARGraph` (from ``graphs``, or the module's
+    own): a WHILE conditional node around the captured step, whose
+    condition, ``~all(done)`` within the budget, the card tests before
+    every step, as the JAX package's ``lax.while_loop`` tests its own;
+    bit-equal to the eager steps.
+    Nothing is read back before ``mel`` and ``n_frames`` are returned (the
+    loop's trip count is read when the graphs are settled). On the CPU,
+    with ``eager=True`` or under a mesh of more than one rank the steps
+    run eagerly from Python, the flags read back before every step."""
     if max_groups is None:
         max_groups = cfg.max_mel_frames // cfg.reduction
     b = text_ids.shape[0]
@@ -405,9 +411,8 @@ def tts_generate(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
     out[:, 0, :] = first
     n_groups = torch.ones((b,), dtype=torch.int32, device=first.device)
     for step in range(1, max_groups):
-        # the JAX loop tests ``all(done)`` before every step; here the
-        # flags are read back every DONE_CHECK_EVERY steps only
-        if step % DONE_CHECK_EVERY == 1 and bool(done.all()):
+        # the JAX loop tests ``all(done)`` before every step
+        if bool(done.all()):
             break
         was_done = done
         nxt, done = _step(params, cfg, state, out[:, step - 1, :], done,
@@ -432,17 +437,20 @@ def _prefill_graphed(params, cfg, text_ids, emotion, speaker, max_groups,
 
 def _generate_graphed(params, cfg, text_ids, emotion, speaker, max_groups,
                       text_vocab, stop_threshold, graphs: StepGraphs):
-    """:func:`tts_generate` through an :class:`ARGraph` of ``graphs``."""
+    """:func:`tts_generate` through an :class:`ARGraph` of ``graphs``: the
+    eager prefill into its static caches, then one run of its loop graph
+    (on the CPU the same loop eagerly), whose trips are deferred to
+    :meth:`~janus_tpu_torch.runtime.step_graph.StepGraphs.settle`."""
     b = text_ids.shape[0]
     with graphs.lock:
-        _, _, state = _prefill_graphed(params, cfg, text_ids, emotion,
-                                       speaker, max_groups, text_vocab,
-                                       stop_threshold, graphs)
-        h = state.graph
-        for step in range(1, max_groups):
-            if step % DONE_CHECK_EVERY == 1 and bool(h.done.all()):
-                break
-            h.advance()
+        prompt = _prompt_embedding(params, cfg, text_ids, emotion, speaker,
+                                   text_vocab)
+        h = ar_graph(graphs, params, cfg, b, prompt.shape[1], max_groups,
+                     stop_threshold, prompt.device)
+        h.start(prompt)
+        trips = h.run_loop()
+        if h.loop is not None:
+            h.loop.defer(trips)
         mel = h.out[:, :max_groups].reshape(
             b, max_groups * cfg.reduction, cfg.n_mels).clone()
         return mel, h.n_groups * cfg.reduction
@@ -482,19 +490,24 @@ def tts_decode_chunk(params: Params, cfg: TTSConfig, state: TTSState,
 
 class ARGraph:
     """The AR loop's static state for one batch, prompt width, budget and
-    tree, and its step captured over it (:class:`~janus_tpu_torch.runtime.
-    step_graph.StepGraph`): the KV caches (in ``cfg.dtype``), the group
-    fed to the step (float32, as the eager loop re-enters from its output
-    buffer), the ``done`` flags, the group index (a device counter the
-    step advances; the fill point is the prompt width past it), and the
-    output buffers every step writes: the groups (``out``, one column past
-    the budget so that a step may run to the caches' end), the flags
-    before each step (``dones``) and the valid group count.
+    tree, and its step captured over it: the KV caches (in ``cfg.dtype``),
+    the group fed to the step (float32, as the eager loop re-enters from
+    its output buffer), the ``done`` flags, the group index (a device
+    counter the step advances; the fill point is the prompt width past
+    it), and the output buffers every step writes: the groups (``out``, one
+    column past the budget so that a step may run to the caches' end), the
+    flags before each step (``dones``) and the valid group count.
 
     :meth:`start` fills it for one prompt (zeroes the caches, prefills
-    eagerly, sets the counters); :meth:`advance` is one replay, which the
-    host refuses when it would write past the caches or read past the
-    position table; :meth:`chunk` serves :func:`tts_decode_chunk`."""
+    eagerly, sets the counters). :attr:`graph` is the step captured:
+    :meth:`advance` replays it once (the host refuses a step that would
+    write past the caches or read past the position table), and
+    :meth:`chunk` serves :func:`tts_decode_chunk` with such replays.
+    :attr:`loop` is the ``while_loop`` of :func:`tts_generate`
+    (:class:`~janus_tpu_torch.runtime.step_graph.LoopGraph` of at most
+    ``max_groups - 1`` steps around that graph), whose exit the card
+    decides: :meth:`run_loop`. A budget whose loop would read past the
+    position table raises here, before any capture."""
 
     def __init__(self, graphs: StepGraphs, params: Params, cfg: TTSConfig,
                  batch: int, prompt_len: int, max_groups: int,
@@ -503,6 +516,13 @@ class ARGraph:
         self.prompt_len, self.max_groups = prompt_len, max_groups
         self.stop_threshold = stop_threshold
         self.lock = graphs.lock
+        rows = params["pos_emb"].shape[0]
+        # the loop's last step reads this position row
+        last = audio_pos_base(cfg) + max_groups - 2
+        if max_groups > 1 and last >= rows:
+            raise ValueError(
+                f"position {last} lies outside the position table of {rows} "
+                f"rows (max_text_tokens + max_mel_frames // reduction + 8)")
         self.caches = _make_state(params, cfg, batch, prompt_len + max_groups,
                                   dtype=getattr(torch, cfg.dtype),
                                   device=device).caches
@@ -516,8 +536,10 @@ class ARGraph:
         self.n_groups = torch.ones((batch,), dtype=torch.int32, device=device)
         self.steps = 0   # steps taken since the prefill (the host's count)
         self.epoch = 0   # prefills so far
-        self.graph = StepGraph(self._step, device,
+        self.graph = StepGraph(self._step, device, keep=True,
                                **graphs.capture_args(device))
+        self.loop = (LoopGraph(self.graph, self.done, max_groups - 1)
+                     if max_groups > 1 else None)
 
     def _step(self) -> None:
         nxt, done = _step(self.params, self.cfg, TTSState(self.caches),
@@ -550,12 +572,27 @@ class ARGraph:
         self.prev.copy_(first)
         self.done.copy_(done)
         self.group.zero_()
+        if self.loop is not None:
+            self.loop.trips.zero_()
         self.steps = 0
         return first, done, state
+
+    def run_loop(self) -> torch.Tensor:
+        """The steps after :meth:`start`: one run of :attr:`loop`, nothing
+        read back; the run's trips (a copy). The host's step count is then
+        unknown (None): :meth:`advance` and :meth:`chunk` wait for a
+        :meth:`start`."""
+        self.steps = None
+        if self.loop is None:
+            return torch.zeros((), dtype=torch.int32, device=self.out.device)
+        return self.loop.run()
 
     def advance(self) -> None:
         """One step: a replay (on the CPU, the step run eagerly)."""
         g = self.steps
+        if g is None:
+            raise RuntimeError("the step count after a loop run is the "
+                               "device's: start before stepping")
         if g >= self.max_groups:
             raise ValueError(f"KV cache overflow: {self.prompt_len + g} + 1 "
                              f"> capacity {self.prompt_len + self.max_groups}")

@@ -83,6 +83,8 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "(XLA int8 dot_general; no Pallas kernel)"),
     Kernel("mixed_linear", "janus_tpu/ops/layers.py:40 linear, mixed dtypes "
            "(XLA fuses the convert into the dot; no Pallas kernel)"),
+    Kernel("loop_graph", "janus_tpu/models/asr.py:546 and janus_tpu/models/"
+           "tts.py:393 lax.while_loop's cond (XLA; no Pallas kernel)"),
 )}
 
 

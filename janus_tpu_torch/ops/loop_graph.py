@@ -1,0 +1,98 @@
+"""The decode loops' ``lax.while_loop`` condition, decided on the card.
+
+The JAX package's decode loops are ``lax.while_loop``s whose condition,
+``(step < max) & ~all(done)``, XLA tests on the device before every step
+(``janus_tpu/models/asr.py:546-562``, ``janus_tpu/models/tts.py:
+393-412``). ``csrc/loop_graph.cu`` (the port's own kernel) builds a CUDA
+graph around a captured step: a WHILE conditional node whose body is the
+step (a child graph) and then ``loop_condition``, one warp that counts the
+trip and sets the node's handle to that condition; the same kernel before
+the node sets it for the first test. One launch runs the loop, and the
+host reads nothing back (:class:`WhileGraph`).
+
+:func:`loop_condition` is the kernel alone (one launch, outside a graph),
+and :func:`loop_condition_plain` its plain version, which the CPU runs:
+``trips + add`` and ``(trips < limit) & any(~done)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import weakref
+from typing import Tuple
+
+import torch
+
+from janus_tpu_torch.ops import cuda_build
+
+__all__ = ["KERNEL", "WhileGraph", "loop_condition", "loop_condition_plain"]
+
+KERNEL = cuda_build.KERNELS["loop_graph"]
+_CREATE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+_CONDITION = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+              + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+
+
+def loop_condition_plain(done: torch.Tensor, trips: torch.Tensor, limit: int,
+                         add: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(trips + add, (trips + add < limit) & any(~done))``: the trip
+    count (int32) and the loop's condition (a 0-dim bool)."""
+    t = trips + add
+    return t, torch.logical_and(torch.logical_not(done.all()), t < limit)
+
+
+def loop_condition(done: torch.Tensor, trips: torch.Tensor, limit: int,
+                   add: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`loop_condition_plain` by the kernel on a CUDA tensor (``trips``
+    advanced in place, as the loop's tail does), by the plain version on
+    the CPU."""
+    if done.device.type != "cuda":
+        return loop_condition_plain(done, trips, limit, add)
+    if done.dtype != torch.bool or trips.dtype != torch.int32 \
+            or trips.numel() != 1 or done.dim() != 1:
+        raise TypeError(f"loop_condition takes done [B] bool and one int32 "
+                        f"trip count, got {done.dtype} {tuple(done.shape)}, "
+                        f"{trips.dtype} {tuple(trips.shape)}")
+    done = done.contiguous()
+    go = torch.empty((), dtype=torch.int32, device=done.device)
+    fn = cuda_build.entry(KERNEL, "jt_loop_condition", _CONDITION)
+    KERNEL.launched(float(done.numel()), done.numel() + 8.0)
+    cuda_build.check_launch(KERNEL, fn(
+        done.data_ptr(), done.numel(), trips.data_ptr(), limit, add,
+        go.data_ptr(), torch.cuda.current_stream(done.device).cuda_stream))
+    return trips, go.bool()
+
+
+def _destroy(handle: int) -> None:
+    cuda_build.entry(KERNEL, "jt_loop_destroy", [ctypes.c_void_p])(handle)
+
+
+class WhileGraph:
+    """The loop ``while (trips < limit) & any(~done): step; trips += 1`` as
+    one executable CUDA graph (``csrc/loop_graph.cu``): ``step_graph`` (a
+    ``cudaGraph_t``, cloned into the WHILE node's body) over the static
+    ``done [B]`` (bool) and ``trips`` (one int32) it reads and writes.
+    :meth:`launch` enqueues the whole loop on the current stream; the
+    caller zeroes ``trips`` and sets ``done`` before. Refused graphs (a
+    CUDA without conditional nodes, a step the body cannot hold) raise."""
+
+    def __init__(self, step_graph: int, done: torch.Tensor,
+                 trips: torch.Tensor, limit: int):
+        if done.dtype != torch.bool or not done.is_contiguous() \
+                or trips.dtype != torch.int32 or trips.numel() != 1:
+            raise TypeError("WhileGraph takes a contiguous done [B] bool and "
+                            "one int32 trip count")
+        out = ctypes.c_void_p()
+        fn = cuda_build.entry(KERNEL, "jt_loop_create", _CREATE)
+        cuda_build.check_launch(KERNEL, fn(
+            step_graph, done.data_ptr(), done.numel(), trips.data_ptr(),
+            limit, ctypes.byref(out)))
+        self._handle = out.value
+        self._launch = cuda_build.entry(KERNEL, "jt_loop_launch",
+                                        [ctypes.c_void_p] * 2)
+        weakref.finalize(self, _destroy, self._handle)
+
+    def launch(self, device: torch.device) -> None:
+        cuda_build.check_launch(KERNEL, self._launch(
+            self._handle, torch.cuda.current_stream(device).cuda_stream))

@@ -10,13 +10,16 @@ then host-side token decode and the MessagePack packet. Phrases are
 padded into duration buckets and the batch to the next power of two, as
 in the JAX package.
 
-The JAX package jits the whole encode into one program per bucket. On the
-card the port runs everything before the greedy loop (the wire decode,
-the frontend, the encoder, the cross K/V, the prefill and the first
-token) as one replay of a captured :class:`EncodeGraph` per (bucket,
-padded batch, wire dtype), then the loop's replays; ``eager=True``, the
-CPU and a mesh of more than one rank run :meth:`SemanticEncoder.
-_encode_impl` op by op, which is the oracle the graph is held to.
+The JAX package jits the whole encode into one program per bucket, its
+greedy loop a ``lax.while_loop`` that ends on the device. On the card the
+port runs everything before the greedy loop (the wire decode, the
+frontend, the encoder, the cross K/V, the prefill and the first token) as
+one replay of a captured :class:`EncodeGraph` per (bucket, padded batch,
+wire dtype), then one run of the loop's graph, whose exit the card
+decides: an encode is one upload and two graph launches, with nothing
+read back before :meth:`PendingEncode.result`. ``eager=True``, the CPU and
+a mesh of more than one rank run :meth:`SemanticEncoder._encode_impl` op
+by op, which is the oracle the graph is held to.
 
 With a ``mesh`` the encode is the JAX package's pod layout, written as
 explicit SPMD: the lanes are split over ``data`` (each data rank runs the
@@ -61,15 +64,22 @@ __all__ = ["SemanticEncoder", "PendingEncode", "EncodeGraph", "encode_front",
 class PendingEncode:
     """Handle to an encode whose device work may still be running.
     ``is_ready`` polls a CUDA event recorded after the work; ``result``
-    waits, fetches and decodes (idempotent)."""
+    waits, fetches and decodes (idempotent). Where the greedy loop ran as
+    a captured loop, ``loop`` is its :class:`~janus_tpu_torch.runtime.
+    step_graph.LoopGraph` and ``trips`` the run's count on the device,
+    read back after the tokens and accounted there."""
 
-    __slots__ = ("_encoder", "_arrays", "_b_real", "_event", "_out")
+    __slots__ = ("_encoder", "_arrays", "_b_real", "_event", "_out",
+                 "_loop", "_trips")
 
-    def __init__(self, encoder, arrays, b_real: int, event=None):
+    def __init__(self, encoder, arrays, b_real: int, event=None, loop=None,
+                 trips=None):
         self._encoder = encoder
         self._arrays = arrays
         self._b_real = b_real
         self._event = event
+        self._loop = loop
+        self._trips = trips
         self._out = None
 
     @classmethod
@@ -86,8 +96,12 @@ class PendingEncode:
     def result(self) -> list:
         if self._out is None:
             self._out = self._encoder._finalize(self._arrays, self._b_real)
+            if self._loop is not None:
+                # the loop's bodies that ran (the tokens' read waited)
+                self._loop.account(int(self._trips))
             self._arrays = None
             self._event = None
+            self._loop = self._trips = None
         return self._out
 
 
@@ -158,25 +172,30 @@ def encode_front(params, cfg: JanusConfig, compute_dtype,
 
 
 class EncodeGraph:
-    """The send path up to the greedy loop for one (bucket, padded batch,
-    wire dtype) and one tree, captured as one :class:`~janus_tpu_torch.
-    runtime.step_graph.StepGraph`, as the JAX package compiles its encode
-    per shape.
+    """The send path for one (bucket, padded batch, wire dtype) and one
+    tree as two captured graphs, as the JAX package compiles its encode
+    per shape: the front (a :class:`~janus_tpu_torch.runtime.step_graph.
+    StepGraph`) and the greedy loop (the :class:`~janus_tpu_torch.models.
+    asr.GreedyGraph`'s :class:`~janus_tpu_torch.runtime.step_graph.
+    LoopGraph`, which the card ends).
 
     It owns the static inputs (``audio[b, bucket]`` in the wire dtype and
-    ``n_valid[b]``, each with a pinned host twin), the static outputs
-    (``enc``, ``energy_code``, ``pitch_code``, ``f0``, ``rms``; allocated
-    outside the graphs' pool) and the :class:`~janus_tpu_torch.models.asr.
-    GreedyGraph` of its shape. Its step runs :func:`encode_front` (K3,
-    K1, and K2 with the encoder's products), then :meth:`GreedyGraph.
-    prime`: the cross K/V written in place into the loop's static
-    buffers, the self caches zeroed, the prefill and the first token. On
-    the CPU the step runs eagerly over the same buffers. It holds what it
-    needs of its encoder, not the encoder (which owns it)."""
+    ``n_valid[b]``, each with ``slots`` pinned host twins used in turn, one
+    for each encode that may be in flight, so that a submit does not wait
+    for an earlier encode's upload), the static outputs (``enc``,
+    ``energy_code``, ``pitch_code``, ``f0``, ``rms``; allocated outside the
+    graphs' pool) and the :class:`~janus_tpu_torch.models.asr.GreedyGraph`
+    of its shape. Its front runs :func:`encode_front` (K3, K1, and K2 with
+    the encoder's products), then :meth:`GreedyGraph.prime`: the cross K/V
+    written in place into the loop's static buffers, the self caches
+    zeroed, the prefill, the first token, the loop's trips zeroed. On the
+    CPU both run eagerly over the same buffers. It holds what it needs of
+    its encoder, not the encoder (which owns it)."""
 
     def __init__(self, graphs: StepGraphs, params, cfg: JanusConfig,
                  compute_dtype, prompt: torch.Tensor, eot: int, bucket: int,
-                 batch: int, wire_dtype: torch.dtype, device: torch.device):
+                 batch: int, wire_dtype: torch.dtype, device: torch.device,
+                 slots: int = 1):
         acfg = cfg.asr
         self.params, self.cfg, self.compute_dtype = params, cfg, compute_dtype
         self.n_frames = mel_frame_budget(acfg, bucket)
@@ -189,13 +208,17 @@ class EncodeGraph:
         self.audio = torch.zeros((batch, bucket), dtype=wire_dtype,
                                  device=device)
         self.n_valid = torch.zeros((batch,), dtype=torch.long, device=device)
-        self.host_audio = torch.zeros((batch, bucket), dtype=wire_dtype,
-                                      pin_memory=pinned)
-        self.host_n_valid = torch.zeros((batch,), dtype=torch.long,
-                                        pin_memory=pinned)
-        # recorded after each upload: the next call rewrites the pinned
-        # buffers only once the copies have read them
-        self.uploaded = torch.cuda.Event() if pinned else None
+        # each twin's event is recorded after its upload: a twin is
+        # rewritten only once its copies have read it
+        self.twins = [(torch.zeros((batch, bucket), dtype=wire_dtype,
+                                   pin_memory=pinned),
+                       torch.zeros((batch,), dtype=torch.long,
+                                   pin_memory=pinned),
+                       torch.cuda.Event() if pinned else None)
+                      for _ in range(max(1, slots))]
+        self.uploads = 0
+        self.upload_waits = 0  # uploads that found their twin still read
+        self.trips = None      # the last run's loop trips (a device copy)
         self.enc = torch.zeros((batch, self.n_frames // 2, acfg.d_model),
                                dtype=compute_dtype, device=device)
         self.energy_code = torch.zeros((batch,), dtype=torch.int32,
@@ -218,23 +241,37 @@ class EncodeGraph:
         self.greedy.prime(self.enc, self.prompt)
 
     def run(self, audio: np.ndarray, n_valid: np.ndarray):
-        """One encode of a padded wire batch: one non-blocking upload into
-        the static inputs, one replay of the front, the greedy loop. Returns
+        """One encode of a padded wire batch: one non-blocking upload from
+        the next pinned twin into the static inputs, one replay of the
+        front, one run of the greedy loop; nothing read back. Returns
         (tokens, energy_code, pitch_code, f0, rms), copies of the static
-        outputs that the next call may overwrite. Call with the graphs'
-        lock held."""
-        if self.uploaded is not None:
-            self.uploaded.synchronize()
-        self.host_audio.numpy()[...] = audio
-        self.host_n_valid.numpy()[...] = n_valid
-        self.audio.copy_(self.host_audio, non_blocking=True)
-        self.n_valid.copy_(self.host_n_valid, non_blocking=True)
-        if self.uploaded is not None:
-            self.uploaded.record()
+        outputs that the next call may overwrite; the loop's trips, a copy
+        too, are :attr:`trips`. Call with the graphs' lock held."""
+        host_audio, host_n_valid, uploaded = self.twins[
+            self.uploads % len(self.twins)]
+        self.uploads += 1
+        if uploaded is not None and not uploaded.query():
+            self.upload_waits += 1
+            uploaded.synchronize()
+        host_audio.numpy()[...] = audio
+        host_n_valid.numpy()[...] = n_valid
+        self.audio.copy_(host_audio, non_blocking=True)
+        self.n_valid.copy_(host_n_valid, non_blocking=True)
+        if uploaded is not None:
+            uploaded.record()
         self.graph.replay()
-        tokens = self.greedy.loop()
+        tokens, self.trips = self.greedy.run_loop()
         return (tokens,) + tuple(t.clone() for t in (
             self.energy_code, self.pitch_code, self.f0, self.rms))
+
+    @property
+    def host_audio(self) -> torch.Tensor:
+        """The pinned twin of the last upload (the first before any)."""
+        return self.twins[(self.uploads - 1) % len(self.twins)][0]
+
+    @property
+    def host_n_valid(self) -> torch.Tensor:
+        return self.twins[(self.uploads - 1) % len(self.twins)][1]
 
 
 class SemanticEncoder:
@@ -354,7 +391,7 @@ class SemanticEncoder:
         return self._graphs.holder(self.params, key, lambda: EncodeGraph(
             self._graphs, self.params, self.cfg, self._compute_dtype,
             self._prompt(self.device), self.tokenizer.eot, bucket, batch,
-            wire_dtype, self.device))
+            wire_dtype, self.device, slots=rt.max_inflight_encodes + 1))
 
     # -- host path ---------------------------------------------------------
 
@@ -365,10 +402,14 @@ class SemanticEncoder:
 
     def encode_batch_submit(self, phrases: Sequence[np.ndarray]) -> PendingEncode:
         """Launch the encode; harvest with :meth:`PendingEncode.result`.
-        Returns once the decode loop's last step is enqueued: on the card
-        a replay of its captured step, with the ``done`` flags read back
-        once every 8 steps (eagerly, once a step), so the loop's device
-        work is still running when the handle comes back."""
+        On the card's graph path it returns once the work is enqueued, as
+        the JAX package's submit does: one upload, the front's replay and
+        one run of the greedy loop's graph, whose exit the card decides,
+        with nothing read back, so the whole encode may still be running
+        when the handle comes back. The eager path (``eager=True``, the
+        CPU, a mesh of more than one rank) reads the ``done`` flags back
+        before every step, so it returns once the last step is
+        enqueued."""
         if not phrases:
             return PendingEncode.done([])
         max_bucket = self.buckets[-1]
@@ -394,9 +435,12 @@ class SemanticEncoder:
         elif self.cfg.runtime.encode_transfer_int16:
             batch = np.clip(np.round(batch * 32768.0),
                             -32768, 32767).astype(np.int16)
+        loop = trips = None
         if self._graphed():
             with torch.no_grad(), use_mesh(self.mesh), self._graphs.lock:
-                arrays = self.encode_graph(bucket, b_pad).run(batch, n_valid)
+                holder = self.encode_graph(bucket, b_pad)
+                arrays = holder.run(batch, n_valid)
+                loop, trips = holder.greedy.loop, holder.trips
         else:
             audio = torch.from_numpy(batch).to(self.device)
             nv = torch.from_numpy(n_valid).to(self.device)
@@ -406,7 +450,7 @@ class SemanticEncoder:
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
-        return PendingEncode(self, arrays, b_real, event)
+        return PendingEncode(self, arrays, b_real, event, loop, trips)
 
     def _finalize(self, arrays, b_real: int) -> list:
         tokens, e_code, p_code, f0, rms = (a.cpu().numpy() for a in arrays)

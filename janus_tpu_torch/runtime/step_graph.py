@@ -1,20 +1,28 @@
-"""One step of a decode loop captured in a CUDA graph and replayed.
+"""The decode loops captured in CUDA graphs and replayed.
 
 The JAX package compiles each decode loop into one program: ``jit`` over
 a ``lax.while_loop`` (the recognizer's greedy search,
-``janus_tpu/models/asr.py``) or over the TTS's AR loop
-(``janus_tpu/models/tts.py``). The port's loops are Python. Issued op by op
+``janus_tpu/models/asr.py``; the TTS's AR loop, ``janus_tpu/models/
+tts.py``) whose condition, ``(step < max) & ~all(done)``, is tested on the
+device before every step. The port's loops are Python. Issued op by op
 from Python, a step is ~1800-2600 launches, and the card idles most of the
-step while the host enqueues them. On the card the port captures one step
-into a CUDA graph, over static buffers (the KV caches, the cross K/V, the
-token or mel group, the device position counter, the output buffer), and
-replays it each step: one host call a step. The JAX package has no
+step while the host enqueues them. On the card the port captures the step
+over static buffers (the KV caches, the cross K/V, the token or mel group,
+the device position counter, the output buffer). The JAX package has no
 counterpart of this module: ``jit`` plays its role there.
 
-- :class:`StepGraph`: one step function, captured once after one eager
-  warm-up on the capture stream, replayed per step; on the CPU it runs the
-  step eagerly (the same ops over the same static buffers), which is how
-  the tests hold the device-position step to the eager loop.
+- :class:`StepGraph`: one step function (or any device work over static
+  tensors), captured once after one eager warm-up on the capture stream,
+  replayed per call; on the CPU it runs the step eagerly (the same ops
+  over the same static buffers), which is how the tests hold the
+  device-position step to the eager loop.
+- :class:`LoopGraph`: the ``while_loop`` itself. The step's graph cloned
+  into the body of a WHILE conditional node (CUDA 12.4+), the loop's
+  condition, ``(trips < limit) & ~all(done)``, computed on the card by the
+  port's kernel (``csrc/loop_graph.cu``) before the node and after each
+  body, which also counts the trips in a device counter. One launch runs
+  the loop and nothing is read back, whatever its exit. On the CPU the
+  same loop runs eagerly, the condition read before each body.
 - :class:`StepGraphs`: the graphs of one caller (an encoder, a
   synthesizer) by key, with one memory pool, one capture stream and one
   lock, for one parameter tree at a time: a graph holds its weights'
@@ -22,20 +30,25 @@ counterpart of this module: ``jit`` plays its role there.
   graphs and captures anew. What a step derives from the tree once (the
   recognizer head's fp32 table: :meth:`StepGraphs.derived`) is kept
   beside it, for all holders.
-- Lifetime: a holder owns its :class:`StepGraph`, which holds the
-  holder's step method weakly, so dropping a holder frees its graph, its
-  pool's blocks and its buffers at once, not whenever the cyclic collector
-  next runs (perhaps inside another capture, which a graph's teardown
-  there invalidates; the collector is kept off during a capture).
+- Lifetime: a holder owns its graphs (a :class:`LoopGraph` holds its
+  :class:`StepGraph`, which holds the holder's step method weakly), so
+  dropping a holder frees its graphs, its pool's blocks and its buffers
+  at once, not whenever the cyclic collector next runs
+  (perhaps inside another capture, which a graph's teardown there
+  invalidates; the collector is kept off during a capture).
 - Kernel accounting: a replay bypasses the Python wrappers that count
   their launches (:class:`~janus_tpu_torch.ops.cuda_build.Kernel`), so the
-  counts a capture records are taken back from the kernels and added again
-  at every replay.
+  counts a capture records are taken back from the kernels. A
+  :class:`StepGraph` adds them again at every replay; a :class:`LoopGraph`
+  adds one body's counts times the bodies that ran (:meth:`LoopGraph.
+  account`, with ``trips`` as the caller reads it back beside its
+  results), since a replay does not say how many ran.
 
 :func:`use_graphs` picks the path, with no fallback: the graph on the card,
 the eager loop on the CPU, when the caller asks for it (``eager=True``),
 and under a mesh of more than one rank (its collectives cannot be
-captured). A failed capture or replay raises.
+captured). A failed capture or replay raises, and so does a CUDA without
+conditional nodes.
 """
 
 from __future__ import annotations
@@ -51,18 +64,14 @@ from typing import Callable, Dict, Hashable, List, Optional, Tuple
 import torch
 
 from janus_tpu_torch.ops.cuda_build import KERNELS, Kernel
+from janus_tpu_torch.ops.loop_graph import KERNEL as LOOP_KERNEL
+from janus_tpu_torch.ops.loop_graph import WhileGraph, loop_condition_plain
 from janus_tpu_torch.parallel.collectives import current_mesh, mesh_shape
 
-__all__ = ["StepGraph", "StepGraphs", "use_graphs", "default_graphs",
-           "DONE_CHECK_EVERY"]
+__all__ = ["StepGraph", "LoopGraph", "StepGraphs", "use_graphs",
+           "default_graphs"]
 
 Counts = Dict[Kernel, Tuple[int, float, float]]
-
-# The decode loops read their ``done`` flags back (a device -> host wait)
-# once every this many steps, not every step. A finished lane writes eot
-# (the recognizer) or zeros and keeps its count (the TTS), so leaving the
-# loop late changes nothing.
-DONE_CHECK_EVERY = 8
 
 
 def use_graphs(device: torch.device, eager: bool = False) -> bool:
@@ -83,6 +92,13 @@ def _restore(counts: Counts) -> None:
         k.launches, k.flops, k.bytes = launches, flops, nbytes
 
 
+def _add(counts: Counts, times: int) -> None:
+    for k, (launches, flops, nbytes) in counts.items():
+        k.launches += times * launches
+        k.flops += times * flops
+        k.bytes += times * nbytes
+
+
 class StepGraph:
     """``step()`` (which reads and writes only static tensors) captured in
     a CUDA graph on a CUDA ``device``; on the CPU :meth:`replay` runs it
@@ -99,10 +115,13 @@ class StepGraph:
     The warm-up launches count as launches; the capture's are recorded in
     :attr:`counts` and added to the kernels at every replay.
     ``capture_ms`` is the warm-up and capture's wall time. A bound method
-    ``step`` is held weakly (its object owns this graph)."""
+    ``step`` is held weakly (its object owns this graph). With ``keep``
+    the captured ``cudaGraph_t`` is kept (:meth:`raw_graph`), for a
+    :class:`LoopGraph` to clone."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
-                 pool=None, stream=None):
+                 pool=None, stream=None, keep: bool = False):
+        self._keep = keep
         self._step = (weakref.WeakMethod(step)
                       if isinstance(step, types.MethodType)
                       else lambda: step)
@@ -131,7 +150,8 @@ class StepGraph:
                 self.step()
             torch.cuda.current_stream(dev).wait_stream(stream)
             before = _counts()
-            graph = torch.cuda.CUDAGraph()
+            graph = (torch.cuda.CUDAGraph(keep_graph=True) if self._keep
+                     else torch.cuda.CUDAGraph())
             # no cyclic collection during the capture: one that freed
             # another graph would tear it down inside the capture, which
             # invalidates the capture
@@ -153,16 +173,99 @@ class StepGraph:
             self.capture_ms = 1e3 * (time.perf_counter() - t0)
         return graph
 
+    def raw_graph(self) -> int:
+        """The captured ``cudaGraph_t`` (a capture with ``keep``)."""
+        if self._graph is None or not self._keep:
+            raise RuntimeError("no kept CUDA graph: capture with keep=True")
+        return self._graph.raw_cuda_graph()
+
     def replay(self) -> None:
         if self._graph is None:
             self.step()
         else:
             self._graph.replay()
-            for k, (launches, flops, nbytes) in self.counts.items():
-                k.launches += launches
-                k.flops += flops
-                k.bytes += nbytes
+            _add(self.counts, 1)
         self.replays += 1
+
+
+class LoopGraph:
+    """The loop ``while trips < limit and any(~done): step(); trips += 1``
+    with its test on the card: ``step``'s graph (a :class:`StepGraph`
+    captured with ``keep=True``) cloned into the body of a WHILE
+    conditional node, and the condition, counting the trips, computed by
+    the port's kernel before the node and after each body
+    (:class:`~janus_tpu_torch.ops.loop_graph.WhileGraph`). One launch runs
+    the loop, whatever its exit; nothing is read back. On the CPU
+    :meth:`run` is the same loop run eagerly, the condition
+    (:func:`~janus_tpu_torch.ops.loop_graph.loop_condition_plain`) read back
+    before each body.
+
+    ``trips`` (int32, on the device) is the holder's to zero before a run,
+    in work it issues before (its prefill), so that a run is one launch.
+    :meth:`run` returns a copy of it, which the caller reads back with its
+    results and hands to :meth:`account`: the step graph's kernel counts
+    times the bodies that ran, and the condition kernel's launches (one
+    before the node, one after each body); :meth:`defer` keeps the copy to
+    be read at :meth:`settle` instead. The step graph's own
+    :attr:`StepGraph.replays` do not move: the loop is its own graph, over
+    the same pool addresses, so a holder never runs the two at once."""
+
+    def __init__(self, step: StepGraph, done: torch.Tensor, limit: int):
+        if limit < 1:
+            raise ValueError(f"a loop of at most {limit} steps")
+        self.step_graph = step
+        self.device = step.device
+        self.done = done
+        self.limit = limit
+        self.trips = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.runs = 0        # calls of run()
+        self.trips_run = 0   # bodies run, as account() was told
+        self.counts: Counts = step.counts
+        self.build_ms = 0.0
+        self._pending: List[torch.Tensor] = []
+        self._graph = None
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            self._graph = WhileGraph(step.raw_graph(), done, self.trips,
+                                     limit)
+            self.build_ms = 1e3 * (time.perf_counter() - t0)
+
+    def run(self) -> torch.Tensor:
+        """The loop from the holder's state: on the card one graph launch,
+        nothing read back; on the CPU the bodies eagerly. Returns a copy of
+        ``trips`` (on the loop's device)."""
+        if self._graph is None:
+            while bool(loop_condition_plain(self.done, self.trips,
+                                            self.limit)[1]):
+                self.step_graph.step()
+                self.trips.add_(1)
+        else:
+            self._graph.launch(self.device)
+        self.runs += 1
+        return self.trips.clone()
+
+    def account(self, trips: int) -> None:
+        """A run's ``trips`` as read back: its kernels' launches."""
+        trips = int(trips)
+        _add(self.counts, trips)
+        if self._graph is not None:
+            LOOP_KERNEL.launches += 1 + trips
+            LOOP_KERNEL.flops += (1 + trips) * self.done.numel()
+            LOOP_KERNEL.bytes += (1 + trips) * (self.done.numel() + 8.0)
+        self.trips_run += trips
+
+    def defer(self, trips: torch.Tensor) -> None:
+        """Keep a run's ``trips`` copy until :meth:`settle`."""
+        self._pending.append(trips)
+
+    def settle(self) -> None:
+        """Read back and :meth:`account` every deferred run (a wait for the
+        last of them)."""
+        if self._pending:
+            runs = torch.stack(self._pending).cpu().tolist()
+            self._pending.clear()
+            for trips in runs:
+                self.account(trips)
 
 
 _CAPTURE_LOCK = threading.Lock()
@@ -236,11 +339,36 @@ class StepGraphs:
                 if kind is None or (isinstance(k, tuple) and k[0] == kind)]
 
     def graphs(self, kind: Optional[str] = None) -> List[StepGraph]:
+        """The holders' one-step (or front) graphs."""
         return [h.graph for h in self.holders(kind)]
+
+    def loops(self, kind: Optional[str] = None) -> List[LoopGraph]:
+        """The holders' loop graphs (those built so far)."""
+        return [h.loop for h in self.holders(kind)
+                if getattr(h, "loop", None) is not None]
 
     @property
     def replays(self) -> int:
-        return sum(g.replays for g in self.graphs())
+        """Host launches of the holders' graphs: each replay of a step or
+        front graph, and each run of a loop graph."""
+        return (sum(g.replays for g in self.graphs())
+                + sum(lp.runs for lp in self.loops()))
+
+    @property
+    def steps(self) -> int:
+        """Decode steps the holders ran: a step graph's replays and the
+        bodies of every loop run (deferred counts read back first)."""
+        self.settle()
+        return (sum(h.graph.replays for h in self.holders()
+                    if hasattr(h, "loop"))
+                + sum(lp.trips_run for lp in self.loops()))
+
+    def settle(self) -> None:
+        """Account the loop runs whose ``trips`` were deferred
+        (:meth:`LoopGraph.settle`: a wait for the last of them)."""
+        with self.lock:
+            for lp in self.loops():
+                lp.settle()
 
     def pool_bytes(self) -> int:
         """Device memory the allocator holds in this caller's graph pool
@@ -254,8 +382,10 @@ class StepGraphs:
 
     def clear(self) -> None:
         """Drop every graph and the tree they served (the pool's memory
-        goes back with the last graph)."""
+        goes back with the last graph); deferred loop counts are
+        accounted first."""
         with self.lock:
+            self.settle()
             self._holders.clear()
             self._derived.clear()
             self._leaves = None

@@ -205,6 +205,8 @@ class Synthesizer:
         cap = int((0.35 + self.cfg.tts.max_seconds_per_text_token * len(ids))
                   * 48_000)
         pcm = wav[0, : max(min(n, cap), 0)].cpu().numpy()
+        # the AR loop's bodies that ran (read after the samples)
+        self._graphs.settle()
         pcm = np.clip(pcm, -1.0, 1.0)
         return (pcm * 32767.0).astype(np.int16).tobytes()
 
@@ -267,8 +269,8 @@ class Synthesizer:
         return self._streamer
 
     def warmup(self) -> None:
-        """On the graph path, capture the AR step of one prompt in every
-        text bucket, for :meth:`synthesize` and for
+        """On the graph path, capture the AR step and the AR loop of one
+        prompt in every text bucket, for :meth:`synthesize` and for
         :meth:`synthesize_streaming`, so that no capture happens inside a
         live turn."""
         tcfg = self.cfg.tts

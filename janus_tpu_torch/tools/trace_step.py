@@ -18,13 +18,19 @@ holder rewound before each round) of a round's time over its replays.
 
 :func:`trace_front` does the same for the front an encoder replays
 before its greedy loop (:class:`~janus_tpu_torch.runtime.codec.
-EncodeGraph`: the frontend, the encoder, the cross K/V and the prefill),
-and :func:`trace_replays` for any replay.
+EncodeGraph`: the frontend, the encoder, the cross K/V and the prefill);
+:func:`trace_ar_loop` and :func:`trace_greedy_loop` trace one launch of a
+decode loop's graph (:class:`~janus_tpu_torch.runtime.step_graph.
+LoopGraph`: the WHILE node around the captured step, its condition tested
+on the card), the holder rewound to the end of its prefill before each;
+:func:`trace_replays` any replay.
 
 Usage: ``python -m janus_tpu_torch.tools.trace_step [--batch 8 1]
-[--groups 256] [--front SECONDS] [--out trace.json]``; prints one JSON
-line a batch (the full table goes to ``--out`` where given). Needs a
-card: the profiler's device events are the measurement.
+[--groups 256] [--front SECONDS] [--loop] [--out trace.json]``; prints
+one JSON line a batch (the full table goes to ``--out`` where given):
+the AR step, or with ``--loop`` the whole AR loop; with ``--front`` the
+recognizer's front, or with ``--loop`` its greedy loop after the front.
+Needs a card: the profiler's device events are the measurement.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ from janus_tpu_torch.runtime.step_graph import StepGraphs
 
 __all__ = ["PRODUCT", "KINDS", "kernel_rows", "kind_of", "timeline",
            "gaps_by_kind", "span_us", "trace_replays", "trace_ar_step",
-           "trace_front", "main"]
+           "trace_front", "trace_ar_loop", "trace_greedy_loop",
+           "profiler_ready", "main"]
 
 # the names of matrix-product kernels: cuBLAS / cuBLASLt (gemm, gemv,
 # xmma, cutlass, nvjet) and the port's own linears
@@ -143,6 +150,18 @@ def kernel_rows(trace: dict) -> List[dict]:
     return sorted(rows.values(), key=lambda r: -r["total_us"])
 
 
+def profiler_ready(device: torch.device) -> None:
+    """One empty profiler session on ``device``: run it before the graphs
+    to be traced are built. A loop graph instantiated before a process's
+    first profiler session had one body of its WHILE node recorded (234 of
+    the AR loop's 59,407 kernels at b = 8); one built after it, all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device=device).add_(1)
+        torch.cuda.synchronize(device)
+
+
 def trace_replays(replay: Callable[[], None], device: torch.device,
                   rewind: Callable[[], None] = lambda: None,
                   rounds: int = 9, per_round: int = 16,
@@ -168,6 +187,7 @@ def trace_replays(replay: Callable[[], None], device: torch.device,
     replay()
     torch.cuda.synchronize(device)
     rewind()
+    torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         replay()
@@ -244,10 +264,66 @@ def trace_front(encoder, bucket: int, batch: int,
     return {"bucket": bucket, "batch": batch, **record}
 
 
+@torch.no_grad()
+def trace_ar_loop(batch: int, groups: int = 256, prompt: int = 32,
+                  device="cuda", out: Optional[str] = None) -> dict:
+    """One launch of the AR loop's graph at ``batch`` lanes, a
+    ``prompt``-wide text and a budget of ``groups`` (no stop: random
+    weights, threshold 2), traced after one prefill; the holder is rewound
+    to the end of that prefill before each launch. The summary record,
+    with the loop's ``trips``."""
+    dev = resolve_device(device)
+    profiler_ready(dev)
+    tok = ByteTokenizer()
+    cfg = TTSConfig.flagship()
+    params = cast_floating(tts_mod.init_tts(
+        torch.Generator(device=dev).manual_seed(0), cfg,
+        text_vocab=tok.vocab_size), torch.bfloat16)
+    graphs = StepGraphs()
+    with graphs.lock:
+        holder = tts_mod.ar_graph(graphs, params, cfg, batch, prompt + 3,
+                                  groups, 2.0, dev)
+        text = torch.zeros((batch, prompt), dtype=torch.long, device=dev)
+        emo = torch.zeros((batch,), dtype=torch.long, device=dev)
+        holder.start(tts_mod._prompt_embedding(params, cfg, text, emo, None,
+                                               tok.vocab_size))
+        saved = [t.clone() for t in (holder.prev, holder.done)]
+
+        def rewind():
+            holder.prev.copy_(saved[0])
+            holder.done.copy_(saved[1])
+            holder.group.zero_()
+            holder.loop.trips.zero_()
+
+        record = trace_replays(holder.loop.run, dev, rewind, rounds=3,
+                               per_round=1, out=out)
+        trips = int(holder.loop.trips)
+    return {"batch": batch, "groups": groups, "prompt": prompt,
+            "trips": trips, **record}
+
+
+@torch.no_grad()
+def trace_greedy_loop(encoder, bucket: int, batch: int,
+                      out: Optional[str] = None) -> dict:
+    """One launch of ``encoder``'s greedy loop graph at ``bucket`` samples
+    and ``batch`` padded lanes, after a replay of its front over whatever
+    its static inputs hold (the rewind: the front primes the loop), traced;
+    the summary record, with the loop's ``trips``. Build ``encoder``'s
+    graphs after :func:`profiler_ready`."""
+    with encoder._graphs.lock:
+        holder = encoder.encode_graph(bucket, batch)
+        record = trace_replays(holder.greedy.loop.run, encoder.device,
+                               holder.graph.replay, rounds=3, per_round=1,
+                               out=out)
+        trips = int(holder.greedy.loop.trips)
+    return {"bucket": bucket, "batch": batch, "trips": trips, **record}
+
+
 def _flagship_front(batch: int, seconds: float, device,
-                    out: Optional[str] = None) -> dict:
+                    out: Optional[str] = None, loop: bool = False) -> dict:
     """The large-v3 recognizer (random bf16 weights from seed 0) encoding
-    ``batch`` voiced phrases of ``seconds``, then its front traced."""
+    ``batch`` voiced phrases of ``seconds``, then its front (or its greedy
+    loop) traced."""
     from janus_tpu_torch.audio.synthetic import voiced_phrase
     from janus_tpu_torch.common.config import ASRConfig, JanusConfig
     from janus_tpu_torch.runtime.codec import SemanticEncoder, duration_bucket
@@ -257,9 +333,14 @@ def _flagship_front(batch: int, seconds: float, device,
     phrases = [voiced_phrase(f0=140.0 + 15 * i, seconds=seconds, amp=0.12,
                              seed=i) for i in range(batch)]
     bucket = duration_bucket(len(phrases[0]))
+    if loop:
+        profiler_ready(resolve_device(device))
     enc = SemanticEncoder(cfg, buckets=(bucket,), device=device)
     enc.encode_batch(phrases)
-    return trace_front(enc, bucket, 1 << (batch - 1).bit_length(), out)
+    padded = 1 << (batch - 1).bit_length()
+    if loop:
+        return trace_greedy_loop(enc, bucket, padded, out)
+    return trace_front(enc, bucket, padded, out)
 
 
 def main(argv=None) -> None:
@@ -272,6 +353,9 @@ def main(argv=None) -> None:
                     help="trace the large-v3 recognizer's captured front "
                          "(the encode before its greedy loop) at phrases of "
                          "SECONDS instead of the AR step")
+    ap.add_argument("--loop", action="store_true",
+                    help="trace a whole decode loop's graph launch: the AR "
+                         "loop, or with --front the greedy loop")
     ap.add_argument("--out", default=None,
                     help="write each batch's full table to OUT with the "
                          "batch before the extension")
@@ -282,7 +366,11 @@ def main(argv=None) -> None:
             stem, ext = os.path.splitext(args.out)
             out = f"{stem}_b{b}{ext or '.json'}"
         if args.front:
-            record = _flagship_front(b, args.front, args.device, out)
+            record = _flagship_front(b, args.front, args.device, out,
+                                     args.loop)
+        elif args.loop:
+            record = trace_ar_loop(b, args.groups, args.prompt, args.device,
+                                   out)
         else:
             record = trace_ar_step(b, args.groups, args.prompt, args.device,
                                    out)

@@ -2,6 +2,8 @@
 These need an NVIDIA GPU and the CUDA toolkit: they skip on a machine
 without one. On the card: ``python -m pytest tests/test_torch_cuda.py``."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -434,6 +436,34 @@ def test_int8_linear_replays_from_a_graph(dev, m, k, n):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(y, int8_linear_plain(xs, qw, b))
+
+
+@pytest.mark.parametrize("m", [4000, 6400])
+def test_int8_linear_reads_a_weight_written_just_before(dev, m):
+    """A copy kernel writes the int8 weight just before each programmatic
+    call at the tile product's row counts (the product asks for the
+    weight before its wait; the quantization before it lets it start
+    only once the kernel before the call has finished): every call gives
+    the plain version's bits on the weight written. Each round's weight
+    lies where the last one lay."""
+    from janus_tpu_torch.ops.int8_linear import _launch, int8_linear_plain
+    from janus_tpu_torch.ops.quant import DynQuantizedWeight
+
+    k, n = 1280, 5120
+    x, qw, b = _int8_case(dev, m, k, n, torch.bfloat16, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(m)
+    srcs = [torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                          dtype=torch.int8) for _ in range(6)]
+    buf = torch.empty((n, k), dtype=torch.int8, device=dev)
+    got = []
+    for src in srcs:
+        buf.copy_(src)
+        got.append(_launch(x, DynQuantizedWeight(buf.t(), qw.scale), b,
+                           pdl=True)[0])
+    torch.cuda.synchronize()
+    for src, y in zip(srcs, got):
+        assert torch.equal(y, int8_linear_plain(
+            x, DynQuantizedWeight(src.t(), qw.scale), b))
 
 
 def test_int8_linear_raises_on_what_it_cannot_take(dev):
@@ -1068,10 +1098,10 @@ def _graph_asr(dev, seed=0, int8=False):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
 def test_greedy_graph_equals_eager_on_the_card(dev, int8):
-    """The replayed step gives the eager loop's tokens bit for bit, two
-    calls on one holder; under int8 cross K/V the step runs K4 inside the
-    graph, and the replays count its launches: one a decoder layer and
-    forward (the prefill's and every replayed step's)."""
+    """The loop graph gives the eager loop's tokens bit for bit, two calls
+    on one holder; under int8 cross K/V the step runs K4 inside the graph,
+    and the loop's trips count its launches: one a decoder layer and
+    forward (the prefill's and every step the loop ran)."""
     from janus_tpu_torch.models.asr import greedy_decode
     from janus_tpu_torch.ops.cross_attn import KERNEL as CROSS
     from janus_tpu_torch.runtime.step_graph import StepGraphs
@@ -1083,16 +1113,134 @@ def test_greedy_graph_equals_eager_on_the_card(dev, int8):
         eager = greedy_decode(params, cfg, e, prompt, 257, eager=True, **kw)
         greedy_decode(params, cfg, e, prompt, 257, graphs=graphs, **kw)
         torch.cuda.synchronize()
-        before, replays = CROSS.launches, graphs.replays
+        steps0 = graphs.steps  # the call before accounted first
+        before = CROSS.launches
         graphed = greedy_decode(params, cfg, e, prompt, 257, graphs=graphs,
                                 **kw)
         torch.cuda.synchronize()
         assert torch.equal(graphed, eager)
-        steps = graphs.replays - replays
+        # the loop's trips, read back: the bodies that ran
+        steps = graphs.steps - steps0
         assert steps >= 7
         assert CROSS.launches - before == (
             cfg.decoder_layers * (1 + steps) if int8 else 0)
     assert len(graphs.graphs()) == 1
+
+
+def _eot_at(params, step):
+    """The tree with the decoder's position row ``step`` pushed along the
+    eot embedding (257): with a one-token prompt every lane emits eot at
+    that step."""
+    dec = dict(params["decoder"])
+    pos = dec["pos_emb"].clone()
+    e = dec["token_emb"][257].float()
+    pos[step] += (200.0 * e / e.norm()).to(pos.dtype)
+    return {**params, "decoder": {**dec, "pos_emb": pos}}
+
+
+def _first_all_eot(tokens, max_new):
+    """The while_loop's trip count from its tokens: the first step at
+    which every lane has emitted eot, at most ``max_new - 1``."""
+    hit = tokens == 257
+    first = torch.where(hit.any(1), hit.int().argmax(1),
+                        torch.full_like(hit[:, 0], max_new, dtype=torch.long))
+    return min(int(first.max()), max_new - 1)
+
+
+@pytest.mark.parametrize("stop", [1, 2, 9, None], ids=["1", "2", "9",
+                                                       "never"])
+def test_greedy_loop_ends_on_the_card(dev, stop):
+    """The loop graph (a WHILE node around the captured step, its
+    condition tested on the card) gives the eager loop's tokens bit for
+    bit and runs the while_loop's trips: ``stop`` where every lane emits
+    eot there, 11 where none does."""
+    from janus_tpu_torch.models.asr import greedy_decode, greedy_graph
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    cfg, params, enc, prompt = _graph_asr(dev)
+    if stop is not None:
+        params = _eot_at(params, stop)
+    eager = greedy_decode(params, cfg, enc, prompt, 257, max_new=12,
+                          cache_dtype=torch.bfloat16, eager=True)
+    graphs = StepGraphs()
+    with graphs.lock:
+        h = greedy_graph(graphs, params, cfg, 4, enc.shape[-2], enc.dtype, 1,
+                         12, torch.bfloat16, False, 257, dev)
+        for _ in range(2):
+            tokens, trips = h.decode(enc, prompt)
+            assert torch.equal(tokens, eager)
+            assert int(trips) == _first_all_eot(eager, 12)
+    assert int(trips) == (11 if stop is None else stop)
+    assert h.graph.replays == 0 and h.loop.runs == 2
+
+
+def test_loop_condition_kernel_equals_plain(dev):
+    """The loop's condition kernel alone: the trip count and
+    ``(trips < limit) & any(~done)`` as the plain version gives them, at
+    one to 64 lanes (two strides of the warp), done or live in any lane,
+    at and past the limit; a trivial step's loop graph runs exactly the
+    eager loop's trips, and one that finds every lane done runs none."""
+    from janus_tpu_torch.ops.loop_graph import (loop_condition,
+                                                loop_condition_plain)
+    from janus_tpu_torch.runtime.step_graph import LoopGraph, StepGraph
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for batch in (1, 8, 33, 64):
+        for p in (0.0, 0.5, 1.0):
+            done = torch.rand(batch, generator=g, device=dev) < p
+            for trips, limit, add in ((0, 1, 0), (0, 1, 1), (5, 6, 1),
+                                      (5, 23, 0), (23, 23, 0)):
+                t = torch.tensor(trips, dtype=torch.int32, device=dev)
+                got = loop_condition(done, t.clone(), limit, add)
+                want = loop_condition_plain(done.cpu(), t.cpu(), limit, add)
+                assert int(got[0]) == int(want[0])
+                assert bool(got[1]) == bool(want[1])
+    done = torch.zeros(8, dtype=torch.bool, device=dev)
+    x = torch.zeros((), dtype=torch.int32, device=dev)
+    stop = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def step():
+        x.add_(1)
+        torch.logical_or(done, x >= stop, out=done)
+
+    loop = LoopGraph(StepGraph(step, dev, keep=True), done, 23)
+    for k in (0, 1, 2, 9, 17, 23, 100):
+        stop.fill_(k)
+        x.zero_()
+        done.fill_(k == 0)
+        loop.trips.zero_()
+        assert int(loop.run()) == int(x) == min(k, 23)
+
+
+def test_submit_reads_nothing_back(dev):
+    """``encode_batch_submit`` on the card's graph path synchronises with
+    nothing and copies nothing to the host: one upload, the front's
+    replay and the loop's launch; ``result()`` then equals
+    ``encode_batch``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from janus_tpu_torch.audio.synthetic import voiced_phrase
+    from janus_tpu_torch.models.zoo import load_demo
+    from janus_tpu_torch.runtime.codec import SemanticEncoder
+
+    b = load_demo()
+    enc = SemanticEncoder(b.config, b.asr_params, buckets=(96_000,),
+                          device="cuda")
+    phrases = [voiced_phrase(f0=140.0 + 20 * i, seconds=1.5, amp=0.12,
+                             seed=i) for i in range(3)]
+    want = enc.encode_batch(phrases)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pending = enc.encode_batch_submit(phrases)
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CPU]
+    waits = [n for n in names if re.search(
+        r"Synchronize|cudaMemcpy$|cudaMemcpy2D$|_local_scalar_dense|"
+        r"aten::item", n)]
+    assert not waits, waits
+    assert sum(n.startswith("cudaGraphLaunch") for n in names) <= 2
+    assert pending.result() == want
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -2,8 +2,9 @@
 ``GreedyGraph`` (the recognizer's greedy search) and ``ARGraph`` (the TTS
 AR loop) with the device-position step run eagerly over them, against the
 eager loops bit for bit and against the JAX package at the tolerances of
-``tests/test_torch_asr.py`` and ``tests/test_torch_tts.py``; the ``done``
-flags read every 8 steps; the host's overflow checks; the kernel
+``tests/test_torch_asr.py`` and ``tests/test_torch_tts.py``; the loops'
+exits decided from the ``done`` flags before every step, as the card's
+conditional nodes decide them; the holders' overflow checks; the kernel
 accounting of replays; the choice of path; two decoder layers and two TTS
 blocks with the residual adds and the cache writes taken into the norms'
 and the attention's calls, bit-equal to the add and norm, write and
@@ -112,7 +113,9 @@ def test_greedy_step_path_equals_eager_loop(asr_trees, int8, cache_dtype):
                 jnp.asarray(prompt), EOT, max_new=8, cache_dtype=jdt,
                 cross_kv_int8=int8))
             np.testing.assert_array_equal(stepped.numpy(), ref)
-    assert len(graphs.graphs()) == 1 and graphs.replays == 14
+    # one holder; each call one run of its loop graph, of 7 steps
+    assert len(graphs.graphs()) == len(graphs.loops()) == 1
+    assert graphs.replays == 2 and graphs.steps == 14
 
 
 def _asr_eot_at(jp, step):
@@ -131,10 +134,11 @@ def _asr_eot_at(jp, step):
 
 @pytest.mark.parametrize("stop", [1, 7, 8, 9, None],
                          ids=["1", "7", "8", "9", "never"])
-def test_greedy_done_read_every_8_steps_matches_jax(asr_trees, stop):
-    """Lanes that emit eot at step 1, 7, 8 or 9 (around the reads at
-    steps 1, 9, 17) or never: the stepped loop's tokens equal the eager
-    loop's and the JAX package's."""
+def test_greedy_device_exit_matches_jax(asr_trees, stop):
+    """Lanes that emit eot at step 1, 7, 8 or 9 (around the reads the
+    host loop made at steps 1, 9, 17 before the exit moved to the card)
+    or never: the loop graph's tokens equal the eager loop's and the JAX
+    package's, and it ran the JAX ``while_loop``'s trips."""
     jcfg, tcfg, jp, enc = asr_trees
     jp = _asr_eot_at(jp, stop)
     tp = prepare_decode_params(params_from_jax(jp))
@@ -144,33 +148,43 @@ def test_greedy_done_read_every_8_steps_matches_jax(asr_trees, stop):
         jnp.asarray(prompt), EOT, max_new=16))
     eager = t_asr.greedy_decode(tp, tcfg, _t(enc), _t(prompt).long(), EOT,
                                 max_new=16)
+    graphs = StepGraphs()
     stepped = t_asr._greedy_graphed(tp, tcfg, _t(enc), _t(prompt).long(),
-                                    EOT, 16, torch.float32, False,
-                                    StepGraphs())
+                                    EOT, 16, torch.float32, False, graphs)
     assert torch.equal(stepped, eager)
     np.testing.assert_array_equal(stepped.numpy(), ref)
     if stop is not None:
         assert (ref[:, stop:] == EOT).all() and (ref[:, :stop] != EOT).all()
     else:
         assert (ref != EOT).all()
+    (loop,) = graphs.loops()
+    assert graphs.steps == loop.trips_run == (15 if stop is None else stop)
 
 
 def test_greedy_host_raises_before_an_overflow(asr_trees):
-    """Past the position table (32 rows) the host raises before the
-    replay that would read it; a step past the caches' capacity too."""
+    """A loop that would read past the position table (32 rows) raises at
+    the holder's construction, before any capture; a single step past the
+    caches' capacity raises on the host before its replay, and a step
+    after a loop run (whose fill point only the device knows) is refused
+    until the next prime."""
     _, tcfg, jp, enc = asr_trees
     tp = prepare_decode_params(params_from_jax(jp))
     prompt = torch.full((3, 1), 256)
     graphs = StepGraphs()
-    with pytest.raises(ValueError, match="position 32 lies outside"):
+    with pytest.raises(ValueError, match="position 39 lies outside"):
         t_asr._greedy_graphed(tp, tcfg, _t(enc), prompt, EOT, 40,
                               torch.float32, False, graphs)
+    assert not graphs.holders()
     with graphs.lock:
         h = t_asr.greedy_graph(graphs, tp, tcfg, 3, enc.shape[1],
                                torch.float32, 1, 8, torch.float32, False,
                                EOT, torch.device("cpu"))
     h.decode(_t(enc), prompt)
-    h.advance()   # the last slot of the caches
+    with pytest.raises(RuntimeError, match="prime before stepping"):
+        h.advance()
+    h.prime(_t(enc), prompt)
+    for _ in range(8):
+        h.advance()   # to the last slot of the caches
     out = h.out.clone()
     with pytest.raises(ValueError, match="KV cache overflow"):
         h.advance()
@@ -247,18 +261,20 @@ def _tts_stop_at(jp, step):
 
 @pytest.mark.parametrize("stop", [1, 7, 8, 9, None],
                          ids=["1", "7", "8", "9", "never"])
-def test_tts_done_read_every_8_steps_matches_jax(tts_tree, stop):
-    """Lanes that stop at AR step 1, 7, 8 or 9 or never: the stepped
-    loop's mel and ``n_frames`` equal the eager loop's bit for bit, and
-    the JAX package's (``n_frames`` equal, mel within 1e-4)."""
+def test_tts_device_exit_matches_jax(tts_tree, stop):
+    """Lanes that stop at AR step 1, 7, 8 or 9 or never: the loop graph's
+    mel and ``n_frames`` equal the eager loop's bit for bit, and the JAX
+    package's (``n_frames`` equal, mel within 1e-4), and it ran the JAX
+    ``while_loop``'s trips."""
     jp = _tts_stop_at(tts_tree, stop)
     jc, tc = JTTSConfig(**TTS_KW, dtype="float32"), TTSConfig(
         **TTS_KW, dtype="float32")
     tp = params_from_jax(jp)
     text, emo, spk = _prompt(3, seed=7)
     eager = t_tts.tts_generate(tp, tc, _t(text), _t(emo), speaker=_t(spk))
+    graphs = StepGraphs()
     stepped = t_tts._generate_graphed(tp, tc, _t(text), _t(emo), _t(spk), 16,
-                                      261, 0.5, StepGraphs())
+                                      261, 0.5, graphs)
     assert torch.equal(stepped[0], eager[0])
     assert torch.equal(stepped[1], eager[1])
     ref_mel, ref_n = j_tts.tts_generate(
@@ -268,13 +284,15 @@ def test_tts_done_read_every_8_steps_matches_jax(tts_tree, stop):
                                rtol=0, atol=1e-4)
     groups = 16 if stop is None else stop + 1
     assert stepped[1].tolist() == [groups * 2] * 3
+    (loop,) = graphs.loops()
+    assert graphs.steps == loop.trips_run == groups - 1
 
 
 def test_tts_host_raises_before_an_overflow(tts_tree):
     """A chunk past the caches' capacity raises before its replay, as the
-    eager chunk raises; so does a step whose position row lies past a
-    (truncated) position table; a state refilled by a later prefill is
-    refused."""
+    eager chunk raises; a budget whose loop would read past a (truncated)
+    position table raises at the holder's construction, before any
+    capture; a state refilled by a later prefill is refused."""
     tc = TTSConfig(**TTS_KW, dtype="float32")
     tp = params_from_jax(tts_tree)
     text, emo, spk = _prompt(2, seed=9)
@@ -291,10 +309,10 @@ def test_tts_host_raises_before_an_overflow(tts_tree):
 
     base = t_tts.audio_pos_base(tc)
     short = {**tp, "pos_emb": tp["pos_emb"][:base + 4]}
-    first, done, state = t_tts._prefill_graphed(short, *args[1:], graphs)
-    with pytest.raises(ValueError, match="outside the position table"):
-        t_tts.tts_decode_chunk(short, tc, state, first, done, 0, 5)
-    assert state.graph.steps == 4
+    with pytest.raises(ValueError, match=f"position {base + 14} lies "
+                       f"outside the position table"):
+        t_tts._prefill_graphed(short, *args[1:], graphs)
+    assert not graphs.holders()
 
     first, done, state = t_tts._prefill_graphed(*args, graphs)
     t_tts._prefill_graphed(*args, graphs)

@@ -269,4 +269,5 @@ def test_greedy_step_path_with_a_four_token_prompt(toks, asr_trees, int8,
         np.testing.assert_array_equal(stepped.numpy(), ref)
     (holder,) = graphs._holders.values()
     assert holder.prompt_len == 4 and holder.cache_len == 12
-    assert graphs.replays == 14
+    # each call one run of the holder's loop graph, of 7 steps
+    assert graphs.replays == 2 and graphs.steps == 14
