@@ -92,18 +92,24 @@ printing one JSON line per result:
    ``synthesize_streaming`` against ``synthesize`` on the card, and the
    round trip phrase → packet → speech → packet, card against CPU;
 7. receive_flagship — ``TTSConfig.flagship()`` (d 1280, 30 layers, random
-   bf16 weights from seed 0) with the default vocoder: generate + vocode +
-   resample over the full budget of 256 groups at b = 8 and b = 1 with
-   the AR loop replayed from its graph and eagerly in turns (PCM equal
-   bit for bit), stage times, one traced AR step of each, prefill + 4
+   bf16 weights from seed 0) with the default vocoder:
+   ``Synthesizer._synth_impl`` over the full budget of 256 groups at b = 8
+   and b = 1, one launch of its ``SynthGraph`` (the captured prefill, the
+   AR loop's WHILE node, the captured vocoder, iSTFT and resampler) and
+   ``eager=True`` in turns (PCM equal bit for bit), at most 3 graph
+   launches and no device->host read before the samples, each stage's
+   device ms (prefill, loop, tail) and the eager stages, the new graphs'
+   capture ms and pool, one traced AR step of each, prefill + 4
    groups against the CPU, the captured AR step's launches (61 layer
    norms, 30 decode attentions, 123 mixed linears: q/k/v and the two heads
    one launch each, fc1's GELU in its epilogue; at most 260 kernels, no
    float add, no GELU kernel, no ``index_copy_`` but the holder's two
    output writes) and the size of its once-widened weights;
-8. receive_stream — ``StreamingSynthesizer`` at that width, replayed and
-   eager: seconds to first audio and in all, the two streams equal, and
-   the stream against the fused path;
+8. receive_stream — ``StreamingSynthesizer`` at that width, captured (the
+   prefill replayed, a chain of steps a chunk, one emission graph a chunk
+   index) and eager in turns: seconds to first audio and in all, the host's
+   calls a chunk, the two streams equal, and the stream against the fused
+   path;
 8b. device_loop — the decode loops as the reference compiles them, each
    a WHILE node around the captured step whose exit the card decides
    (``csrc/loop_graph.cu``): at flagship width and b = 8, on copies of
@@ -395,17 +401,23 @@ def device_us(torch, fn, calls: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     out: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = re.search(r"(?:^|::)(\w+)[<(]", e.name)
-            key = name.group(1) if name else e.name[:60]
-            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / calls
+    # a profiler session on the card now and then records no device event
+    # at all (seen once in a 4000-row call): such a session is traced again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = re.search(r"(?:^|::)(\w+)[<(]", e.name)
+                key = name.group(1) if name else e.name[:60]
+                out[key] = (out.get(key, 0.0)
+                            + e.time_range.elapsed_us() / calls)
+        if out:
+            break
     return out
 
 
@@ -437,14 +449,20 @@ def profile_graph_step(torch, holder) -> dict:
 
 
 def graph_stats(graphs) -> dict:
-    """Capture ms and pool MiB of a caller's step graphs, its loop graphs'
-    build ms (the WHILE node around a captured step: no pool of its
-    own), its graph launches and the decode steps they ran."""
+    """Capture ms and pool MiB of a caller's step graphs and its other
+    graphs (the prefills, tails and emissions), its loop graphs' and
+    chains' build ms (a WHILE node or a chain around captured graphs: no
+    pool of their own), its graph launches and the decode steps they
+    ran."""
     gs, loops = graphs.graphs(), graphs.loops()
+    side, chains = graphs.side_graphs(), graphs.chains()
     return {"graphs": len(gs), "capture_ms": [g.capture_ms for g in gs],
+            "side_graphs": len(side),
+            "side_capture_ms": [g.capture_ms for g in side],
             "pool_mib": graphs.pool_bytes() / 2 ** 20,
             "loops": len(loops), "loop_build_ms": [lp.build_ms
                                                    for lp in loops],
+            "chains": {c.n: c.build_ms for c in chains},
             "replays": graphs.replays, "steps": graphs.steps}
 
 
@@ -834,11 +852,54 @@ def receive_demo(torch, dev) -> None:
           "stream_bar": stream_bar, "round_trip": trips})
 
 
+def synth_host_calls(torch, syn, text, emo) -> dict:
+    """One ``Synthesizer._synth_impl`` under the profiler's host trace, up
+    to the read ``_run_tts`` makes (``n48``): the host's API calls that put
+    work on the device, its graph launches, and the waits or device->host
+    reads before that read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), syn._graphs.lock:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            wav, n48 = syn._synth_impl(text, emo, None)
+        n = int(n48[0])
+    calls = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    torch.cuda.synchronize()
+    return {"host_api_calls": sum(1 for c in calls if HOST_API.match(c)),
+            "graph_launches": sum(c.startswith("cudaGraphLaunch")
+                                  for c in calls),
+            "kernel_launches": sum(c.startswith("cudaLaunchKernel")
+                                   for c in calls),
+            "waits_before_read": [c for c in calls if HOST_WAIT.search(c)],
+            "n48": n}
+
+
+def host_api_calls(torch, fn) -> int:
+    """The host's API calls that put work on the device in one ``fn()``
+    (the profiler's host trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and HOST_API.match(e.name))
+
+
 def receive_flagship(torch, dev):
-    """Flagship TTS + default vocoder, random bf16 weights: generate +
-    vocode + resample over the full budget at b = 8 and b = 1. Returns
-    what :func:`receive_stream` reuses."""
-    from janus_tpu_torch.common.config import TTSConfig, VocoderConfig
+    """Flagship TTS + default vocoder, random bf16 weights:
+    ``Synthesizer._synth_impl`` over the full budget at b = 8 and b = 1,
+    through its captured synthesis (one launch of a ``SynthGraph``: the
+    prefill, the AR loop's WHILE node, the vocoder tail) and issued op by
+    op (``eager=True``), in turns, the PCM bit-equal; each stage's device
+    ms, the host's calls before the read, the new graphs' capture ms and
+    pool. Returns what :func:`receive_stream` reuses."""
+    from janus_tpu_torch.common.config import (JanusConfig, TTSConfig,
+                                               VocoderConfig)
     from janus_tpu_torch.models import tts as tts_mod
     from janus_tpu_torch.models import vocoder as voc_mod
     from janus_tpu_torch.models.params import (cast_floating,
@@ -846,6 +907,8 @@ def receive_flagship(torch, dev):
     from janus_tpu_torch.models.tokenizer import ByteTokenizer
     from janus_tpu_torch.ops.mixed_linear import KERNEL as MIXED_KERNEL
     from janus_tpu_torch.ops.resample import resample_poly
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer, vocode_48k
+    from janus_tpu_torch.tools.trace_step import trace_replays
 
     tok = ByteTokenizer()
     tcfg, vcfg = TTSConfig.flagship(), VocoderConfig()
@@ -863,72 +926,122 @@ def receive_flagship(torch, dev):
     max_groups = RECEIVE_GROUPS
     n_frames = max_groups * tcfg.reduction
     lane_seconds = n_frames * vcfg.hop_length / vcfg.sample_rate
-
-    from janus_tpu_torch.runtime.step_graph import StepGraphs
-
-    graphs = StepGraphs()
-
-    def generate(text, emo, eager=False):
-        return tts_mod.tts_generate(
-            tts_params, tcfg, text, emo, max_groups=max_groups,
-            text_vocab=tok.vocab_size, stop_threshold=2.0,  # full budget
-            eager=eager, graphs=graphs)
-
-    def vocode(mel):
-        wav = voc_mod.vocoder_waveform(voc_params, vcfg, mel)
-        return resample_poly(wav, up=up, down=1)
+    cfg = dataclasses.replace(JanusConfig(), vocoder=vcfg, tts=dataclasses.
+                              replace(tcfg, max_mel_frames=n_frames))
+    # random-weight stop logits sit near 0; a hard negative bias runs every
+    # lane to the full budget (the synthesizer's threshold is 0.5)
+    stop = tts_params["stop_head"]
+    params = {**tts_params, "stop_head": {
+        **stop, "b": torch.full_like(stop["b"], -5.0)}}
+    syns = {eager: Synthesizer(cfg, tts_params=params,
+                               vocoder_params=voc_params, device="cuda",
+                               eager=eager) for eager in (False, True)}
+    graphs = syns[False]._graphs
 
     out = {"phase": "receive_flagship",
            "model": "TTSConfig.flagship() + VocoderConfig() (random, seeds "
-                    "0 and 1)", "dtype": "bfloat16 weights, bfloat16 caches, "
-           "float32 step activations", "tts_params_m": n_params / 1e6,
-           "max_groups": max_groups, "lane_seconds": lane_seconds,
-           "init_s": round(init_s, 3), "batches": {}}
+                    "0 and 1), stop bias -5", "dtype": "bfloat16 weights, "
+           "bfloat16 caches, float32 step activations",
+           "entry": "Synthesizer._synth_impl (SynthGraph vs eager=True)",
+           "tts_params_m": n_params / 1e6, "max_groups": max_groups,
+           "lane_seconds": lane_seconds, "init_s": round(init_s, 3),
+           "batches": {}}
     with torch.no_grad():
         for b in RECEIVE_BATCHES:
-            text = torch.zeros((b, 32), dtype=torch.long, device=dev)
-            emo = torch.zeros((b,), dtype=torch.long, device=dev)
-            vocode(generate(text, emo)[0])  # warm-up, and the capture
+            # the inputs on the host, as _run_tts hands them over
+            text = torch.zeros((b, 32), dtype=torch.long)
+            emo = torch.zeros((b,), dtype=torch.long)
+
+            def synth(eager):
+                syn = syns[eager]
+                with syn._graphs.lock:
+                    wav, n48 = syn._synth_impl(text, emo, None)
+                    return wav.clone(), n48.clone()
+
+            pool0 = graphs.pool_bytes()
+            (ref, n48), first_ms = synced_ms(torch, lambda: synth(False))
+            synth(True)  # warm-up of the eager path
             torch.cuda.reset_peak_memory_stats()
-            # the AR loop replayed from its graph and eagerly, in turns:
-            # the same PCM bit for bit
-            e2e, e2e_eager, wavs = [], [], []
-            for eager in (False, True, False, False):
-                wav, ms = synced_ms(torch, lambda: vocode(
-                    generate(text, emo, eager)[0]))
+            # the captured synthesis and the eager one, in turns: the same
+            # PCM bit for bit
+            e2e, e2e_eager = [], []
+            for eager in (False, True, False):
+                (wav, n), ms = synced_ms(torch, lambda: synth(eager))
                 (e2e_eager if eager else e2e).append(ms)
-                wavs.append(wav)
-            check(all(torch.equal(w, wavs[0]) for w in wavs),
-                  f"receive_flagship b={b}: the replayed and the eager "
-                  f"loop's PCM differ by "
-                  f"{float((wavs[1] - wavs[0]).abs().max())}")
+                check(torch.equal(wav, ref) and torch.equal(n, n48),
+                      f"receive_flagship b={b}: the "
+                      f"{'eager' if eager else 'captured'} synthesis "
+                      f"differs from the first captured one by "
+                      f"{float((wav - ref).abs().max())}")
             peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-            check(tuple(wav.shape) == (b, n_frames * vcfg.hop_length * up)
-                  and bool(torch.isfinite(wav).all()),
-                  f"receive_flagship b={b}: waveform {tuple(wav.shape)}")
-            # the same stages, one at a time, synchronised around each
-            _, prefill_ms = synced_ms(torch, lambda: tts_mod.tts_prefill(
-                tts_params, tcfg, text, emo, max_groups=max_groups,
-                text_vocab=tok.vocab_size, stop_threshold=2.0,
-                graphs=graphs))
-            (mel, frames), gen_ms = synced_ms(torch,
-                                              lambda: generate(text, emo))
-            check(frames.tolist() == [n_frames] * b,
-                  f"receive_flagship b={b}: n_frames {frames.tolist()}")
+            check(tuple(ref.shape) == (b, n_frames * vcfg.hop_length * up)
+                  and bool(torch.isfinite(ref).all())
+                  and n48.tolist() == [n_frames * vcfg.hop_length * up] * b,
+                  f"receive_flagship b={b}: waveform {tuple(ref.shape)}, "
+                  f"n48 {n48.tolist()}")
+            calls = synth_host_calls(torch, syns[False], text, emo)
+            check(calls["graph_launches"] <= 3
+                  and not calls["waits_before_read"],
+                  f"receive_flagship b={b}: a captured synthesis made "
+                  f"{calls['graph_launches']} graph launches and waited "
+                  f"{calls['waits_before_read']} before its read")
             with graphs.lock:
-                ar_trace_graph = profile_graph_step(torch, tts_mod.ar_graph(
-                    graphs, tts_params, tcfg, b, 32 + 3, max_groups, 2.0,
-                    dev))
-            spec, spectra_ms = synced_ms(torch, lambda: voc_mod.
-                                         vocoder_spectra(voc_params, vcfg,
-                                                         mel))
-            wav24, istft_ms = synced_ms(torch, lambda: voc_mod.
-                                        spectra_to_waveform(vcfg, spec))
-            _, resample_ms = synced_ms(torch, lambda: resample_poly(
-                wav24, up=up, down=1))
+                h = syns[False].synth_graph(32, b, None)
+                # each stage of the captured synthesis alone, device ms
+                stage = {"prefill": [], "loop": [], "tail": []}
+                for _ in range(3):
+                    stage["prefill"].append(
+                        event_ms(torch, h.ar.prefill_graph.replay)[1])
+                    trips, ms = event_ms(torch, h.ar.loop.run)
+                    stage["loop"].append(ms)
+                    h.ar.loop.account(int(trips))
+                    stage["tail"].append(event_ms(torch, h.tail.replay)[1])
+                h.ar.steps = None
+                traces = {
+                    "prefill": trace_replays(h.ar.prefill_graph.replay, dev,
+                                             rounds=3, per_round=4),
+                    "tail": trace_replays(h.tail.replay, dev, rounds=3,
+                                          per_round=4)}
+                ar_trace_graph = profile_graph_step(torch, h.ar)
+                new_graphs = {
+                    "prefill_capture_ms": h.ar.prefill_graph.capture_ms,
+                    "tail_capture_ms": h.tail.capture_ms,
+                    "step_capture_ms": h.ar.graph.capture_ms,
+                    "synth_loop_build_ms": h.loop.build_ms,
+                    "pool_mib": h.pool_bytes / 2 ** 20,
+                    "pool_mib_since_shape": (graphs.pool_bytes() - pool0)
+                    / 2 ** 20}
+            # the stages the parent issued op by op around its loop graph
+            # (the prefill, then the vocoder, the iSTFT and the resampler
+            # over the loop's mel), synchronised around each, and the
+            # host's calls of the prefill and of the tail
+            eager_stage: dict = {}
+            text_d, emo_d = text.to(dev), emo.to(dev)
+            mel = h.ar.out[:, :max_groups].reshape(
+                b, n_frames, tcfg.n_mels).contiguous()
+            for _ in range(2):
+                _, ms = synced_ms(torch, lambda: tts_mod.tts_prefill(
+                    params, cfg.tts, text_d, emo_d, text_vocab=tok.vocab_size,
+                    eager=True))
+                eager_stage.setdefault("prefill", []).append(ms)
+                spec, ms = synced_ms(torch, lambda: voc_mod.vocoder_spectra(
+                    voc_params, vcfg, mel))
+                eager_stage.setdefault("vocoder_spectra", []).append(ms)
+                wav24, ms = synced_ms(torch, lambda: voc_mod.
+                                      spectra_to_waveform(vcfg, spec))
+                eager_stage.setdefault("istft", []).append(ms)
+                _, ms = synced_ms(torch, lambda: resample_poly(
+                    wav24, up=up, down=1))
+                eager_stage.setdefault("resample_24k_48k", []).append(ms)
+            calls_eager = {name: host_api_calls(torch, fn) for name, fn in (
+                ("prefill", lambda: tts_mod.tts_prefill(
+                    params, cfg.tts, text_d, emo_d,
+                    text_vocab=tok.vocab_size, eager=True)),
+                ("tail", lambda: vocode_48k(voc_params, cfg, mel,
+                                            h.ar.n_groups * tcfg.reduction)))}
             # one AR step, traced
             first, done, state = tts_mod.tts_prefill(
-                tts_params, tcfg, text, emo, max_groups=8,
+                tts_params, tcfg, text_d, emo_d, max_groups=8,
                 text_vocab=tok.vocab_size, stop_threshold=2.0, eager=True)
             at = [0]
 
@@ -941,19 +1054,21 @@ def receive_flagship(torch, dev):
             best = min(e2e)
             out["batches"][str(b)] = {
                 "e2e_ms": e2e, "e2e_eager_ms": e2e_eager,
+                "first_call_ms": first_ms,
                 "rtf_per_lane_second": best / 1e3
                 / (b * lane_seconds), "peak_mem_gib": peak_gib,
                 "pcm_graph_equals_eager": True,
-                "stage_ms": {"prefill": prefill_ms, "generate": gen_ms,
-                             "ar_loop": gen_ms - prefill_ms,
-                             "ar_step": (gen_ms - prefill_ms)
-                             / (max_groups - 1),
-                             "vocoder_spectra": spectra_ms,
-                             "istft": istft_ms, "resample_24k_48k":
-                             resample_ms},
+                "stage_ms": {**stage, "ar_step": [
+                    t / (max_groups - 1) for t in stage["loop"]]},
+                "stage_ms_eager": eager_stage,
+                "host_calls_before_read": calls,
+                "host_calls_eager_prefill_and_tail": calls_eager,
+                "new_graphs": new_graphs, "trace": traces,
                 "ar_step_trace": ar_trace,
                 "ar_step_trace_graph": ar_trace_graph,
-                "wav_peak": float(wav.abs().max())}
+                "wav_peak": float(ref.abs().max())}
+            del mel, spec, wav24, wav, ref, h
+            torch.cuda.empty_cache()
 
         # prefill + 4 groups at b = 1, the card against the CPU, bf16
         # weights on both: 5e-2 relative, the bar of the recognizer's
@@ -1010,6 +1125,9 @@ def receive_flagship(torch, dev):
         "max_abs": float((on_card - on_cpu).abs().max()),
         "ref_peak": float(on_cpu.abs().max()), "cpu_s": round(cpu_s, 2)}
     out["graph"] = graph_stats(graphs)  # reads the loops' trips back
+    check(out["graph"]["loops"] == len(RECEIVE_BATCHES)
+          and out["graph"]["steps"] > 0, f"receive_flagship: the synthesis "
+          f"loops {out['graph']}")
     # every replayed AR step: 2 layer norms a layer and the final one, the
     # self-attention of each layer, and every linear through the mixed
     # kernel over the bf16 tree itself (the graphs derive no copy of it):
@@ -1080,9 +1198,34 @@ def receive_stream(torch, dev, tcfg, vcfg, tts_params, voc_params) -> None:
         np.array_equal(a, b) for a, b in zip(chunks, eager_chunks)),
         "receive_stream: the replayed and the eager stream differ")
     torch.cuda.synchronize()
-    turns = [streamer.turnaround(text) for _ in range(2)]
-    eager_turn = eager_streamer.turnaround(text)
+    # captured and eager in turns
+    turns, eager_turns = [], []
+    for eager in (False, True, True, False):
+        (eager_turns if eager else turns).append(
+            (eager_streamer if eager else streamer).turnaround(text))
     first_s, total_s, n48 = min(turns, key=lambda t: t[0])
+    # the host's calls of one stream, captured and eager, a chunk
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    host_calls = {}
+    for name, s_ in (("captured", streamer), ("eager", eager_streamer)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            n_chunks = len(list(s_.stream(text)))
+        calls = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CPU]
+        host_calls[name] = {
+            "chunks": n_chunks,
+            "host_api_calls_a_chunk": sum(1 for c in calls
+                                          if HOST_API.match(c)) / n_chunks,
+            "graph_launches_a_chunk": sum(c.startswith("cudaGraphLaunch")
+                                          for c in calls) / n_chunks}
+    with streamer._graphs.lock:
+        em = streamer.stream_graph()
+        emit_stats = {"emissions": len(em.side_graphs),
+                      "capture_ms": [g.capture_ms for g in em.side_graphs],
+                      "pool_mib": em.pool_bytes / 2 ** 20}
 
     # the fused path on the same prompt, as Synthesizer._run_tts runs it
     tok = streamer.tokenizer
@@ -1117,8 +1260,11 @@ def receive_stream(torch, dev, tcfg, vcfg, tts_params, voc_params) -> None:
           "max_mel_frames": scfg.tts.max_mel_frames, "chunks": len(chunks),
           "first_audio_s": first_s, "total_s": total_s,
           "audio_s": n48 / 48_000, "turnarounds": turns,
-          "eager_first_audio_s": eager_turn[0],
-          "eager_total_s": eager_turn[1], "stream_graph_equals_eager": True,
+          "eager_turnarounds": eager_turns,
+          "eager_first_audio_s": min(t[0] for t in eager_turns),
+          "eager_total_s": min(t[1] for t in eager_turns),
+          "stream_graph_equals_eager": True, "host_calls": host_calls,
+          "emissions": emit_stats,
           "warmup_s": warmup_s, "graph": graph_stats(streamer._graphs),
           "nvidia_smi": nvidia_smi_line(),
           "fused_ms": {"generate": fused_gen_ms, "vocode_resample":
@@ -1760,11 +1906,9 @@ def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
                   f"loop (stop {k})")
             with graphs.lock:
                 (h,) = graphs.holders("ar")
-                prompt_emb = tts_mod._prompt_embedding(tree, tcfg, text, emo,
-                                                       None, vocab)
                 ms = []
                 for _ in range(3):
-                    h.start(prompt_emb)
+                    h.prefill(text, emo)
                     trips, t = event_ms(torch, h.run_loop)
                     ms.append(t)
             graphs.settle()
@@ -1785,7 +1929,7 @@ def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
                 h.loop.trips.zero_()
 
             with graphs.lock:
-                h.start(prompt_emb)
+                h.prefill(text, emo)
                 saved = [t_.clone() for t_ in (h.prev, h.done)]
                 row["loop_trace"] = trace_replays(h.loop.run, dev, rewind,
                                                   rounds=3, per_round=1)

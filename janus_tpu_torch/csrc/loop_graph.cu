@@ -20,11 +20,21 @@
 // done before the launch (the prefill's work), so a lane done at the prefill
 // runs no step, as the while_loop's first test runs none.
 //
+// A synthesis runs the prompt's prefill before the loop and the vocoder
+// after it: jt_loop_create takes those two graphs too (either may be null),
+// cloned as child nodes before the head and after the WHILE node, so that
+// one launch runs the whole program, as the JAX package jits it into one.
+//
+// The stream's chunk (the JAX package's lax.scan of n steps, which runs
+// every step whatever done says) is a chain: the step's graph cloned n
+// times in sequence, no condition (jt_chain_create).
+//
 // Plain C interface (ctypes): jt_loop_create builds and instantiates the
 // graph around a cudaGraph_t (the step, cloned into the node's body),
-// jt_loop_launch launches it on a stream, jt_loop_destroy frees it;
-// jt_loop_condition launches loop_condition alone, outside any graph,
-// writing the value it would set (to hold it against its plain version).
+// jt_chain_create the chain, jt_loop_launch launches either on a stream,
+// jt_loop_destroy frees it; jt_loop_condition launches loop_condition
+// alone, outside any graph, writing the value it would set (to hold it
+// against its plain version).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,9 +96,10 @@ const char* jt_error_string(int code) {
 
 // step: a cudaGraph_t (cloned: the caller keeps its own); done: [batch]
 // bool; trips: one int32 on the device; limit >= 1, the most steps a launch
-// runs. *out receives the loop, to launch and destroy.
+// runs; before, after: graphs (cloned; null for none) run before the head
+// and after the loop. *out receives the loop, to launch and destroy.
 int jt_loop_create(void* step, const void* done, int batch, void* trips,
-                   int limit, void** out) {
+                   int limit, void* before, void* after, void** out) {
   if (step == nullptr || done == nullptr || trips == nullptr || batch < 1 ||
       limit < 1 || out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -103,10 +114,14 @@ int jt_loop_create(void* step, const void* done, int batch, void* trips,
   int zero = 0, one = 1;
   void* head_args[] = {&d, &batch, &t, &limit, &zero, &handle, &none};
   void* tail_args[] = {&d, &batch, &t, &limit, &one, &handle, &none};
-  cudaGraphNode_t head = nullptr, node = nullptr, body = nullptr,
-                  tail = nullptr;
+  cudaGraphNode_t first = nullptr, head = nullptr, node = nullptr,
+                  body = nullptr, tail = nullptr, last = nullptr;
+  if (err == cudaSuccess && before != nullptr)
+    err = cudaGraphAddChildGraphNode(&first, loop->graph, nullptr, 0,
+                                     static_cast<cudaGraph_t>(before));
   if (err == cudaSuccess)
-    err = add_condition(&head, loop->graph, nullptr, 0, head_args);
+    err = add_condition(&head, loop->graph, first ? &first : nullptr,
+                        first ? 1 : 0, head_args);
   cudaGraphNodeParams cond = {};
   if (err == cudaSuccess) {
     cond.type = cudaGraphNodeTypeConditional;
@@ -122,6 +137,9 @@ int jt_loop_create(void* step, const void* done, int batch, void* trips,
     if (err == cudaSuccess)
       err = add_condition(&tail, inner, &body, 1, tail_args);
   }
+  if (err == cudaSuccess && after != nullptr)
+    err = cudaGraphAddChildGraphNode(&last, loop->graph, &node, 1,
+                                     static_cast<cudaGraph_t>(after));
   if (err == cudaSuccess)
     err = cudaGraphInstantiate(&loop->exec, loop->graph, 0);
   if (err != cudaSuccess) {
@@ -130,6 +148,31 @@ int jt_loop_create(void* step, const void* done, int batch, void* trips,
     return static_cast<int>(err);
   }
   *out = loop;
+  return 0;
+}
+
+// step: a cudaGraph_t (cloned n times: the caller keeps its own); n >= 1.
+// *out receives the chain, to launch and destroy as a loop.
+int jt_chain_create(void* step, int n, void** out) {
+  if (step == nullptr || n < 1 || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Loop* chain = new Loop();
+  cudaError_t err = cudaGraphCreate(&chain->graph, 0);
+  cudaGraphNode_t prev = nullptr, node = nullptr;
+  for (int i = 0; i < n && err == cudaSuccess; ++i) {
+    err = cudaGraphAddChildGraphNode(&node, chain->graph,
+                                     prev ? &prev : nullptr, prev ? 1 : 0,
+                                     static_cast<cudaGraph_t>(step));
+    prev = node;
+  }
+  if (err == cudaSuccess)
+    err = cudaGraphInstantiate(&chain->exec, chain->graph, 0);
+  if (err != cudaSuccess) {
+    destroy(chain);
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  *out = chain;
   return 0;
 }
 

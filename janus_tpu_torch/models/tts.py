@@ -39,9 +39,9 @@ from janus_tpu_torch.ops.layers import (add_layer_norm, embedding_lookup,
                                         linear, linear_gelu, linear_group,
                                         row_linear)
 from janus_tpu_torch.parallel.collectives import enter_model, local_heads
-from janus_tpu_torch.runtime.step_graph import (LoopGraph, StepGraph,
-                                                StepGraphs, default_graphs,
-                                                use_graphs)
+from janus_tpu_torch.runtime.step_graph import (LoopGraph, StepChain,
+                                                StepGraph, StepGraphs,
+                                                default_graphs, use_graphs)
 
 __all__ = [
     "EMOTIONS",
@@ -323,9 +323,10 @@ def tts_prefill(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
     The generation caches are in ``cfg.dtype`` whatever the parameters'
     dtype (the fp32 caches are the teacher-forced pass's only). On the
     card (unless ``eager``, or under a mesh of more than one rank) the
-    prefill fills the static caches of an :class:`ARGraph` from
-    ``graphs`` (or the module's own), whose captured step
-    :func:`tts_decode_chunk` then replays."""
+    prefill is one replay of the captured prefill of an :class:`ARGraph`
+    from ``graphs`` (or the module's own), into its static caches, whose
+    captured step :func:`tts_decode_chunk` then launches (group0 then
+    comes in float32)."""
     if max_groups is None:
         max_groups = cfg.max_mel_frames // cfg.reduction
     if use_graphs(text_ids.device, eager):
@@ -383,12 +384,12 @@ def tts_generate(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
     float32 output buffer, so under bf16 parameters the steps run float32
     activations against bf16 weights, as in the JAX package.
 
-    On the card the prefill runs eagerly and the steps are one launch of
-    the loop graph of an :class:`ARGraph` (from ``graphs``, or the module's
-    own): a WHILE conditional node around the captured step, whose
-    condition, ``~all(done)`` within the budget, the card tests before
-    every step, as the JAX package's ``lax.while_loop`` tests its own;
-    bit-equal to the eager steps.
+    On the card the prefill is one replay of the captured prefill of an
+    :class:`ARGraph` (from ``graphs``, or the module's own) and the steps
+    one launch of its loop graph: a WHILE conditional node around the
+    captured step, whose condition, ``~all(done)`` within the budget, the
+    card tests before every step, as the JAX package's ``lax.while_loop``
+    tests its own; bit-equal to the eager steps.
     Nothing is read back before ``mel`` and ``n_frames`` are returned (the
     loop's trip count is read when the graphs are settled). On the CPU,
     with ``eager=True`` or under a mesh of more than one rank the steps
@@ -425,35 +426,38 @@ def tts_generate(params: Params, cfg: TTSConfig, text_ids: torch.Tensor,
 
 def _prefill_graphed(params, cfg, text_ids, emotion, speaker, max_groups,
                      text_vocab, stop_threshold, graphs: StepGraphs):
-    """:func:`tts_prefill` into the static caches of an :class:`ARGraph`
-    of ``graphs`` (on the CPU its step runs eagerly over them)."""
+    """:func:`tts_prefill` through an :class:`ARGraph` of ``graphs``: its
+    prefill replayed over the static caches (on the CPU run eagerly over
+    them)."""
     with graphs.lock:
-        prompt = _prompt_embedding(params, cfg, text_ids, emotion, speaker,
-                                   text_vocab)
         return ar_graph(graphs, params, cfg, text_ids.shape[0],
-                        prompt.shape[1], max_groups, stop_threshold,
-                        prompt.device).start(prompt)
+                        text_ids.shape[1] + 3, max_groups, stop_threshold,
+                        text_ids.device, text_vocab, _dtype_of(speaker)
+                        ).prefill(text_ids, emotion, speaker)
 
 
 def _generate_graphed(params, cfg, text_ids, emotion, speaker, max_groups,
                       text_vocab, stop_threshold, graphs: StepGraphs):
-    """:func:`tts_generate` through an :class:`ARGraph` of ``graphs``: the
-    eager prefill into its static caches, then one run of its loop graph
-    (on the CPU the same loop eagerly), whose trips are deferred to
-    :meth:`~janus_tpu_torch.runtime.step_graph.StepGraphs.settle`."""
+    """:func:`tts_generate` through an :class:`ARGraph` of ``graphs``: one
+    replay of its prefill, then one run of its loop graph (on the CPU both
+    eagerly), whose trips are deferred to :meth:`~janus_tpu_torch.runtime.
+    step_graph.StepGraphs.settle`."""
     b = text_ids.shape[0]
     with graphs.lock:
-        prompt = _prompt_embedding(params, cfg, text_ids, emotion, speaker,
-                                   text_vocab)
-        h = ar_graph(graphs, params, cfg, b, prompt.shape[1], max_groups,
-                     stop_threshold, prompt.device)
-        h.start(prompt)
+        h = ar_graph(graphs, params, cfg, b, text_ids.shape[1] + 3,
+                     max_groups, stop_threshold, text_ids.device, text_vocab,
+                     _dtype_of(speaker))
+        h.prefill(text_ids, emotion, speaker)
         trips = h.run_loop()
         if h.loop is not None:
             h.loop.defer(trips)
         mel = h.out[:, :max_groups].reshape(
             b, max_groups * cfg.reduction, cfg.n_mels).clone()
         return mel, h.n_groups * cfg.reduction
+
+
+def _dtype_of(t: Optional[torch.Tensor]) -> Optional[torch.dtype]:
+    return None if t is None else t.dtype
 
 
 def tts_decode_chunk(params: Params, cfg: TTSConfig, state: TTSState,
@@ -469,9 +473,11 @@ def tts_decode_chunk(params: Params, cfg: TTSConfig, state: TTSState,
     writes into its output buffer. ``dones[:, i]`` is the flag BEFORE
     group i was emitted (True: that group is padding zeros). No flag is
     read back here: the caller reads ``dones`` once per chunk. A state
-    that :func:`tts_prefill` filled on the card replays its
-    :class:`ARGraph`'s step (``start_group`` must then be the number of
-    steps taken since the prefill, as a streaming caller's is)."""
+    that :func:`tts_prefill` filled on the card launches its
+    :class:`ARGraph`'s step ``n_steps`` times in one chain, as the JAX
+    package's ``lax.scan`` runs every step of the chunk (``start_group``
+    must then be the number of steps taken since the prefill, as a
+    streaming caller's is)."""
     if state.graph is not None:
         h = state.graph
         with h.lock:
@@ -489,20 +495,29 @@ def tts_decode_chunk(params: Params, cfg: TTSConfig, state: TTSState,
 
 
 class ARGraph:
-    """The AR loop's static state for one batch, prompt width, budget and
-    tree, and its step captured over it: the KV caches (in ``cfg.dtype``),
-    the group fed to the step (float32, as the eager loop re-enters from
-    its output buffer), the ``done`` flags, the group index (a device
-    counter the step advances; the fill point is the prompt width past
-    it), and the output buffers every step writes: the groups (``out``, one
-    column past the budget so that a step may run to the caches' end), the
-    flags before each step (``dones``) and the valid group count.
+    """The AR loop's static state for one batch, text bucket, speaker dtype
+    (or none), budget and tree, and its prefill and step captured over it:
+    the prompt's inputs (``text_ids[b, bucket]`` and ``emotion[b]``, one
+    int64 buffer that a pinned twin fills in one copy; ``speaker[b, d]``
+    where the key has one), the KV caches (in ``cfg.dtype``), the group fed
+    to the step (float32, as the eager loop re-enters from its output
+    buffer), the ``done`` flags, the group index (a device counter the step
+    advances; the fill point is the prompt width past it), and the output
+    buffers every step writes: the groups (``out``, one column past the
+    budget so that a step may run to the caches' end), the flags before
+    each step (``dones``) and the valid group count.
 
-    :meth:`start` fills it for one prompt (zeroes the caches, prefills
-    eagerly, sets the counters). :attr:`graph` is the step captured:
-    :meth:`advance` replays it once (the host refuses a step that would
-    write past the caches or read past the position table), and
-    :meth:`chunk` serves :func:`tts_decode_chunk` with such replays.
+    :attr:`prefill_graph` is everything :func:`tts_prefill` does on the
+    device, captured: the prompt's embedding, the caches zeroed, the
+    prefill, the counters set, the loop's ``trips`` zeroed. :meth:`prefill`
+    uploads the inputs and replays it; what it changes on the host (the
+    epoch, the step count, each cache's fill count) :meth:`prefill` sets
+    outside the graph, since a captured function's Python runs once, at
+    the capture. :attr:`graph` is the step captured: :meth:`advance`
+    replays it once (the host refuses a step that would write past the
+    caches or read past the position table), and :meth:`chunk` serves
+    :func:`tts_decode_chunk` with one launch of a :class:`~janus_tpu_torch.
+    runtime.step_graph.StepChain` of its steps (one chain a chunk length).
     :attr:`loop` is the ``while_loop`` of :func:`tts_generate`
     (:class:`~janus_tpu_torch.runtime.step_graph.LoopGraph` of at most
     ``max_groups - 1`` steps around that graph), whose exit the card
@@ -511,10 +526,13 @@ class ARGraph:
 
     def __init__(self, graphs: StepGraphs, params: Params, cfg: TTSConfig,
                  batch: int, prompt_len: int, max_groups: int,
-                 stop_threshold: float, device: torch.device):
+                 stop_threshold: float, device: torch.device,
+                 text_vocab: int = 261,
+                 speaker: Optional[torch.dtype] = None):
         self.params, self.cfg = params, cfg
         self.prompt_len, self.max_groups = prompt_len, max_groups
         self.stop_threshold = stop_threshold
+        self.text_vocab = text_vocab
         self.lock = graphs.lock
         rows = params["pos_emb"].shape[0]
         # the loop's last step reads this position row
@@ -523,6 +541,17 @@ class ARGraph:
             raise ValueError(
                 f"position {last} lies outside the position table of {rows} "
                 f"rows (max_text_tokens + max_mel_frames // reduction + 8)")
+        bucket = prompt_len - 3
+        self.inputs = torch.zeros((batch, bucket + 1), dtype=torch.long,
+                                  device=device)
+        self.text_ids, self.emotion = self.inputs[:, :bucket], self.inputs[
+            :, bucket]
+        self.speaker = (None if speaker is None else torch.zeros(
+            (batch, cfg.d_model), dtype=speaker, device=device))
+        pinned = device.type == "cuda"
+        self._twin = torch.zeros((batch, bucket + 1), dtype=torch.long,
+                                 pin_memory=pinned)
+        self._uploaded = torch.cuda.Event() if pinned else None
         self.caches = _make_state(params, cfg, batch, prompt_len + max_groups,
                                   dtype=getattr(torch, cfg.dtype),
                                   device=device).caches
@@ -536,10 +565,14 @@ class ARGraph:
         self.n_groups = torch.ones((batch,), dtype=torch.int32, device=device)
         self.steps = 0   # steps taken since the prefill (the host's count)
         self.epoch = 0   # prefills so far
-        self.graph = StepGraph(self._step, device, keep=True,
-                               **graphs.capture_args(device))
+        self.chains: Dict[int, StepChain] = {}
+        args = graphs.capture_args(device)
+        self.graph = StepGraph(self._step, device, keep=True, **args)
         self.loop = (LoopGraph(self.graph, self.done, max_groups - 1)
                      if max_groups > 1 else None)
+        self.prefill_graph = StepGraph(self._prefill, device, keep=True,
+                                       **args)
+        self.side_graphs = [self.prefill_graph]
 
     def _step(self) -> None:
         nxt, done = _step(self.params, self.cfg, TTSState(self.caches),
@@ -554,17 +587,18 @@ class ARGraph:
         self.done.copy_(done)
         self.group.add_(1)
 
-    def start(self, prompt: torch.Tensor):
-        """Prefill ``prompt[B, P, d]`` into the static caches; returns
-        :func:`tts_prefill`'s ``(group0, done, state)``."""
-        self.epoch += 1
+    def _prefill(self) -> None:
+        """The prompt from the static inputs prefilled into the zeroed
+        caches, and the counters the loop starts from."""
         for c in self.caches:
             c.k.zero_()
             c.v.zero_()
             c.length = 0
-        state = TTSState(self.caches, self, self.epoch)
-        first, done = _prefill(self.params, self.cfg, prompt, state,
-                               self.stop_threshold)
+        prompt = _prompt_embedding(self.params, self.cfg, self.text_ids,
+                                   self.emotion, self.speaker,
+                                   self.text_vocab)
+        first, done = _prefill(self.params, self.cfg, prompt,
+                               TTSState(self.caches), self.stop_threshold)
         self.out.zero_()
         self.out[:, 0] = first
         self.dones.zero_()
@@ -574,36 +608,105 @@ class ARGraph:
         self.group.zero_()
         if self.loop is not None:
             self.loop.trips.zero_()
+
+    def load(self, text_ids: torch.Tensor, emotion: torch.Tensor,
+             speaker: Optional[torch.Tensor]) -> None:
+        """The prompt's inputs into the static buffers: host tensors through
+        the pinned twin in one non-blocking copy (the twin rewritten only
+        once its last copy has read it), device tensors by a copy on the
+        device."""
+        if (speaker is None) != (self.speaker is None):
+            raise ValueError("this holder was built "
+                             f"{'with' if self.speaker is not None else 'without'}"
+                             " a speaker vector")
+        if self._uploaded is not None and text_ids.device.type == "cpu":
+            if not self._uploaded.query():
+                self._uploaded.synchronize()
+            self._twin[:, :-1] = text_ids
+            self._twin[:, -1] = emotion
+            self.inputs.copy_(self._twin, non_blocking=True)
+            self._uploaded.record()
+        else:
+            self.text_ids.copy_(text_ids)
+            self.emotion.copy_(emotion)
+        if speaker is not None:
+            self.speaker.copy_(speaker, non_blocking=True)
+
+    def begin(self) -> TTSState:
+        """The host's side of a prefill (the device's is :attr:`prefill_graph`
+        or a graph that runs it): a new epoch, no step taken, each cache
+        filled through the prompt; the generation state."""
+        self.epoch += 1
+        for c in self.caches:
+            c.length = self.prompt_len
         self.steps = 0
-        return first, done, state
+        return TTSState(self.caches, self, self.epoch)
+
+    def prefill(self, text_ids: torch.Tensor, emotion: torch.Tensor,
+                speaker: Optional[torch.Tensor] = None):
+        """The prompt (``text_ids[B, bucket]``, ``emotion[B]``, ``speaker``
+        as the key says) prefilled into the static caches: one upload and
+        one replay of :attr:`prefill_graph`; returns :func:`tts_prefill`'s
+        ``(group0, done, state)`` (group0 in float32, as the output buffer
+        holds it)."""
+        self.load(text_ids, emotion, speaker)
+        self.prefill_graph.replay()
+        state = self.begin()
+        return self.out[:, 0].clone(), self.done.clone(), state
 
     def run_loop(self) -> torch.Tensor:
-        """The steps after :meth:`start`: one run of :attr:`loop`, nothing
+        """The steps after :meth:`prefill`: one run of :attr:`loop`, nothing
         read back; the run's trips (a copy). The host's step count is then
         unknown (None): :meth:`advance` and :meth:`chunk` wait for a
-        :meth:`start`."""
+        :meth:`prefill`."""
         self.steps = None
         if self.loop is None:
             return torch.zeros((), dtype=torch.int32, device=self.out.device)
         return self.loop.run()
 
+    def _fits(self) -> int:
+        """Steps after the prefill that stay inside the caches and the
+        position table."""
+        return min(self.max_groups, self.params["pos_emb"].shape[0]
+                   - audio_pos_base(self.cfg))
+
     def advance(self) -> None:
         """One step: a replay (on the CPU, the step run eagerly)."""
+        self.run_steps(1)
+
+    def chain(self, n: int) -> StepChain:
+        """The chain of ``n`` steps (``n`` >= 2), built at its first
+        request (a stream's warm-up builds its chunk lengths')."""
+        c = self.chains.get(n)
+        if c is None:
+            c = self.chains[n] = StepChain(self.graph, n)
+        return c
+
+    def run_steps(self, n: int) -> None:
+        """``n`` steps: one replay of the step, or one launch of the chain
+        of ``n``. The host runs the steps that stay inside the caches and
+        the position table, then refuses the first that would not, as
+        ``n`` single steps would."""
         g = self.steps
         if g is None:
             raise RuntimeError("the step count after a loop run is the "
-                               "device's: start before stepping")
+                               "device's: prefill before stepping")
+        ok = max(0, min(n, self._fits() - g))
+        if ok == 1:
+            self.graph.replay()
+        elif ok:
+            self.chain(ok).run()
+        self.steps += ok
+        if ok == n:
+            return
+        g += ok
         if g >= self.max_groups:
             raise ValueError(f"KV cache overflow: {self.prompt_len + g} + 1 "
                              f"> capacity {self.prompt_len + self.max_groups}")
-        row = audio_pos_base(self.cfg) + g
-        rows = self.params["pos_emb"].shape[0]
-        if row >= rows:
-            raise ValueError(
-                f"position {row} lies outside the position table of {rows} "
-                f"rows (max_text_tokens + max_mel_frames // reduction + 8)")
-        self.graph.replay()
-        self.steps += 1
+        raise ValueError(
+            f"position {audio_pos_base(self.cfg) + g} lies outside the "
+            f"position table of {self.params['pos_emb'].shape[0]} rows "
+            f"(max_text_tokens + max_mel_frames // reduction + 8)")
 
     def chunk(self, state: TTSState, prev_group: torch.Tensor,
               done: torch.Tensor, start_group: int, n_steps: int):
@@ -615,8 +718,7 @@ class ARGraph:
                              f"were taken since the prefill")
         self.prev.copy_(prev_group)
         self.done.copy_(done)
-        for _ in range(n_steps):
-            self.advance()
+        self.run_steps(n_steps)
         lo = start_group
         return (self.out[:, lo + 1:lo + 1 + n_steps].clone(),
                 self.dones[:, lo:lo + n_steps].clone(), self.prev.clone(),
@@ -625,11 +727,18 @@ class ARGraph:
 
 def ar_graph(graphs: StepGraphs, params: Params, cfg: TTSConfig, batch: int,
              prompt_len: int, max_groups: int, stop_threshold: float,
-             device: torch.device) -> ARGraph:
-    """The :class:`ARGraph` of ``graphs`` for this shape and tree,
-    captured at its first request (so a synthesizer can capture its text
-    buckets up front). Call with ``graphs.lock`` held."""
-    key = ("ar", cfg, batch, prompt_len, max_groups, float(stop_threshold))
-    return graphs.holder(params, key, lambda: ARGraph(
-        graphs, params, cfg, batch, prompt_len, max_groups, stop_threshold,
-        device))
+             device: torch.device, text_vocab: int = 261,
+             speaker: Optional[torch.dtype] = None, tree=None) -> ARGraph:
+    """The :class:`ARGraph` of ``graphs`` for this shape (``speaker``: the
+    speaker vector's dtype, None for none) and tree, captured at its first
+    request (so a streamer can capture its text buckets up front). ``tree``
+    is the tree the caller's holders serve where it holds more than
+    ``params`` (a streamer's: the TTS's and the vocoder's). Call with
+    ``graphs.lock`` held."""
+    key = ("ar", cfg, batch, prompt_len, max_groups, float(stop_threshold),
+           text_vocab, speaker)
+    return graphs.holder(params if tree is None else tree, key,
+                         lambda: ARGraph(graphs, params, cfg, batch,
+                                         prompt_len, max_groups,
+                                         stop_threshold, device, text_vocab,
+                                         speaker))

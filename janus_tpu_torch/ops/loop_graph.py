@@ -8,7 +8,11 @@ graph around a captured step: a WHILE conditional node whose body is the
 step (a child graph) and then ``loop_condition``, one warp that counts the
 trip and sets the node's handle to that condition; the same kernel before
 the node sets it for the first test. One launch runs the loop, and the
-host reads nothing back (:class:`WhileGraph`).
+host reads nothing back (:class:`WhileGraph`). A synthesis adds its
+prefill before the loop and its vocoder after it, in the same graph. The
+stream's chunk, a ``lax.scan`` of ``n`` steps that runs each step whatever
+``done`` says (``janus_tpu/models/tts.py:451-484``), is the step's graph
+``n`` times in sequence (:class:`ChainGraph`).
 
 :func:`loop_condition` is the kernel alone (one launch, outside a graph),
 and :func:`loop_condition_plain` its plain version, which the CPU runs:
@@ -19,17 +23,20 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from janus_tpu_torch.ops import cuda_build
 
-__all__ = ["KERNEL", "WhileGraph", "loop_condition", "loop_condition_plain"]
+__all__ = ["KERNEL", "WhileGraph", "ChainGraph", "loop_condition",
+           "loop_condition_plain"]
 
 KERNEL = cuda_build.KERNELS["loop_graph"]
 _CREATE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-           ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+           ctypes.POINTER(ctypes.c_void_p)]
+_CHAIN = [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
 _CONDITION = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
               + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
 
@@ -68,17 +75,35 @@ def _destroy(handle: int) -> None:
     cuda_build.entry(KERNEL, "jt_loop_destroy", [ctypes.c_void_p])(handle)
 
 
-class WhileGraph:
+class _Executable:
+    """An instantiated graph of ``csrc/loop_graph.cu`` (``_handle``),
+    launched on the current stream and freed with this object."""
+
+    def _own(self, handle: int) -> None:
+        self._handle = handle
+        self._launch = cuda_build.entry(KERNEL, "jt_loop_launch",
+                                        [ctypes.c_void_p] * 2)
+        weakref.finalize(self, _destroy, handle)
+
+    def launch(self, device: torch.device) -> None:
+        cuda_build.check_launch(KERNEL, self._launch(
+            self._handle, torch.cuda.current_stream(device).cuda_stream))
+
+
+class WhileGraph(_Executable):
     """The loop ``while (trips < limit) & any(~done): step; trips += 1`` as
     one executable CUDA graph (``csrc/loop_graph.cu``): ``step_graph`` (a
     ``cudaGraph_t``, cloned into the WHILE node's body) over the static
-    ``done [B]`` (bool) and ``trips`` (one int32) it reads and writes.
-    :meth:`launch` enqueues the whole loop on the current stream; the
-    caller zeroes ``trips`` and sets ``done`` before. Refused graphs (a
+    ``done [B]`` (bool) and ``trips`` (one int32) it reads and writes;
+    ``before`` and ``after`` (``cudaGraph_t``s or None, cloned) run before
+    the loop's first test and after its exit. :meth:`launch` enqueues the
+    whole graph on the current stream; the caller (or ``before``) zeroes
+    ``trips`` and sets ``done`` before the first test. Refused graphs (a
     CUDA without conditional nodes, a step the body cannot hold) raise."""
 
     def __init__(self, step_graph: int, done: torch.Tensor,
-                 trips: torch.Tensor, limit: int):
+                 trips: torch.Tensor, limit: int,
+                 before: Optional[int] = None, after: Optional[int] = None):
         if done.dtype != torch.bool or not done.is_contiguous() \
                 or trips.dtype != torch.int32 or trips.numel() != 1:
             raise TypeError("WhileGraph takes a contiguous done [B] bool and "
@@ -87,12 +112,18 @@ class WhileGraph:
         fn = cuda_build.entry(KERNEL, "jt_loop_create", _CREATE)
         cuda_build.check_launch(KERNEL, fn(
             step_graph, done.data_ptr(), done.numel(), trips.data_ptr(),
-            limit, ctypes.byref(out)))
-        self._handle = out.value
-        self._launch = cuda_build.entry(KERNEL, "jt_loop_launch",
-                                        [ctypes.c_void_p] * 2)
-        weakref.finalize(self, _destroy, self._handle)
+            limit, before, after, ctypes.byref(out)))
+        self._own(out.value)
 
-    def launch(self, device: torch.device) -> None:
-        cuda_build.check_launch(KERNEL, self._launch(
-            self._handle, torch.cuda.current_stream(device).cuda_stream))
+
+class ChainGraph(_Executable):
+    """``step_graph`` (a ``cudaGraph_t``) cloned ``n`` times in sequence
+    as one executable graph: ``n`` steps a launch, no condition."""
+
+    def __init__(self, step_graph: int, n: int):
+        if n < 1:
+            raise ValueError(f"a chain of {n} steps")
+        out = ctypes.c_void_p()
+        fn = cuda_build.entry(KERNEL, "jt_chain_create", _CHAIN)
+        cuda_build.check_launch(KERNEL, fn(step_graph, n, ctypes.byref(out)))
+        self._own(out.value)

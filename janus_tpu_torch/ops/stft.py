@@ -22,6 +22,15 @@ def _hann_np(n_fft: int) -> np.ndarray:
 
 
 def hann_window(n_fft: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """The periodic Hann window on ``device``, made once per (``n_fft``,
+    dtype, device) and shared (callers must not write to it), so that a
+    call uploads nothing and a captured synthesis can run it."""
+    return _hann_table(n_fft, dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _hann_table(n_fft: int, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_hann_np(n_fft)).to(device=device, dtype=dtype)
 
 

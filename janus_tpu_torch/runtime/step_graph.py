@@ -22,7 +22,12 @@ counterpart of this module: ``jit`` plays its role there.
   port's kernel (``csrc/loop_graph.cu``) before the node and after each
   body, which also counts the trips in a device counter. One launch runs
   the loop and nothing is read back, whatever its exit. On the CPU the
-  same loop runs eagerly, the condition read before each body.
+  same loop runs eagerly, the condition read before each body. A
+  synthesis puts its prefill before the node and its vocoder after it,
+  each a captured graph cloned into the loop's: one launch a synthesis.
+- :class:`StepChain`: the JAX package's ``lax.scan`` of ``n`` steps (the
+  stream's chunk), which runs every step whatever ``done`` says: the step's
+  graph ``n`` times in sequence, one launch a chunk.
 - :class:`StepGraphs`: the graphs of one caller (an encoder, a
   synthesizer) by key, with one memory pool, one capture stream and one
   lock, for one parameter tree at a time: a graph holds its weights'
@@ -53,6 +58,7 @@ conditional nodes.
 
 from __future__ import annotations
 
+import functools
 import gc
 import math
 import threading
@@ -65,10 +71,11 @@ import torch
 
 from janus_tpu_torch.ops.cuda_build import KERNELS, Kernel
 from janus_tpu_torch.ops.loop_graph import KERNEL as LOOP_KERNEL
-from janus_tpu_torch.ops.loop_graph import WhileGraph, loop_condition_plain
+from janus_tpu_torch.ops.loop_graph import (ChainGraph, WhileGraph,
+                                            loop_condition_plain)
 from janus_tpu_torch.parallel.collectives import current_mesh, mesh_shape
 
-__all__ = ["StepGraph", "LoopGraph", "StepGraphs", "use_graphs",
+__all__ = ["StepGraph", "LoopGraph", "StepChain", "StepGraphs", "use_graphs",
            "default_graphs"]
 
 Counts = Dict[Kernel, Tuple[int, float, float]]
@@ -115,16 +122,18 @@ class StepGraph:
     The warm-up launches count as launches; the capture's are recorded in
     :attr:`counts` and added to the kernels at every replay.
     ``capture_ms`` is the warm-up and capture's wall time. A bound method
-    ``step`` is held weakly (its object owns this graph). With ``keep``
+    ``step`` is held weakly (its object owns this graph); ``args`` are
+    passed to it at every call (the capture fixes them). With ``keep``
     the captured ``cudaGraph_t`` is kept (:meth:`raw_graph`), for a
-    :class:`LoopGraph` to clone."""
+    :class:`LoopGraph` or a :class:`StepChain` to clone."""
 
-    def __init__(self, step: Callable[[], None], device: torch.device,
-                 pool=None, stream=None, keep: bool = False):
+    def __init__(self, step: Callable[..., None], device: torch.device,
+                 pool=None, stream=None, keep: bool = False,
+                 args: tuple = ()):
         self._keep = keep
-        self._step = (weakref.WeakMethod(step)
-                      if isinstance(step, types.MethodType)
-                      else lambda: step)
+        fn = (weakref.WeakMethod(step) if isinstance(step, types.MethodType)
+              else lambda: step)
+        self._step = lambda: functools.partial(fn(), *args)
         self.device = device
         self.replays = 0
         self.counts: Counts = {}
@@ -208,16 +217,28 @@ class LoopGraph:
     before the node, one after each body); :meth:`defer` keeps the copy to
     be read at :meth:`settle` instead. The step graph's own
     :attr:`StepGraph.replays` do not move: the loop is its own graph, over
-    the same pool addresses, so a holder never runs the two at once."""
+    the same pool addresses, so a holder never runs the two at once.
 
-    def __init__(self, step: StepGraph, done: torch.Tensor, limit: int):
+    ``before`` and ``after`` (:class:`StepGraph` s captured with ``keep``,
+    or None) run before the loop's first test and after its exit, in the
+    same launch (a synthesis: the prefill, which zeroes ``trips`` and sets
+    ``done``, and the vocoder); their counts are added once a run.
+    ``trips`` is the counter of another loop over the same step, where one
+    already owns it."""
+
+    def __init__(self, step: StepGraph, done: torch.Tensor, limit: int,
+                 before: Optional[StepGraph] = None,
+                 after: Optional[StepGraph] = None,
+                 trips: Optional[torch.Tensor] = None):
         if limit < 1:
             raise ValueError(f"a loop of at most {limit} steps")
         self.step_graph = step
+        self.before, self.after = before, after
         self.device = step.device
         self.done = done
         self.limit = limit
-        self.trips = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.trips = (torch.zeros((), dtype=torch.int32, device=self.device)
+                      if trips is None else trips)
         self.runs = 0        # calls of run()
         self.trips_run = 0   # bodies run, as account() was told
         self.counts: Counts = step.counts
@@ -226,19 +247,26 @@ class LoopGraph:
         self._graph = None
         if self.device.type == "cuda":
             t0 = time.perf_counter()
-            self._graph = WhileGraph(step.raw_graph(), done, self.trips,
-                                     limit)
+            self._graph = WhileGraph(
+                step.raw_graph(), done, self.trips, limit,
+                before.raw_graph() if before is not None else None,
+                after.raw_graph() if after is not None else None)
             self.build_ms = 1e3 * (time.perf_counter() - t0)
 
     def run(self) -> torch.Tensor:
-        """The loop from the holder's state: on the card one graph launch,
-        nothing read back; on the CPU the bodies eagerly. Returns a copy of
-        ``trips`` (on the loop's device)."""
+        """The loop from the holder's state (after ``before``, then
+        ``after``): on the card one graph launch, nothing read back; on the
+        CPU the same functions eagerly. Returns a copy of ``trips`` (on the
+        loop's device)."""
         if self._graph is None:
+            if self.before is not None:
+                self.before.step()
             while bool(loop_condition_plain(self.done, self.trips,
                                             self.limit)[1]):
                 self.step_graph.step()
                 self.trips.add_(1)
+            if self.after is not None:
+                self.after.step()
         else:
             self._graph.launch(self.device)
         self.runs += 1
@@ -248,6 +276,10 @@ class LoopGraph:
         """A run's ``trips`` as read back: its kernels' launches."""
         trips = int(trips)
         _add(self.counts, trips)
+        if self._graph is not None:
+            for g in (self.before, self.after):
+                if g is not None:
+                    _add(g.counts, 1)
         if self._graph is not None:
             LOOP_KERNEL.launches += 1 + trips
             LOOP_KERNEL.flops += (1 + trips) * self.done.numel()
@@ -266,6 +298,35 @@ class LoopGraph:
             self._pending.clear()
             for trips in runs:
                 self.account(trips)
+
+
+class StepChain:
+    """``n`` steps in sequence, whatever ``done`` says (the JAX package's
+    ``lax.scan`` over a chunk): ``step``'s graph (a :class:`StepGraph`
+    captured with ``keep=True``) cloned ``n`` times into one executable
+    graph (:class:`~janus_tpu_torch.ops.loop_graph.ChainGraph`), one launch
+    a run; on the CPU the step ``n`` times eagerly. Each run on the card
+    adds the step's counts ``n`` times."""
+
+    def __init__(self, step: StepGraph, n: int):
+        self.step_graph, self.n = step, n
+        self.device = step.device
+        self.runs = 0
+        self.build_ms = 0.0
+        self._graph = None
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            self._graph = ChainGraph(step.raw_graph(), n)
+            self.build_ms = 1e3 * (time.perf_counter() - t0)
+
+    def run(self) -> None:
+        if self._graph is None:
+            for _ in range(self.n):
+                self.step_graph.step()
+        else:
+            self._graph.launch(self.device)
+            _add(self.step_graph.counts, self.n)
+        self.runs += 1
 
 
 _CAPTURE_LOCK = threading.Lock()
@@ -340,28 +401,45 @@ class StepGraphs:
 
     def graphs(self, kind: Optional[str] = None) -> List[StepGraph]:
         """The holders' one-step (or front) graphs."""
-        return [h.graph for h in self.holders(kind)]
+        return [h.graph for h in self.holders(kind)
+                if getattr(h, "graph", None) is not None]
+
+    def side_graphs(self, kind: Optional[str] = None) -> List[StepGraph]:
+        """The holders' other graphs: the TTS prefill, the synthesis tail,
+        the stream's emissions."""
+        return [g for h in self.holders(kind)
+                for g in getattr(h, "side_graphs", ())]
 
     def loops(self, kind: Optional[str] = None) -> List[LoopGraph]:
         """The holders' loop graphs (those built so far)."""
         return [h.loop for h in self.holders(kind)
                 if getattr(h, "loop", None) is not None]
 
+    def chains(self, kind: Optional[str] = None) -> List[StepChain]:
+        """The holders' chains of steps (those built so far)."""
+        return [c for h in self.holders(kind)
+                for c in getattr(h, "chains", {}).values()]
+
     @property
     def replays(self) -> int:
-        """Host launches of the holders' graphs: each replay of a step or
-        front graph, and each run of a loop graph."""
+        """Host launches of the holders' graphs: each replay of a step,
+        front, prefill, tail or emission graph, and each run of a loop or
+        a chain."""
         return (sum(g.replays for g in self.graphs())
-                + sum(lp.runs for lp in self.loops()))
+                + sum(g.replays for g in self.side_graphs())
+                + sum(lp.runs for lp in self.loops())
+                + sum(c.runs for c in self.chains()))
 
     @property
     def steps(self) -> int:
         """Decode steps the holders ran: a step graph's replays and the
-        bodies of every loop run (deferred counts read back first)."""
+        bodies of every loop and chain run (deferred counts read back
+        first)."""
         self.settle()
         return (sum(h.graph.replays for h in self.holders()
                     if hasattr(h, "loop"))
-                + sum(lp.trips_run for lp in self.loops()))
+                + sum(lp.trips_run for lp in self.loops())
+                + sum(c.runs * c.n for c in self.chains()))
 
     def settle(self) -> None:
         """Account the loop runs whose ``trips`` were deferred

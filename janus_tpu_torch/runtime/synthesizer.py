@@ -15,6 +15,16 @@ resampler to 48 kHz. Text pads only to the next power-of-two bucket:
 audio tokens sit at a fixed position base
 (:func:`~janus_tpu_torch.models.tts.audio_pos_base`), so any bucket is an
 in-distribution prompt length. Output is 48 kHz mono int16 PCM bytes.
+
+The JAX package jits the whole synthesis (prompt embedding, prefill, the
+AR ``while_loop``, vocoder, iSTFT, resampler) into one program per text
+bucket. On the card the port runs it as one launch of a
+:class:`SynthGraph` per (bucket, batch, speaker or none): the captured
+prefill, the AR loop's WHILE node and the captured tail in one graph,
+after one pinned upload, nothing read back before ``_run_tts`` reads the
+samples. ``eager=True``, the CPU and a mesh of more than one rank issue it
+op by op (:meth:`Synthesizer._synth_impl`), the oracle the graph is held
+to.
 """
 
 from __future__ import annotations
@@ -43,11 +53,103 @@ from janus_tpu_torch.parallel.sharding import (TTS_PARTITION_RULES,
                                                VOCODER_PARTITION_RULES,
                                                shard_params)
 from janus_tpu_torch.runtime.emotion import tts_emotion_tag
-from janus_tpu_torch.runtime.step_graph import StepGraphs, use_graphs
+from janus_tpu_torch.runtime.step_graph import (LoopGraph, StepGraph,
+                                                StepGraphs, use_graphs)
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Synthesizer"]
+__all__ = ["Synthesizer", "SynthGraph", "vocode_48k", "rate_ratio"]
+
+
+def rate_ratio(sample_rate: int) -> Tuple[int, int]:
+    """``(up, down)`` from the vocoder's rate to 48 kHz playback."""
+    g = math.gcd(48_000, sample_rate)
+    return 48_000 // g, sample_rate // g
+
+
+def vocode_48k(vocoder_params, cfg: JanusConfig, mel: torch.Tensor,
+               n_frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The synthesis after the AR loop: ``mel[B, T, n_mels]`` and
+    ``n_frames[B]`` → ``(wav48[B, T48], n48[B])`` (vocode, then resample
+    to 48 kHz)."""
+    wav = voc_mod.vocoder_waveform(vocoder_params, cfg.vocoder, mel)
+    up, down = rate_ratio(cfg.vocoder.sample_rate)
+    wav48 = (resample_poly(wav, up=up, down=down)
+             if (up, down) != (1, 1) else wav)
+    return wav48, n_frames * cfg.vocoder.hop_length * up // down
+
+
+class SynthGraph:
+    """The synthesis for one (text bucket, batch, speaker dtype or none) and
+    one tree as one graph, as the JAX package jits ``_synth_impl`` per
+    bucket: the :class:`~janus_tpu_torch.models.tts.ARGraph` of its shape
+    (its static inputs, caches and buffers, the captured prefill and step)
+    and the tail (:func:`vocode_48k` over the holder's output buffer,
+    captured, writing the static ``wav48[b, T48]`` and ``n48[b]``), built
+    into one :class:`~janus_tpu_torch.runtime.step_graph.LoopGraph`: the
+    prefill, the WHILE node around the step, the tail. :meth:`run` is one
+    upload and one launch; on the CPU the same functions run eagerly over
+    the same buffers. ``pool_bytes`` is what its captures added to the
+    shared pool. It holds what it needs of its synthesizer, not the
+    synthesizer (which owns it)."""
+
+    def __init__(self, graphs: StepGraphs, tts_params, vocoder_params,
+                 cfg: JanusConfig, bucket: int, batch: int,
+                 speaker: Optional[torch.dtype], text_vocab: int,
+                 device: torch.device):
+        tcfg = cfg.tts
+        self.cfg, self.vocoder_params = cfg, vocoder_params
+        before = graphs.pool_bytes()
+        max_groups = tcfg.max_mel_frames // tcfg.reduction
+        self.ar = tts_mod.ARGraph(graphs, tts_params, tcfg, batch,
+                                  bucket + 3, max_groups, 0.5, device,
+                                  text_vocab, speaker)
+        up, down = rate_ratio(cfg.vocoder.sample_rate)
+        frames = max_groups * tcfg.reduction
+        wav_dtype = torch.promote_types(
+            vocoder_params["mag_head"]["w"].dtype, torch.float32)
+        self.wav48 = torch.zeros(
+            (batch, frames * cfg.vocoder.hop_length * up // down),
+            dtype=wav_dtype, device=device)
+        self.n48 = torch.zeros((batch,), dtype=torch.int32, device=device)
+        self.tail = StepGraph(self._tail, device, keep=True,
+                              **graphs.capture_args(device))
+        self.graph = self.ar.graph
+        self.side_graphs = [self.ar.prefill_graph, self.tail]
+        self.loop = (LoopGraph(self.ar.graph, self.ar.done, max_groups - 1,
+                               before=self.ar.prefill_graph, after=self.tail,
+                               trips=self.ar.loop.trips)
+                     if self.ar.loop is not None else None)
+        self.pool_bytes = graphs.pool_bytes() - before
+
+    def _tail(self) -> None:
+        ar, tcfg = self.ar, self.cfg.tts
+        b = ar.out.shape[0]
+        mel = ar.out[:, :ar.max_groups].reshape(
+            b, ar.max_groups * tcfg.reduction, tcfg.n_mels).contiguous()
+        wav48, n48 = vocode_48k(self.vocoder_params, self.cfg, mel,
+                                ar.n_groups * tcfg.reduction)
+        self.wav48.copy_(wav48)
+        self.n48.copy_(n48)
+
+    def run(self, text_ids: torch.Tensor, emotion: torch.Tensor,
+            speaker: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One synthesis: the inputs uploaded (host tensors through the
+        pinned twin, one non-blocking copy), then one launch (prefill, AR
+        loop, tail); nothing read back. Returns the static ``(wav48,
+        n48)``, which the next run overwrites: read them with the graphs'
+        lock held. The loop's trips are deferred to :meth:`~janus_tpu_torch.
+        runtime.step_graph.StepGraphs.settle`."""
+        self.ar.load(text_ids, emotion, speaker)
+        if self.loop is None:
+            self.ar.prefill_graph.replay()
+            self.tail.replay()
+        else:
+            self.loop.defer(self.loop.run())
+        self.ar.begin()
+        self.ar.steps = None
+        return self.wav48, self.n48
 
 
 class Synthesizer:
@@ -159,25 +261,48 @@ class Synthesizer:
 
     # -- device path -------------------------------------------------------
 
+    def _graphed(self) -> bool:
+        """Whether a synthesis launches its :class:`SynthGraph` (see
+        :func:`~janus_tpu_torch.runtime.step_graph.use_graphs`)."""
+        with use_mesh(self.mesh):
+            return use_graphs(self.device, self.eager)
+
+    def synth_graph(self, bucket: int, batch: int,
+                    speaker: Optional[torch.dtype]) -> SynthGraph:
+        """The :class:`SynthGraph` of ``bucket`` text tokens at ``batch``
+        lanes with a speaker vector of dtype ``speaker`` (None: none),
+        captured at its first request. Call with ``self._graphs.lock``
+        held."""
+        key = ("synth", bucket, batch, speaker)
+        return self._graphs.holder(self._tree(), key, lambda: SynthGraph(
+            self._graphs, self.tts_params, self.vocoder_params, self.cfg,
+            bucket, batch, speaker, self.tokenizer.vocab_size, self.device))
+
+    def _tree(self) -> dict:
+        return {"tts": self.tts_params, "vocoder": self.vocoder_params}
+
     def _synth_impl(self, text_ids: torch.Tensor, emotion: torch.Tensor,
                     speaker: Optional[torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(wav48[B, T48], n48[B])``: generate, vocode, resample."""
+        """``(wav48[B, T48], n48[B])``: generate, vocode, resample. On the
+        graph path one launch of the :class:`SynthGraph` of the shape after
+        one upload (``text_ids`` and ``emotion`` may lie on the host; the
+        results are the holder's static buffers, valid until the next
+        synthesis: read them with ``self._graphs.lock`` held); otherwise
+        the same functions issued op by op."""
+        if self._graphed():
+            with self._graphs.lock:
+                return self.synth_graph(
+                    text_ids.shape[1], text_ids.shape[0],
+                    None if speaker is None else speaker.dtype).run(
+                        text_ids, emotion, speaker)
+        text_ids, emotion = (t.to(self.device) for t in (text_ids, emotion))
         with use_mesh(self.mesh):
             mel, n_frames = tts_mod.tts_generate(
                 self.tts_params, self.cfg.tts, text_ids, emotion,
                 speaker=speaker, text_vocab=self.tokenizer.vocab_size,
-                eager=self.eager, graphs=self._graphs)
-            wav = voc_mod.vocoder_waveform(self.vocoder_params,
-                                           self.cfg.vocoder, mel)
-        # vocoder rate -> 48 kHz playback
-        sr = self.cfg.vocoder.sample_rate
-        g = math.gcd(48_000, sr)
-        up, down = 48_000 // g, sr // g
-        wav48 = (resample_poly(wav, up=up, down=down)
-                 if (up, down) != (1, 1) else wav)
-        n48 = n_frames * self.cfg.vocoder.hop_length * up // down
-        return wav48, n48
+                eager=True)
+            return vocode_48k(self.vocoder_params, self.cfg, mel, n_frames)
 
     def _speaker_arg(self) -> Optional[torch.Tensor]:
         if self._speaker_vec is not None:
@@ -191,20 +316,22 @@ class Synthesizer:
         padded = np.full((1, bucket), self.tokenizer.pad, dtype=np.int64)
         padded[0, : len(ids)] = ids
         emo = torch.tensor([tts_mod.emotion_id(emotion_tag)],
-                           dtype=torch.long, device=self.device)
+                           dtype=torch.long)
         speaker = self._speaker_arg()
         if speaker is not None:
             speaker = speaker[None, :]
-        with torch.no_grad():
-            wav, n_samples = self._synth_impl(
-                torch.from_numpy(padded).to(self.device), emo, speaker)
-        n = int(n_samples[0])
         # Text-proportional duration guard: an AR stop-head miss must not
         # emit unbounded trailing audio (looping is the classic failure of
         # autoregressive acoustic models).
         cap = int((0.35 + self.cfg.tts.max_seconds_per_text_token * len(ids))
                   * 48_000)
-        pcm = wav[0, : max(min(n, cap), 0)].cpu().numpy()
+        # the lock keeps the graph path's static results until they are
+        # read; the inputs go up from the host (one pinned upload there)
+        with torch.no_grad(), self._graphs.lock:
+            wav, n_samples = self._synth_impl(torch.from_numpy(padded), emo,
+                                              speaker)
+            n = int(n_samples[0])
+            pcm = wav[0, : max(min(n, cap), 0)].cpu().numpy()
         # the AR loop's bodies that ran (read after the samples)
         self._graphs.settle()
         pcm = np.clip(pcm, -1.0, 1.0)
@@ -269,19 +396,20 @@ class Synthesizer:
         return self._streamer
 
     def warmup(self) -> None:
-        """On the graph path, capture the AR step and the AR loop of one
-        prompt in every text bucket, for :meth:`synthesize` and for
-        :meth:`synthesize_streaming`, so that no capture happens inside a
-        live turn."""
-        tcfg = self.cfg.tts
-        with use_mesh(self.mesh), self._graphs.lock:
-            if not use_graphs(self.device, self.eager):
-                return
-            for bucket in tts_mod.text_buckets(tcfg.max_text_tokens):
-                tts_mod.ar_graph(self._graphs, self.tts_params, tcfg, 1,
-                                 bucket + 3, tcfg.max_mel_frames
-                                 // tcfg.reduction, 0.5, self.device)
-            self.streamer().warmup()
+        """On the graph path, capture the synthesis of one prompt in every
+        text bucket with the speaker vector in use (:class:`SynthGraph`:
+        the prefill, the AR step and loop, the tail) for :meth:`synthesize`,
+        and the stream's graphs for :meth:`synthesize_streaming`
+        (:meth:`~janus_tpu_torch.runtime.streaming_tts.StreamingSynthesizer.
+        warmup`), so that no capture happens inside a live turn."""
+        if not self._graphed():
+            return
+        speaker = self._speaker_arg()
+        spk = None if speaker is None else speaker.dtype
+        with torch.no_grad(), use_mesh(self.mesh), self._graphs.lock:
+            for bucket in tts_mod.text_buckets(self.cfg.tts.max_text_tokens):
+                self.synth_graph(bucket, 1, spk)
+        self.streamer().warmup(speaker=spk)
 
     # -- public API (reference: synthesizer.py:106-255) --------------------
 

@@ -23,13 +23,19 @@ EncodeGraph`: the frontend, the encoder, the cross K/V and the prefill);
 decode loop's graph (:class:`~janus_tpu_torch.runtime.step_graph.
 LoopGraph`: the WHILE node around the captured step, its condition tested
 on the card), the holder rewound to the end of its prefill before each;
+:func:`trace_receive` the receive side's other captures (the AR prefill,
+the synthesis tail, one emission of the stream) of
+:class:`~janus_tpu_torch.runtime.synthesizer.SynthGraph` and
+:class:`~janus_tpu_torch.runtime.streaming_tts.StreamGraph`;
 :func:`trace_replays` any replay.
 
 Usage: ``python -m janus_tpu_torch.tools.trace_step [--batch 8 1]
-[--groups 256] [--front SECONDS] [--loop] [--out trace.json]``; prints
-one JSON line a batch (the full table goes to ``--out`` where given):
-the AR step, or with ``--loop`` the whole AR loop; with ``--front`` the
-recognizer's front, or with ``--loop`` its greedy loop after the front.
+[--groups 256] [--front SECONDS] [--loop] [--receive] [--out
+trace.json]``; prints one JSON line a batch (the full table goes to
+``--out`` where given): the AR step, or with ``--loop`` the whole AR loop;
+with ``--front`` the recognizer's front, or with ``--loop`` its greedy
+loop after the front; with ``--receive`` the prefill, the synthesis tail
+and one stream emission.
 Needs a card: the profiler's device events are the measurement.
 """
 
@@ -56,7 +62,7 @@ from janus_tpu_torch.runtime.step_graph import StepGraphs
 __all__ = ["PRODUCT", "KINDS", "kernel_rows", "kind_of", "timeline",
            "gaps_by_kind", "span_us", "trace_replays", "trace_ar_step",
            "trace_front", "trace_ar_loop", "trace_greedy_loop",
-           "profiler_ready", "main"]
+           "trace_receive", "profiler_ready", "main"]
 
 # the names of matrix-product kernels: cuBLAS / cuBLASLt (gemm, gemv,
 # xmma, cutlass, nvjet) and the port's own linears
@@ -285,8 +291,7 @@ def trace_ar_loop(batch: int, groups: int = 256, prompt: int = 32,
                                   groups, 2.0, dev)
         text = torch.zeros((batch, prompt), dtype=torch.long, device=dev)
         emo = torch.zeros((batch,), dtype=torch.long, device=dev)
-        holder.start(tts_mod._prompt_embedding(params, cfg, text, emo, None,
-                                               tok.vocab_size))
+        holder.prefill(text, emo)
         saved = [t.clone() for t in (holder.prev, holder.done)]
 
         def rewind():
@@ -317,6 +322,57 @@ def trace_greedy_loop(encoder, bucket: int, batch: int,
                                out=out)
         trips = int(holder.greedy.loop.trips)
     return {"bucket": bucket, "batch": batch, "trips": trips, **record}
+
+
+@torch.no_grad()
+def trace_receive(batch: int, groups: int = 256, prompt: int = 32,
+                  device="cuda", out: Optional[str] = None) -> dict:
+    """The flagship TTS and the default vocoder (random bf16 weights from
+    seeds 0 and 1) at ``batch`` lanes, a ``prompt``-wide text and a budget
+    of ``groups``: one synthesis through its :class:`~janus_tpu_torch.
+    runtime.synthesizer.SynthGraph` captures it, then its prefill replay
+    and its tail replay are traced; at one lane a stream captures its
+    emissions, and the first is traced. The records by name."""
+    from janus_tpu_torch.common.config import JanusConfig, VocoderConfig
+    from janus_tpu_torch.models import vocoder as voc_mod
+    from janus_tpu_torch.runtime.streaming_tts import StreamingSynthesizer
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
+
+    dev = resolve_device(device)
+    tok = ByteTokenizer()
+    tcfg = dataclasses.replace(TTSConfig.flagship(),
+                               max_mel_frames=groups
+                               * TTSConfig.flagship().reduction)
+    cfg = dataclasses.replace(JanusConfig(), tts=tcfg,
+                              vocoder=VocoderConfig())
+    tts = cast_floating(tts_mod.init_tts(
+        torch.Generator(device=dev).manual_seed(0), tcfg,
+        text_vocab=tok.vocab_size), torch.bfloat16)
+    voc = cast_floating(voc_mod.init_vocoder(
+        torch.Generator(device=dev).manual_seed(1), cfg.vocoder,
+        n_mels=tcfg.n_mels), torch.bfloat16)
+    syn = Synthesizer(cfg, tts_params=tts, vocoder_params=voc, device=dev)
+    text = torch.zeros((batch, prompt), dtype=torch.long)
+    emo = torch.zeros((batch,), dtype=torch.long)
+    records = {}
+    with syn._graphs.lock:
+        syn._synth_impl(text, emo, None)
+        h = syn.synth_graph(prompt, batch, None)
+        for name, g in (("prefill", h.ar.prefill_graph), ("tail", h.tail)):
+            stem, ext = os.path.splitext(out) if out else ("", "")
+            records[name] = trace_replays(
+                g.replay, dev, rounds=5, per_round=4,
+                out=f"{stem}_{name}{ext or '.json'}" if out else None)
+    syn._graphs.settle()
+    if batch == 1:
+        s = StreamingSynthesizer(cfg, tts_params=tts, vocoder_params=voc,
+                                 device=dev)
+        list(s.stream("status report follows all clear"))
+        with s._graphs.lock:
+            em = s.stream_graph()
+            records["emit"] = trace_replays(em.side_graphs[0].replay, dev,
+                                            rounds=5, per_round=4)
+    return {"batch": batch, "groups": groups, "prompt": prompt, **records}
 
 
 def _flagship_front(batch: int, seconds: float, device,
@@ -356,6 +412,10 @@ def main(argv=None) -> None:
     ap.add_argument("--loop", action="store_true",
                     help="trace a whole decode loop's graph launch: the AR "
                          "loop, or with --front the greedy loop")
+    ap.add_argument("--receive", action="store_true",
+                    help="trace the receive side's captures: the AR "
+                         "prefill, the synthesis tail and (at one lane) a "
+                         "stream emission")
     ap.add_argument("--out", default=None,
                     help="write each batch's full table to OUT with the "
                          "batch before the extension")
@@ -365,7 +425,10 @@ def main(argv=None) -> None:
         if args.out:
             stem, ext = os.path.splitext(args.out)
             out = f"{stem}_b{b}{ext or '.json'}"
-        if args.front:
+        if args.receive:
+            record = trace_receive(b, args.groups, args.prompt, args.device,
+                                   out)
+        elif args.front:
             record = _flagship_front(b, args.front, args.device, out,
                                      args.loop)
         elif args.loop:

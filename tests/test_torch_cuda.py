@@ -1468,6 +1468,148 @@ def test_encode_front_capture_beside_another_threads_work(dev):
     assert graph._graphs.holders("encode")[0].graph.capture_ms > 0
 
 
+def _receive_small(dev, eager=False, stop_bias=None):
+    """A small TTS (``_GRAPH_TTS``) and vocoder at 24 kHz on the card, bf16
+    weights, through ``Synthesizer`` (captured, or ``eager``); with
+    ``stop_bias`` the stop head's bias is that value."""
+    from janus_tpu_torch.common.config import JanusConfig
+    from janus_tpu_torch.models.params import cast_floating
+    from janus_tpu_torch.models.tts import init_tts
+    from janus_tpu_torch.models.vocoder import init_vocoder
+    from janus_tpu_torch.runtime.synthesizer import Synthesizer
+
+    cfg = JanusConfig().override(**{
+        **{f"tts.{k}": v for k, v in _GRAPH_TTS.items()},
+        "vocoder.d_model": 64, "vocoder.layers": 2, "vocoder.n_fft": 256,
+        "vocoder.hop_length": 64, "vocoder.sample_rate": 24_000})
+    g = torch.Generator(device=dev).manual_seed(0)
+    tts = cast_floating(init_tts(g, cfg.tts), torch.bfloat16)
+    voc = cast_floating(init_vocoder(g, cfg.vocoder, n_mels=16),
+                        torch.bfloat16)
+    if stop_bias is not None:
+        tts = {**tts, "stop_head": {**tts["stop_head"], "b": torch.full_like(
+            tts["stop_head"]["b"], stop_bias)}}
+    return Synthesizer(cfg, tts_params=tts, vocoder_params=voc, device=dev,
+                       eager=eager)
+
+
+def _receive_inputs(dev, batch=3, bucket=16, seed=1):
+    rng = np.random.default_rng(seed)
+    text = torch.from_numpy(rng.integers(0, 256, (batch, bucket)))
+    emo = torch.from_numpy(rng.integers(0, 12, (batch,)))
+    spk = torch.from_numpy(rng.standard_normal((batch, 64)).astype(
+        np.float32)).to(dev)
+    return text, emo, spk
+
+
+def test_prefill_graph_equals_the_eager_prefill_on_the_card(dev):
+    """The captured prefill (the prompt's embedding, the caches zeroed and
+    filled, the counters) from host inputs through the pinned twin gives
+    the eager prefill's first group, flags and caches bit for bit, twice
+    with another prompt in between."""
+    from janus_tpu_torch.models import tts as tts_mod
+
+    syn = _receive_small(dev)
+    tcfg, tree = syn.cfg.tts, syn.tts_params
+    for seed in (1, 2, 1):
+        text, emo, spk = _receive_inputs(dev, seed=seed)
+        with syn._graphs.lock:
+            h = syn.synth_graph(16, 3, torch.float32)
+            first, done, state = h.ar.prefill(text, emo, spk)
+        f0, d0, s0 = tts_mod.tts_prefill(
+            tree, tcfg, text.to(dev), emo.to(dev), speaker=spk,
+            max_groups=h.ar.max_groups, eager=True)
+        torch.cuda.synchronize()
+        assert torch.equal(first, f0.float()) and torch.equal(done, d0)
+        assert state.fill == s0.fill == 19
+        for a, b in zip(state.caches, s0.caches):
+            assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+    assert h.ar.prefill_graph.capture_ms > 0
+
+
+def test_synthesis_tail_equals_the_eager_vocoder_on_the_card(dev):
+    """One launch of a ``SynthGraph`` (prefill, loop, tail) gives the eager
+    synthesis's ``wav48`` and ``n48`` bit for bit (vocoder, iSTFT with its
+    cuFFT inverse, resampler), and the tail replayed alone over the loop's
+    output the eager vocoder and resampler's."""
+    from janus_tpu_torch.runtime.synthesizer import vocode_48k
+
+    syn, eager = _receive_small(dev), _receive_small(dev, eager=True)
+    for seed in (1, 2):
+        text, emo, spk = _receive_inputs(dev, seed=seed)
+        with syn._graphs.lock:
+            wav, n48 = (t.clone() for t in syn._synth_impl(text, emo, spk))
+            h = syn.synth_graph(16, 3, torch.float32)
+            ar = h.ar
+            mel = ar.out[:, :ar.max_groups].reshape(
+                3, -1, syn.cfg.tts.n_mels).contiguous()
+            want_tail = vocode_48k(syn.vocoder_params, syn.cfg, mel,
+                                   ar.n_groups * syn.cfg.tts.reduction)
+            h.tail.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(h.wav48, want_tail[0])
+            assert torch.equal(h.n48, want_tail[1])
+        want = eager._synth_impl(text, emo, spk)
+        assert torch.equal(wav, want[0]) and torch.equal(n48, want[1])
+    assert h.tail.capture_ms > 0 and h.loop.runs == 2
+
+
+def test_chunk_launch_equals_single_replays_on_the_card(dev):
+    """A chain of ``n`` steps (one launch) leaves the holder's buffers and
+    caches as ``n`` replays of the step do, bit for bit."""
+    syn = _receive_small(dev, stop_bias=-5.0)
+    text, emo, spk = _receive_inputs(dev)
+    states = []
+    for chained in (True, False):
+        s = syn.streamer()
+        with s._graphs.lock:
+            h = s.ar_graph(16, None)
+            h.prefill(text[:1], emo[:1], None)
+            for n in (5, 9):
+                if chained:
+                    h.run_steps(n)
+                else:
+                    for _ in range(n):
+                        h.advance()
+            torch.cuda.synchronize()
+            states.append([t.clone() for t in (
+                h.out, h.dones, h.n_groups, h.prev, h.done, h.group)]
+                + [t.clone() for c in h.caches for t in (c.k, c.v)])
+    assert sorted(h.chains) == [5, 9] and h.chains[9].runs == 1
+    for a, b in zip(*states):
+        assert torch.equal(a, b)
+
+
+def test_a_synthesis_reads_nothing_back_before_its_samples(dev):
+    """``Synthesizer._synth_impl`` on the card's graph path: one upload and
+    one graph launch, no synchronize and no device->host copy before the
+    read that ``_run_tts`` makes; ``synthesize`` equals the eager
+    synthesizer's bytes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from janus_tpu_torch.common.protocol import JanusPacket
+
+    syn, eager = _receive_small(dev), _receive_small(dev, eager=True)
+    syn.warmup()
+    text = torch.zeros((1, 16), dtype=torch.long)
+    emo = torch.zeros((1,), dtype=torch.long)
+    torch.cuda.synchronize()
+    with syn._graphs.lock:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            syn._synth_impl(text, emo, None)
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CPU]
+    waits = [n for n in names if re.search(
+        r"Synchronize|cudaMemcpy$|cudaMemcpy2D$|_local_scalar_dense|"
+        r"aten::item", n)]
+    assert not waits, waits
+    assert sum(n.startswith("cudaGraphLaunch") for n in names) == 1
+    pkt = JanusPacket(text="alpha bravo", prosody={"pitch": "High"})
+    assert syn.synthesize(pkt) == eager.synthesize(pkt)
+    assert syn._graphs.holders("synth") and not eager._graphs.holders()
+
+
 def test_capture_beside_a_collection_that_frees_another_graph(dev):
     """A graph torn down by the capturing thread during a capture
     invalidates the capture (``CUDAGraph.cpp ... operation not permitted
