@@ -1713,18 +1713,40 @@ def event_ms(torch, fn) -> tuple:
     return out, start.elapsed_time(end)
 
 
+# the forced exits of both decode loops (every lane ends at that step;
+# None: never)
+LOOP_EXITS = (1, 2, 7, 8, 9, 17, None)
+
+
+def loop_parts_check(name, parts) -> None:
+    """The loop's body holds its step's own nodes and every edge of it: the
+    body's census is the step graph's, every programmatic edge kept, and
+    the condition kernel after them (one node, one edge more); no child
+    graph node. A chain of ``trips`` steps holds each edge once a step."""
+    census, trips = parts["census"], parts["trips"]
+    step, body, chain = census["step"], census["body"], census["chain"]
+    want = dict(step, nodes=step["nodes"] + 1, kernels=step["kernels"] + 1,
+                edges=step["edges"] + 1)
+    check(body == want and chain["programmatic_edges"]
+          == trips * step["programmatic_edges"] and chain["children"] == 0,
+          f"device_loop: {name}'s body {body} or chain {chain} does not hold "
+          f"its step's nodes and edges {step}")
+
+
 def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
     """The decode loops as the reference compiles them: each a WHILE node
-    around the captured step, its exit decided on the card. At flagship
-    width (large-v3 and the flagship TTS, b = 8), on copies of the trees
-    whose position row (the recognizer) or stop head (the TTS) is pushed
-    so that every lane ends at step 2, 9 or 17, or never: the loop's trips
-    (== the step) and device ms, its tokens, mel and ``n_frames`` against
-    the eager loop's bit for bit; the step's span inside the loop against
-    the step replayed alone, and a run that skips at once. Then the
-    submit: its return ms at b 8 x 10 s and b 1 x 2 s, ``is_ready()`` right
-    after, and no wait or device->host copy in it (the profiler's host
-    calls). Returns the phase's kernel launches."""
+    whose body holds the captured step's own nodes, its exit decided on
+    the card. At flagship width (large-v3 and the flagship TTS, b = 8), on
+    copies of the trees whose position row (the recognizer) or stop head
+    (the TTS) is pushed so that every lane ends at step ``LOOP_EXITS``, or
+    never: the loop's trips (== the step) and device ms, its tokens, mel
+    and ``n_frames`` against the eager loop's bit for bit; at the never
+    exit the loop against a chain of its steps and the step replayed as
+    often (``trace_loop_parts``: the per-body costs and the programmatic
+    edges of the body against the step's), and a run that skips at once.
+    Then the submit: its return ms at b 8 x 10 s and b 1 x 2 s,
+    ``is_ready()`` right after, and no wait or device->host copy in it
+    (the profiler's host calls). Returns the phase's kernel launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1735,7 +1757,7 @@ def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
     from janus_tpu_torch.ops.resample import decimate_48k_to_16k
     from janus_tpu_torch.runtime.codec import SemanticEncoder
     from janus_tpu_torch.runtime.step_graph import StepGraphs
-    from janus_tpu_torch.tools.trace_step import trace_replays
+    from janus_tpu_torch.tools.trace_step import trace_loop_parts
 
     from janus_tpu_torch.common import device as device_mod
 
@@ -1745,8 +1767,8 @@ def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
     reset_launches(kernels)
     out = {"phase": "device_loop", "nvidia_smi": nvidia_smi_line(),
            "torch": torch.__version__, "cuda": torch.version.cuda,
-           "route": "WHILE conditional node around the captured step "
-                    "(csrc/loop_graph.cu)"}
+           "route": "WHILE conditional node whose body holds the captured "
+                    "step's own nodes and edges (csrc/loop_graph.cu)"}
 
     # (a) the recognizer's loop at forced exits, b 8 x 10 s
     enc = SemanticEncoder(fcfg, asr_params=asr_params,
@@ -1764,7 +1786,7 @@ def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
     prompt = torch.full((FLAGSHIP_BATCH, 1), enc.tokenizer.sot,
                         dtype=torch.long, device=dev)
     greedy = {}
-    for k in (2, 9, 17, None):
+    for k in LOOP_EXITS:
         tree = enc.params if k is None else eot_at(torch, enc.params, k, eot)
         graphs = StepGraphs()
         with torch.no_grad(), graphs.lock:
@@ -1791,14 +1813,16 @@ def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
             check(int(trips) == want, f"device_loop: the recognizer's loop "
                   f"ran {int(trips)} steps, the while_loop {want} (exit {k})")
             if k is None:
-                # the loop traced against the step replayed alone, and a
-                # run whose lanes are all done before it
-                row["loop_trace"] = trace_replays(
-                    h.loop.run, dev, lambda: h.prime(encoded, prompt),
-                    rounds=3, per_round=1)
-                row["step_trace"] = trace_replays(
-                    h.advance, dev, lambda: h.prime(encoded, prompt),
-                    rounds=3, per_round=16)
+                # the loop traced against a chain of its steps and the
+                # step replayed as often, and a run whose lanes are all
+                # done before it
+                parts = trace_loop_parts(
+                    h.loop, lambda: h.prime(encoded, prompt), h.advance,
+                    int(trips), dev)
+                loop_parts_check("the recognizer's loop", parts)
+                row["loop_trace"] = parts.pop("a_loop")
+                row["step_trace"] = parts.pop("c1_step")
+                row["parts"] = parts
                 row["step_span_in_loop_ms"] = (
                     row["loop_trace"]["span_ms"] / max(int(trips), 1))
                 h.done.fill_(True)
@@ -1891,7 +1915,7 @@ def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
     text = torch.zeros((FLAGSHIP_BATCH, 32), dtype=torch.long, device=dev)
     emo = torch.zeros((FLAGSHIP_BATCH,), dtype=torch.long, device=dev)
     ar = {}
-    for k in (2, 9, 17, None):
+    for k in LOOP_EXITS:
         tree = stop_at(torch, tts_params, tcfg, k)
         graphs = StepGraphs()
         kw = dict(max_groups=RECEIVE_GROUPS, text_vocab=vocab,
@@ -1931,16 +1955,22 @@ def device_loop(torch, kernels, asr_params, fcfg, tcfg, tts_params) -> dict:
             with graphs.lock:
                 h.prefill(text, emo)
                 saved = [t_.clone() for t_ in (h.prev, h.done)]
-                row["loop_trace"] = trace_replays(h.loop.run, dev, rewind,
-                                                  rounds=3, per_round=1)
 
                 def rewind_step():
                     rewind()
                     h.steps = 0
 
-                row["step_trace"] = trace_replays(h.advance, dev,
-                                                  rewind_step, rounds=3,
-                                                  per_round=16)
+                parts = trace_loop_parts(h.loop, rewind_step, h.advance,
+                                         int(trips), dev)
+                loop_parts_check("the AR loop", parts)
+                row["loop_trace"] = parts.pop("a_loop")
+                row["step_trace"] = parts.pop("c1_step")
+                row["parts"] = parts
+                rewind()
+                h.done.fill_(True)
+                h.loop.run()
+                check(int(h.loop.trips) == 0, "device_loop: an AR loop whose "
+                      "lanes were all done ran a step")
             row["step_span_in_loop_ms"] = (row["loop_trace"]["span_ms"]
                                            / max(int(trips), 1))
         ar["never" if k is None else str(k)] = row

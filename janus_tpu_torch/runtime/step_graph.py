@@ -16,18 +16,19 @@ counterpart of this module: ``jit`` plays its role there.
   replayed per call; on the CPU it runs the step eagerly (the same ops
   over the same static buffers), which is how the tests hold the
   device-position step to the eager loop.
-- :class:`LoopGraph`: the ``while_loop`` itself. The step's graph cloned
-  into the body of a WHILE conditional node (CUDA 12.4+), the loop's
-  condition, ``(trips < limit) & ~all(done)``, computed on the card by the
-  port's kernel (``csrc/loop_graph.cu``) before the node and after each
-  body, which also counts the trips in a device counter. One launch runs
-  the loop and nothing is read back, whatever its exit. On the CPU the
-  same loop runs eagerly, the condition read before each body. A
-  synthesis puts its prefill before the node and its vocoder after it,
-  each a captured graph cloned into the loop's: one launch a synthesis.
+- :class:`LoopGraph`: the ``while_loop`` itself. The step's nodes and
+  edges copied into the body of a WHILE conditional node (CUDA 12.4+),
+  the loop's condition, ``(trips < limit) & ~all(done)``, computed on the
+  card by the port's kernel (``csrc/loop_graph.cu``) before the node and
+  after each body, which also counts the trips in a device counter. One
+  launch runs the loop and nothing is read back, whatever its exit. On
+  the CPU the same loop runs eagerly, the condition read before each
+  body. A synthesis puts its prefill before the node and its vocoder
+  after it, each a captured graph copied into the loop's: one launch a
+  synthesis.
 - :class:`StepChain`: the JAX package's ``lax.scan`` of ``n`` steps (the
   stream's chunk), which runs every step whatever ``done`` says: the step's
-  graph ``n`` times in sequence, one launch a chunk.
+  nodes ``n`` times in sequence, one launch a chunk.
 - :class:`StepGraphs`: the graphs of one caller (an encoder, a
   synthesizer) by key, with one memory pool, one capture stream and one
   lock, for one parameter tree at a time: a graph holds its weights'
@@ -72,6 +73,7 @@ import torch
 from janus_tpu_torch.ops.cuda_build import KERNELS, Kernel
 from janus_tpu_torch.ops.loop_graph import KERNEL as LOOP_KERNEL
 from janus_tpu_torch.ops.loop_graph import (ChainGraph, WhileGraph,
+                                            graph_census,
                                             loop_condition_plain)
 from janus_tpu_torch.parallel.collectives import current_mesh, mesh_shape
 
@@ -188,6 +190,12 @@ class StepGraph:
             raise RuntimeError("no kept CUDA graph: capture with keep=True")
         return self._graph.raw_cuda_graph()
 
+    def census(self) -> Optional[dict]:
+        """The kept graph's nodes and edges (:func:`~janus_tpu_torch.ops.
+        loop_graph.graph_census`); None on the CPU."""
+        return None if self._graph is None else graph_census(
+            self.raw_graph())
+
     def replay(self) -> None:
         if self._graph is None:
             self.step()
@@ -200,9 +208,9 @@ class StepGraph:
 class LoopGraph:
     """The loop ``while trips < limit and any(~done): step(); trips += 1``
     with its test on the card: ``step``'s graph (a :class:`StepGraph`
-    captured with ``keep=True``) cloned into the body of a WHILE
-    conditional node, and the condition, counting the trips, computed by
-    the port's kernel before the node and after each body
+    captured with ``keep=True``), its nodes and edges copied into the body
+    of a WHILE conditional node, and the condition, counting the trips,
+    computed by the port's kernel before the node and after each body
     (:class:`~janus_tpu_torch.ops.loop_graph.WhileGraph`). One launch runs
     the loop, whatever its exit; nothing is read back. On the CPU
     :meth:`run` is the same loop run eagerly, the condition
@@ -272,6 +280,10 @@ class LoopGraph:
         self.runs += 1
         return self.trips.clone()
 
+    def census(self) -> Optional[dict]:
+        """The loop's WHILE body's nodes and edges; None on the CPU."""
+        return None if self._graph is None else self._graph.census()
+
     def account(self, trips: int) -> None:
         """A run's ``trips`` as read back: its kernels' launches."""
         trips = int(trips)
@@ -303,10 +315,10 @@ class LoopGraph:
 class StepChain:
     """``n`` steps in sequence, whatever ``done`` says (the JAX package's
     ``lax.scan`` over a chunk): ``step``'s graph (a :class:`StepGraph`
-    captured with ``keep=True``) cloned ``n`` times into one executable
-    graph (:class:`~janus_tpu_torch.ops.loop_graph.ChainGraph`), one launch
-    a run; on the CPU the step ``n`` times eagerly. Each run on the card
-    adds the step's counts ``n`` times."""
+    captured with ``keep=True``), its nodes and edges copied ``n`` times
+    into one executable graph (:class:`~janus_tpu_torch.ops.loop_graph.
+    ChainGraph`), one launch a run; on the CPU the step ``n`` times
+    eagerly. Each run on the card adds the step's counts ``n`` times."""
 
     def __init__(self, step: StepGraph, n: int):
         self.step_graph, self.n = step, n
@@ -318,6 +330,10 @@ class StepChain:
             t0 = time.perf_counter()
             self._graph = ChainGraph(step.raw_graph(), n)
             self.build_ms = 1e3 * (time.perf_counter() - t0)
+
+    def census(self) -> Optional[dict]:
+        """The chain's nodes and edges; None on the CPU."""
+        return None if self._graph is None else self._graph.census()
 
     def run(self) -> None:
         if self._graph is None:

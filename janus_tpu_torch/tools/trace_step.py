@@ -19,10 +19,12 @@ holder rewound before each round) of a round's time over its replays.
 :func:`trace_front` does the same for the front an encoder replays
 before its greedy loop (:class:`~janus_tpu_torch.runtime.codec.
 EncodeGraph`: the frontend, the encoder, the cross K/V and the prefill);
-:func:`trace_ar_loop` and :func:`trace_greedy_loop` trace one launch of a
-decode loop's graph (:class:`~janus_tpu_torch.runtime.step_graph.
-LoopGraph`: the WHILE node around the captured step, its condition tested
-on the card), the holder rewound to the end of its prefill before each;
+:func:`trace_ar_loop` and :func:`trace_greedy_loop` split what a decode
+loop's graph (:class:`~janus_tpu_torch.runtime.step_graph.LoopGraph`: the
+WHILE node whose body holds the captured step's nodes, its condition
+tested on the card) costs around its step (:func:`trace_loop_parts`: the
+loop, a chain of its steps, the step replayed as often, the step at its
+first position), the holder rewound to the end of its prefill before each;
 :func:`trace_receive` the receive side's other captures (the AR prefill,
 the synthesis tail, one emission of the stream) of
 :class:`~janus_tpu_torch.runtime.synthesizer.SynthGraph` and
@@ -32,10 +34,10 @@ the synthesis tail, one emission of the stream) of
 Usage: ``python -m janus_tpu_torch.tools.trace_step [--batch 8 1]
 [--groups 256] [--front SECONDS] [--loop] [--receive] [--out
 trace.json]``; prints one JSON line a batch (the full table goes to
-``--out`` where given): the AR step, or with ``--loop`` the whole AR loop;
-with ``--front`` the recognizer's front, or with ``--loop`` its greedy
-loop after the front; with ``--receive`` the prefill, the synthesis tail
-and one stream emission.
+``--out`` where given): the AR step, or with ``--loop`` the AR loop's
+parts; with ``--front`` the recognizer's front, or with ``--loop`` its
+greedy loop's parts after the front; with ``--receive`` the prefill, the
+synthesis tail and one stream emission.
 Needs a card: the profiler's device events are the measurement.
 """
 
@@ -60,7 +62,8 @@ from janus_tpu_torch.models.tokenizer import ByteTokenizer
 from janus_tpu_torch.runtime.step_graph import StepGraphs
 
 __all__ = ["PRODUCT", "KINDS", "kernel_rows", "kind_of", "timeline",
-           "gaps_by_kind", "span_us", "trace_replays", "trace_ar_step",
+           "gaps_by_kind", "span_us", "launch_spans", "trace_replays",
+           "trace_loop_parts", "trace_ar_step",
            "trace_front", "trace_ar_loop", "trace_greedy_loop",
            "trace_receive", "profiler_ready", "main"]
 
@@ -84,26 +87,44 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def _kernels(trace: dict) -> List[dict]:
+# the trace's device work: kernels, and the copies and memsets a graph
+# holds as nodes of their own (inside a conditional body the card runs
+# them as kernels)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _kernels(trace: dict, cats=("kernel",)) -> List[dict]:
     return [e for e in trace.get("traceEvents", [])
-            if e.get("cat") == "kernel"]
+            if e.get("cat") in cats]
 
 
 def timeline(trace: dict) -> List[dict]:
-    """The device kernels of a Chrome trace in order of start: ``{name,
-    kind, start_us, end_us, gap_us}``, times from the first kernel's
-    start, the gap from the end of the kernel before (none for the
-    first)."""
-    events = sorted(_kernels(trace), key=lambda e: float(e["ts"]))
+    """The device work of a Chrome trace (kernels, copies, memsets) in
+    order of start: ``{name, kind, launch, start_us, end_us, gap_us}``,
+    times from the first event's start, the gap from the end of the event
+    before (none for the first); ``launch`` is the host call that enqueued
+    it (the profiler's correlation id: one a graph launch)."""
+    events = sorted(_kernels(trace, DEVICE_CATS),
+                    key=lambda e: float(e["ts"]))
     rows: List[dict] = []
     t0 = float(events[0]["ts"]) if events else 0.0
     for e in events:
         start = float(e["ts"]) - t0
         end = start + float(e.get("dur", 0.0))
         rows.append({"name": e["name"][:120], "kind": kind_of(e["name"]),
+                     "launch": e.get("args", {}).get("correlation"),
                      "start_us": start, "end_us": end,
                      "gap_us": start - rows[-1]["end_us"] if rows else None})
     return rows
+
+
+def launch_spans(rows: List[dict]) -> List[float]:
+    """:func:`span_us` of each host launch's device work (rows grouped by
+    ``launch``), in order of their first start."""
+    groups: Dict[object, List[dict]] = {}
+    for row in rows:
+        groups.setdefault(row["launch"], []).append(row)
+    return [span_us(g) for g in groups.values()]
 
 
 def gaps_by_kind(rows: List[dict]) -> Dict[str, dict]:
@@ -171,13 +192,17 @@ def profiler_ready(device: torch.device) -> None:
 def trace_replays(replay: Callable[[], None], device: torch.device,
                   rewind: Callable[[], None] = lambda: None,
                   rounds: int = 9, per_round: int = 16,
-                  out: Optional[str] = None) -> dict:
+                  out: Optional[str] = None,
+                  timeline_rows: Optional[int] = None) -> dict:
     """``replay()`` (one replay of a captured graph) timed bare and then
     traced once: ``wall_ms`` is the median over ``rounds`` of a round's
     time over its ``per_round`` replays (``rewind()`` before each round
     and before the traced replay), then every kernel of the traced replay
     with its grid and block, the products summed apart, the timeline's
-    gaps by kind, and the device's span."""
+    gaps by kind, the device's span, and the spans of the host launches
+    the replay made, summed (``launch_span_sum_ms``). ``out`` receives the
+    record, the rows and the timeline (its first ``timeline_rows``
+    events, where given)."""
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
@@ -205,12 +230,16 @@ def trace_replays(replay: Callable[[], None], device: torch.device,
             trace = json.load(f)
     rows, steps = kernel_rows(trace), timeline(trace)
     products = [r for r in rows if PRODUCT.search(r["name"])]
+    spans = launch_spans(steps)
     record = {
         "device": torch.cuda.get_device_name(device),
         "wall_ms": sorted(walls)[len(walls) // 2],
         "kernels": sum(r["count"] for r in rows),
+        "copies": len(steps) - sum(r["count"] for r in rows),
         "busy_ms": sum(r["total_us"] for r in rows) / 1e3,
         "span_ms": span_us(steps) / 1e3,
+        "launches": len(spans),
+        "launch_span_sum_ms": sum(spans) / 1e3,
         "first_to_last_ms": (steps[-1]["end_us"] / 1e3 if steps else 0.0),
         "gaps_ms": sum(r["gap_us"] for r in steps[1:]) / 1e3,
         "by_kind_pair": gaps_by_kind(steps),
@@ -221,9 +250,76 @@ def trace_replays(replay: Callable[[], None], device: torch.device,
     }
     if out:
         with open(out, "w") as f:
-            json.dump({**record, "rows": rows, "timeline": steps}, f,
-                      indent=1)
+            json.dump({**record, "rows": rows,
+                       "timeline": steps[:timeline_rows]}, f, indent=1)
     return record
+
+
+@torch.no_grad()
+def trace_loop_parts(loop, rewind: Callable[[], None],
+                     advance: Callable[[], None], trips: int,
+                     device: torch.device, out: Optional[str] = None
+                     ) -> dict:
+    """What a decode loop costs around its step, each run from the same
+    state (``rewind()``) and traced: (a) one launch of ``loop`` (a
+    :class:`~janus_tpu_torch.runtime.step_graph.LoopGraph` that runs
+    ``trips`` bodies from that state); (b) one launch of a
+    :class:`~janus_tpu_torch.runtime.step_graph.StepChain` of ``trips``
+    steps (the same nodes, no condition); (c) the step replayed ``trips``
+    times in a row (``advance()``), the spans of its replays summed, so
+    that its positions match (a)'s and (b)'s; (c1) the step replayed once
+    at the first position. Per body: ``while_ms`` = (a - b) / trips (the
+    WHILE node and its condition), ``boundary_ms`` = (b - c) / trips (the
+    step inside another graph against the step's own), ``growth_ms`` = c /
+    trips - c1 (the later positions' longer caches: no loss). Beside them
+    the norm -> mixed linear gaps of (a) and (c), the census of the step's
+    graph, of the loop's body and of the chain (nodes, edges, programmatic
+    edges), and the builds' ms."""
+    from janus_tpu_torch.runtime.step_graph import StepChain
+
+    def path(name):
+        if not out:
+            return None
+        stem, ext = os.path.splitext(out)
+        return f"{stem}_{name}{ext or '.json'}"
+
+    def replays():
+        for _ in range(trips):
+            advance()
+
+    chain = StepChain(loop.step_graph, trips)
+    parts = {
+        "a_loop": trace_replays(loop.run, device, rewind, rounds=3,
+                                per_round=1, out=path("a_loop"),
+                                timeline_rows=1500),
+        "b_chain": trace_replays(chain.run, device, rewind, rounds=3,
+                                 per_round=1, out=path("b_chain"),
+                                 timeline_rows=1500),
+        "c_replays": trace_replays(replays, device, rewind, rounds=3,
+                                   per_round=1, out=path("c_replays"),
+                                   timeline_rows=1500),
+        "c1_step": trace_replays(advance, device, rewind, rounds=3,
+                                 per_round=16, out=path("c1_step")),
+    }
+    n = max(trips, 1)
+    a, b = parts["a_loop"]["span_ms"], parts["b_chain"]["span_ms"]
+    c = parts["c_replays"]["launch_span_sum_ms"]
+    c1 = parts["c1_step"]["span_ms"]
+
+    def gap(name):
+        pair = parts[name]["by_kind_pair"].get("mixed linear after norm")
+        return None if pair is None else pair["mean_gap_us"]
+
+    return {"trips": trips, **parts,
+            "per_body_ms": {"a_loop": a / n, "b_chain": b / n,
+                            "c_replays": c / n, "c1_step": c1},
+            "while_ms": (a - b) / n, "boundary_ms": (b - c) / n,
+            "growth_ms": c / n - c1,
+            "norm_to_mixed_gap_us": {"a_loop": gap("a_loop"),
+                                     "c_replays": gap("c_replays")},
+            "census": {"step": loop.step_graph.census(),
+                       "body": loop.census(), "chain": chain.census()},
+            "build_ms": {"loop": loop.build_ms, "chain": chain.build_ms}}
 
 
 @torch.no_grad()
@@ -299,12 +395,12 @@ def trace_ar_loop(batch: int, groups: int = 256, prompt: int = 32,
             holder.done.copy_(saved[1])
             holder.group.zero_()
             holder.loop.trips.zero_()
+            holder.steps = 0
 
-        record = trace_replays(holder.loop.run, dev, rewind, rounds=3,
-                               per_round=1, out=out)
-        trips = int(holder.loop.trips)
-    return {"batch": batch, "groups": groups, "prompt": prompt,
-            "trips": trips, **record}
+        holder.loop.run()
+        record = trace_loop_parts(holder.loop, rewind, holder.advance,
+                                  int(holder.loop.trips), dev, out)
+    return {"batch": batch, "groups": groups, "prompt": prompt, **record}
 
 
 @torch.no_grad()
@@ -317,11 +413,18 @@ def trace_greedy_loop(encoder, bucket: int, batch: int,
     graphs after :func:`profiler_ready`."""
     with encoder._graphs.lock:
         holder = encoder.encode_graph(bucket, batch)
-        record = trace_replays(holder.greedy.loop.run, encoder.device,
-                               holder.graph.replay, rounds=3, per_round=1,
-                               out=out)
-        trips = int(holder.greedy.loop.trips)
-    return {"bucket": bucket, "batch": batch, "trips": trips, **record}
+        greedy = holder.greedy
+
+        def rewind():
+            holder.graph.replay()
+            greedy.fill = greedy.prompt_len
+
+        rewind()
+        greedy.loop.run()
+        record = trace_loop_parts(greedy.loop, rewind, greedy.advance,
+                                  int(greedy.loop.trips), encoder.device,
+                                  out)
+    return {"bucket": bucket, "batch": batch, **record}
 
 
 @torch.no_grad()

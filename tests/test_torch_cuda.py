@@ -1178,8 +1178,10 @@ def test_loop_condition_kernel_equals_plain(dev):
     """The loop's condition kernel alone: the trip count and
     ``(trips < limit) & any(~done)`` as the plain version gives them, at
     one to 64 lanes (two strides of the warp), done or live in any lane,
-    at and past the limit; a trivial step's loop graph runs exactly the
-    eager loop's trips, and one that finds every lane done runs none."""
+    at and past the limit; a trivial step's loop graph (its body the
+    step's own nodes) runs exactly the eager loop's trips at the exits
+    the decode loops are held to, and one that finds every lane done runs
+    none."""
     from janus_tpu_torch.ops.loop_graph import (loop_condition,
                                                 loop_condition_plain)
     from janus_tpu_torch.runtime.step_graph import LoopGraph, StepGraph
@@ -1204,12 +1206,65 @@ def test_loop_condition_kernel_equals_plain(dev):
         torch.logical_or(done, x >= stop, out=done)
 
     loop = LoopGraph(StepGraph(step, dev, keep=True), done, 23)
-    for k in (0, 1, 2, 9, 17, 23, 100):
+    for k in (0, 1, 2, 7, 8, 9, 17, 23, 100):
         stop.fill_(k)
         x.zero_()
         done.fill_(k == 0)
         loop.trips.zero_()
         assert int(loop.run()) == int(x) == min(k, 23)
+
+
+def test_loop_body_keeps_the_steps_programmatic_edges(dev):
+    """The AR step under bf16 weights runs its linears on the mixed linear,
+    launched programmatically: its captured graph holds programmatic edges,
+    and the loop's body (the step's nodes copied, then the condition) and
+    a chain of ``n`` steps hold each of them once a copy, beside every
+    other edge and node of the step; no child graph node."""
+    from janus_tpu_torch.common.config import TTSConfig
+    from janus_tpu_torch.models.params import cast_floating
+    from janus_tpu_torch.models.tts import ar_graph, init_tts
+    from janus_tpu_torch.runtime.step_graph import StepGraphs
+
+    cfg = TTSConfig(**_GRAPH_TTS, dtype="float32")
+    params = cast_floating(init_tts(torch.Generator(device=dev).manual_seed(0),
+                                    cfg), torch.bfloat16)
+    graphs = StepGraphs()
+    with graphs.lock:
+        h = ar_graph(graphs, params, cfg, 3, 11, 24, 0.5, dev)
+        step = h.graph.census()
+        body = h.loop.census()
+        chain = h.chain(5).census()
+    assert step["programmatic_edges"] > 0
+    assert body["programmatic_edges"] == step["programmatic_edges"]
+    assert chain["programmatic_edges"] == 5 * step["programmatic_edges"]
+    assert body["kernels"] == step["kernels"] + 1
+    assert body["nodes"] == step["nodes"] + 1
+    assert chain["nodes"] == 5 * step["nodes"]
+    assert body["children"] == chain["children"] == 0
+
+
+def test_a_step_the_body_refuses_raises_at_construction(dev):
+    """A step graph holding a node type a conditional body refuses (an
+    event record node: an external event recorded inside the capture)
+    raises when its loop or chain is built; it never becomes a loop of
+    another form."""
+    from janus_tpu_torch.runtime.step_graph import (LoopGraph, StepChain,
+                                                    StepGraph)
+
+    done = torch.zeros(4, dtype=torch.bool, device=dev)
+    x = torch.zeros((), dtype=torch.int32, device=dev)
+    event = torch.cuda.Event(external=True)
+
+    def step():
+        x.add_(1)
+        event.record()
+        torch.logical_or(done, x >= 3, out=done)
+
+    graph = StepGraph(step, dev, keep=True)
+    with pytest.raises(RuntimeError, match="node of type 'event record'"):
+        LoopGraph(graph, done, 8)
+    with pytest.raises(RuntimeError, match="node of type 'event record'"):
+        StepChain(graph, 2)
 
 
 def test_submit_reads_nothing_back(dev):
@@ -1578,6 +1633,26 @@ def test_chunk_launch_equals_single_replays_on_the_card(dev):
     assert sorted(h.chains) == [5, 9] and h.chains[9].runs == 1
     for a, b in zip(*states):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("batch", [8, 1])
+def test_captured_synthesis_and_stream_equal_eager_on_the_card(dev, batch):
+    """One launch of a ``SynthGraph`` (the prefill's nodes, the WHILE node
+    whose body holds the step's nodes, the tail's nodes) gives ``eager=True``'s ``wav48`` and ``n48`` bit for bit at b 8
+    and 1, lanes stopping at their own steps; the captured stream (a chain
+    a chunk) gives the eager stream's chunks."""
+    syn, eager = _receive_small(dev), _receive_small(dev, eager=True)
+    for seed in (3, 4):
+        text, emo, spk = _receive_inputs(dev, batch=batch, seed=seed)
+        with syn._graphs.lock:
+            wav, n48 = (t.clone() for t in syn._synth_impl(text, emo, spk))
+        want = eager._synth_impl(text, emo, spk)
+        assert torch.equal(wav, want[0]) and torch.equal(n48, want[1])
+    got = list(syn.streamer().stream("alpha bravo charlie"))
+    ref = list(eager.streamer().stream("alpha bravo charlie"))
+    assert len(got) == len(ref) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
+    assert syn._graphs.loops("synth") and not eager._graphs.loops()
 
 
 def test_a_synthesis_reads_nothing_back_before_its_samples(dev):
