@@ -33,7 +33,11 @@
 // A synthesis runs the prompt's prefill before the loop and the vocoder
 // after it: jt_loop_create copies those two graphs too (either may be
 // null) before the head and after the WHILE node, so that one launch runs
-// the whole program, as the JAX package jits it into one.
+// the whole program, as the JAX package jits it into one. Given two
+// events, it also puts an event record node between the prefill and the
+// head and one between the WHILE node and the vocoder (none in the body),
+// so that timing events bound the launch's three parts; jt_loop_marks
+// points those nodes at other events for the next launches.
 //
 // The stream's chunk (the JAX package's lax.scan of n steps, which runs
 // every step whatever done says) is a chain: the step's nodes copied n
@@ -50,7 +54,8 @@
 // Plain C interface (ctypes): jt_loop_create builds and instantiates the
 // loop around a cudaGraph_t (the step, copied into the body),
 // jt_chain_create the chain, jt_loop_launch launches either on a stream,
-// jt_loop_destroy frees it; jt_loop_condition launches loop_condition
+// jt_loop_destroy frees it; jt_loop_marks repoints a loop's boundary
+// event nodes; jt_loop_condition launches loop_condition
 // alone, outside any graph, writing the value it would set (to hold it
 // against its plain version); jt_graph_census and jt_loop_census count a
 // graph's nodes and edges, programmatic edges apart.
@@ -92,6 +97,8 @@ struct Loop {
   cudaGraphExec_t exec = nullptr;
   // the WHILE node's body (owned by the node; none for a chain)
   cudaGraph_t body = nullptr;
+  // the event record nodes before the head and after the WHILE node
+  cudaGraphNode_t mark_begin = nullptr, mark_end = nullptr;
 };
 
 void destroy(Loop* loop) {
@@ -310,11 +317,15 @@ int jt_refused_node_type() { return refused_type; }
 // step: a cudaGraph_t (copied: the caller keeps its own); done: [batch]
 // bool; trips: one int32 on the device; limit >= 1, the most steps a launch
 // runs; before, after: graphs (copied; null for none) run before the head
-// and after the loop. *out receives the loop, to launch and destroy.
+// and after the loop; mark_begin, mark_end: cudaEvent_t (both or neither
+// null) recorded before the head and after the WHILE node. *out receives
+// the loop, to launch and destroy.
 int jt_loop_create(void* step, const void* done, int batch, void* trips,
-                   int limit, void* before, void* after, void** out) {
+                   int limit, void* before, void* after, void* mark_begin,
+                   void* mark_end, void** out) {
   if (step == nullptr || done == nullptr || trips == nullptr || batch < 1 ||
-      limit < 1 || out == nullptr)
+      limit < 1 || out == nullptr || (mark_begin == nullptr) !=
+      (mark_end == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   refused_type = -1;
   Loop* loop = new Loop();
@@ -331,6 +342,12 @@ int jt_loop_create(void* step, const void* done, int batch, void* trips,
   std::vector<cudaGraphNode_t> at;
   if (err == cudaSuccess && before != nullptr)
     err = copy_graph(static_cast<cudaGraph_t>(before), loop->graph, {}, &at);
+  if (err == cudaSuccess && mark_begin != nullptr) {
+    err = cudaGraphAddEventRecordNode(
+        &loop->mark_begin, loop->graph, at.empty() ? nullptr : at.data(),
+        at.size(), static_cast<cudaEvent_t>(mark_begin));
+    at = {loop->mark_begin};
+  }
   cudaGraphNode_t head = nullptr, node = nullptr, tail = nullptr;
   if (err == cudaSuccess)
     err = add_condition(&head, loop->graph, at, head_args);
@@ -348,10 +365,31 @@ int jt_loop_create(void* step, const void* done, int batch, void* trips,
   }
   if (err == cudaSuccess)
     err = add_condition(&tail, loop->body, at, tail_args);
+  std::vector<cudaGraphNode_t> loop_exit = {node};
+  if (err == cudaSuccess && mark_end != nullptr) {
+    err = cudaGraphAddEventRecordNode(&loop->mark_end, loop->graph, &node, 1,
+                                      static_cast<cudaEvent_t>(mark_end));
+    loop_exit = {loop->mark_end};
+  }
   if (err == cudaSuccess && after != nullptr)
-    err = copy_graph(static_cast<cudaGraph_t>(after), loop->graph, {node},
+    err = copy_graph(static_cast<cudaGraph_t>(after), loop->graph, loop_exit,
                      &at);
   return finish(loop, err, out);
+}
+
+// the loop's boundary event record nodes (a loop made with marks) record
+// `mark_begin` and `mark_end` in the launches after this call
+int jt_loop_marks(void* loop, void* mark_begin, void* mark_end) {
+  Loop* l = static_cast<Loop*>(loop);
+  if (l == nullptr || l->mark_begin == nullptr || mark_begin == nullptr ||
+      mark_end == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaGraphExecEventRecordNodeSetEvent(
+      l->exec, l->mark_begin, static_cast<cudaEvent_t>(mark_begin));
+  if (err == cudaSuccess)
+    err = cudaGraphExecEventRecordNodeSetEvent(
+        l->exec, l->mark_end, static_cast<cudaEvent_t>(mark_end));
+  return static_cast<int>(err);
 }
 
 // step: a cudaGraph_t (copied n times: the caller keeps its own); n >= 1.

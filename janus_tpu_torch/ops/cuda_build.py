@@ -8,7 +8,9 @@ is newer. Nothing here runs at import time: :func:`library` builds at a
 kernel's first launch, :func:`build_all` builds every kernel with one
 ``nvcc`` process per source, all started together. :func:`entry` hands a
 wrapper its C function with the ``ctypes`` signature set once, when the
-function is first asked for, not at every launch.
+function is first asked for, not at every launch. Each build and each
+load is a ``setup.kernel`` span (``kernel``, ``built``) and counts in
+:attr:`Kernel.builds` or :attr:`Kernel.loads`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence
+
+from janus_tpu_torch.runtime.profiling import span
 
 __all__ = ["Kernel", "KERNELS", "library", "entry", "build_all",
            "check_launch", "BUILD_DIR", "CSRC_DIR"]
@@ -37,11 +41,15 @@ class Kernel:
     count of launches its wrapper made (a plain integer; a caller resets
     it to 0 before a run and reads it after), with the least work those
     launches needed: ``flops`` (the operations of the function computed)
-    and ``bytes`` (each input read once, each output written once)."""
+    and ``bytes`` (each input read once, each output written once);
+    ``builds`` and ``loads`` count its library's builds and loads in this
+    process."""
 
     def __init__(self, name: str, replaces: str):
         self.name = name
         self.replaces = replaces
+        self.builds = 0
+        self.loads = 0
         self.launches = 0
         self.flops = 0.0
         self.bytes = 0.0
@@ -103,20 +111,25 @@ def _start_build(k: Kernel) -> subprocess.Popen:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = k.library_path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(k.source)]
+    # builds run side by side: each span is closed, not nested
+    traced = span("setup.kernel", kernel=k.name, built=1)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.tmp_path = tmp  # type: ignore[attr-defined]
+    proc.traced = traced  # type: ignore[attr-defined]
     return proc
 
 
 def _finish_build(k: Kernel, proc: subprocess.Popen) -> None:
     out, _ = proc.communicate()
+    proc.traced.close()  # type: ignore[attr-defined]
     tmp = proc.tmp_path  # type: ignore[attr-defined]
     if proc.returncode != 0:
         if tmp.exists():
             tmp.unlink()
         raise RuntimeError(f"nvcc failed for {k.source}:\n{out}")
     os.replace(tmp, k.library_path)
+    k.builds += 1
 
 
 def build_all() -> float:
@@ -140,7 +153,9 @@ def library(k: Kernel) -> ctypes.CDLL:
     if k._lib is None:
         if k.stale():
             _finish_build(k, _start_build(k))
-        lib = ctypes.CDLL(str(k.library_path))
+        with span("setup.kernel", kernel=k.name, built=0):
+            lib = ctypes.CDLL(str(k.library_path))
+        k.loads += 1
         lib.jt_error_string.argtypes = [ctypes.c_int]
         lib.jt_error_string.restype = ctypes.c_char_p
         k._lib = lib

@@ -10,7 +10,9 @@ programmatic edges kept) and then ``loop_condition``, one warp that counts
 the trip and sets the node's handle to that condition; the same kernel
 before the node sets it for the first test. One launch runs the loop, and
 the host reads nothing back (:class:`WhileGraph`). A synthesis adds its
-prefill before the loop and its vocoder after it, in the same graph. The
+prefill before the loop and its vocoder after it, in the same graph, and
+an event record node at each boundary of the WHILE part (outside its
+body), which a traced launch points at its own timing events. The
 stream's chunk, a ``lax.scan`` of ``n`` steps that runs each step whatever
 ``done`` says (``janus_tpu/models/tts.py:451-484``), is the step's nodes
 ``n`` times in sequence (:class:`ChainGraph`).
@@ -37,8 +39,9 @@ __all__ = ["KERNEL", "WhileGraph", "ChainGraph", "loop_condition",
 
 KERNEL = cuda_build.KERNELS["loop_graph"]
 _CREATE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-           ctypes.POINTER(ctypes.c_void_p)]
+           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+           ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+_MARKS = [ctypes.c_void_p] * 3
 _CHAIN = [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
 _CENSUS_ARGS = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
 # what a census counts, in the order of csrc/loop_graph.cu's out[8]
@@ -142,8 +145,10 @@ class WhileGraph(_Executable):
     copied) run before the loop's first test and after its exit.
     :meth:`launch` enqueues the whole graph on the current stream; the
     caller (or ``before``) zeroes ``trips`` and sets ``done`` before the
-    first test. Refused graphs (a CUDA without conditional nodes, a node
-    type a conditional body refuses) raise."""
+    first test. With ``before`` or ``after`` an event record node follows
+    ``before`` and one the WHILE node, recording the loop's own two events
+    until :meth:`mark` points them elsewhere. Refused graphs (a CUDA without
+    conditional nodes, a node type a conditional body refuses) raise."""
 
     def __init__(self, step_graph: int, done: torch.Tensor,
                  trips: torch.Tensor, limit: int,
@@ -152,12 +157,35 @@ class WhileGraph(_Executable):
                 or trips.dtype != torch.int32 or trips.numel() != 1:
             raise TypeError("WhileGraph takes a contiguous done [B] bool and "
                             "one int32 trip count")
+        self._own_marks = self._marks = None
+        a = b = None
+        if before is not None or after is not None:
+            # an event exists once recorded: the nodes need two that do
+            self._own_marks = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+            for ev in self._own_marks:
+                ev.record()
+            self._marks = self._own_marks
+            a, b = (ev.cuda_event for ev in self._own_marks)
         out = ctypes.c_void_p()
         fn = cuda_build.entry(KERNEL, "jt_loop_create", _CREATE)
         _check_build(fn(step_graph, done.data_ptr(), done.numel(),
-                        trips.data_ptr(), limit, before, after,
+                        trips.data_ptr(), limit, before, after, a, b,
                         ctypes.byref(out)))
         self._own(out.value)
+
+    def mark(self, events) -> None:
+        """Point the boundary nodes at ``events`` (two CUDA events, each
+        recorded at least once) for the next launches, or with None back
+        at the graph's own (a graph with neither ``before`` nor ``after``:
+        nothing)."""
+        events = tuple(events) if events is not None else self._own_marks
+        if self._own_marks is None or events == self._marks:
+            return
+        cuda_build.check_launch(KERNEL, cuda_build.entry(
+            KERNEL, "jt_loop_marks", _MARKS)(
+                self._handle, events[0].cuda_event, events[1].cuda_event))
+        self._marks = events
 
 
 class ChainGraph(_Executable):

@@ -54,6 +54,7 @@ from janus_tpu_torch.parallel.collectives import (all_gather, axis_index,
                                                   axis_size, use_mesh)
 from janus_tpu_torch.parallel.sharding import (ASR_PARTITION_RULES,
                                                shard_params)
+from janus_tpu_torch.runtime.profiling import span
 from janus_tpu_torch.runtime.step_graph import (StepGraph, StepGraphs,
                                                 use_graphs)
 
@@ -67,19 +68,23 @@ class PendingEncode:
     waits, fetches and decodes (idempotent). Where the greedy loop ran as
     a captured loop, ``loop`` is its :class:`~janus_tpu_torch.runtime.
     step_graph.LoopGraph` and ``trips`` the run's count on the device,
-    read back after the tokens and accounted there."""
+    read back after the tokens and accounted there. ``request`` is the
+    submit's request id, which the harvest's span carries; ``loop_span``
+    the span of the loop's launch, whose ``trips`` the harvest sets."""
 
     __slots__ = ("_encoder", "_arrays", "_b_real", "_event", "_out",
-                 "_loop", "_trips")
+                 "_loop", "_trips", "_request", "_loop_span")
 
     def __init__(self, encoder, arrays, b_real: int, event=None, loop=None,
-                 trips=None):
+                 trips=None, request=None, loop_span=None):
         self._encoder = encoder
         self._arrays = arrays
         self._b_real = b_real
         self._event = event
         self._loop = loop
         self._trips = trips
+        self._request = request
+        self._loop_span = loop_span
         self._out = None
 
     @classmethod
@@ -95,13 +100,19 @@ class PendingEncode:
 
     def result(self) -> list:
         if self._out is None:
-            self._out = self._encoder._finalize(self._arrays, self._b_real)
-            if self._loop is not None:
-                # the loop's bodies that ran (the tokens' read waited)
-                self._loop.account(int(self._trips))
+            with span("encode.harvest", request=self._request,
+                      batch=self._b_real):
+                self._out = self._encoder._finalize(self._arrays,
+                                                    self._b_real)
+                if self._loop is not None:
+                    # the loop's bodies that ran (the tokens' read waited)
+                    trips = int(self._trips)
+                    self._loop.account(trips)
+                    if self._loop_span is not None:
+                        self._loop_span.set(trips=trips)
             self._arrays = None
             self._event = None
-            self._loop = self._trips = None
+            self._loop = self._trips = self._loop_span = None
         return self._out
 
 
@@ -219,6 +230,7 @@ class EncodeGraph:
         self.uploads = 0
         self.upload_waits = 0  # uploads that found their twin still read
         self.trips = None      # the last run's loop trips (a device copy)
+        self.loop_span = None  # the last run's loop span (its trips unset)
         self.enc = torch.zeros((batch, self.n_frames // 2, acfg.d_model),
                                dtype=compute_dtype, device=device)
         self.energy_code = torch.zeros((batch,), dtype=torch.int32,
@@ -246,21 +258,26 @@ class EncodeGraph:
         front, one run of the greedy loop; nothing read back. Returns
         (tokens, energy_code, pitch_code, f0, rms), copies of the static
         outputs that the next call may overwrite; the loop's trips, a copy
-        too, are :attr:`trips`. Call with the graphs' lock held."""
-        host_audio, host_n_valid, uploaded = self.twins[
-            self.uploads % len(self.twins)]
-        self.uploads += 1
-        if uploaded is not None and not uploaded.query():
-            self.upload_waits += 1
-            uploaded.synchronize()
-        host_audio.numpy()[...] = audio
-        host_n_valid.numpy()[...] = n_valid
-        self.audio.copy_(host_audio, non_blocking=True)
-        self.n_valid.copy_(host_n_valid, non_blocking=True)
-        if uploaded is not None:
-            uploaded.record()
-        self.graph.replay()
-        tokens, self.trips = self.greedy.run_loop()
+        too, are :attr:`trips`, and the loop's span :attr:`loop_span`.
+        Call with the graphs' lock held."""
+        with span("encode.upload"):
+            host_audio, host_n_valid, uploaded = self.twins[
+                self.uploads % len(self.twins)]
+            self.uploads += 1
+            if uploaded is not None and not uploaded.query():
+                self.upload_waits += 1
+                uploaded.synchronize()
+            host_audio.numpy()[...] = audio
+            host_n_valid.numpy()[...] = n_valid
+            self.audio.copy_(host_audio, non_blocking=True)
+            self.n_valid.copy_(host_n_valid, non_blocking=True)
+            if uploaded is not None:
+                uploaded.record()
+        with span("encode.front", device=self.audio.device):
+            self.graph.replay()
+        with span("encode.loop", device=self.audio.device) as loop_span:
+            tokens, self.trips = self.greedy.run_loop()
+        self.loop_span = loop_span
         return (tokens,) + tuple(t.clone() for t in (
             self.energy_code, self.pitch_code, self.f0, self.rms))
 
@@ -344,16 +361,18 @@ class SemanticEncoder:
         acfg = self.cfg.asr
         sp_mesh = self.mesh if axis_size(self.mesh, "seq") > 1 else None
         with use_mesh(self.mesh):
-            enc, *prosody = encode_front(
-                self.params, self.cfg, self._compute_dtype, audio_48k,
-                n_valid, n_16k_frames, sp_mesh=sp_mesh)
+            with span("encode.front", device=audio_48k.device):
+                enc, *prosody = encode_front(
+                    self.params, self.cfg, self._compute_dtype, audio_48k,
+                    n_valid, n_16k_frames, sp_mesh=sp_mesh)
             prompt = self._prompt(enc.device).expand(audio_48k.shape[0], -1)
-            tokens = asr_mod.greedy_decode(
-                self.params, acfg, enc, prompt, self.tokenizer.eot,
-                max_new=acfg.max_decode_tokens,
-                cache_dtype=self._compute_dtype,
-                cross_kv_int8=acfg.decode_cross_kv_int8, eager=self.eager,
-                graphs=self._graphs)
+            with span("encode.loop", device=audio_48k.device):
+                tokens = asr_mod.greedy_decode(
+                    self.params, acfg, enc, prompt, self.tokenizer.eot,
+                    max_new=acfg.max_decode_tokens,
+                    cache_dtype=self._compute_dtype,
+                    cross_kv_int8=acfg.decode_cross_kv_int8,
+                    eager=self.eager, graphs=self._graphs)
         out = (tokens, *prosody)
         if data > 1:
             out = tuple(all_gather(a, self.mesh, "data") for a in out)
@@ -416,57 +435,70 @@ class SemanticEncoder:
         if any(len(p) > max_bucket for p in phrases):
             return PendingEncode.done(
                 self._encode_with_splitting(phrases, max_bucket))
-        bucket = duration_bucket(max(len(p) for p in phrases), self.buckets)
-        b_real = len(phrases)
-        b_pad = 1 << (b_real - 1).bit_length()  # next power of two
-        data = axis_size(self.mesh, "data")
-        # lanes tile the data dimension (one phrase through data=4 still
-        # ships 4 lanes, 3 of them zero audio)
-        b_pad = max(b_pad, data)
-        b_pad += (-b_pad) % data
-        batch = np.zeros((b_pad, bucket), dtype=np.float32)
-        n_valid = np.zeros((b_pad,), dtype=np.int64)
-        for i, p in enumerate(phrases):
-            p = np.asarray(p, dtype=np.float32)[:bucket]
-            batch[i, :len(p)] = p
-            n_valid[i] = len(p)
-        if self.cfg.runtime.encode_transfer_ulaw:
-            batch = ulaw_encode(batch)
-        elif self.cfg.runtime.encode_transfer_int16:
-            batch = np.clip(np.round(batch * 32768.0),
-                            -32768, 32767).astype(np.int16)
-        loop = trips = None
+        with span("encode.submit", batch=len(phrases)) as submit:
+            return self._submit(phrases, submit)
+
+    def _submit(self, phrases: Sequence[np.ndarray], submit) -> PendingEncode:
+        with span("encode.pad"):
+            bucket = duration_bucket(max(len(p) for p in phrases),
+                                     self.buckets)
+            b_real = len(phrases)
+            b_pad = 1 << (b_real - 1).bit_length()  # next power of two
+            data = axis_size(self.mesh, "data")
+            # lanes tile the data dimension (one phrase through data=4
+            # still ships 4 lanes, 3 of them zero audio)
+            b_pad = max(b_pad, data)
+            b_pad += (-b_pad) % data
+            batch = np.zeros((b_pad, bucket), dtype=np.float32)
+            n_valid = np.zeros((b_pad,), dtype=np.int64)
+            for i, p in enumerate(phrases):
+                p = np.asarray(p, dtype=np.float32)[:bucket]
+                batch[i, :len(p)] = p
+                n_valid[i] = len(p)
+            if self.cfg.runtime.encode_transfer_ulaw:
+                batch = ulaw_encode(batch)
+            elif self.cfg.runtime.encode_transfer_int16:
+                batch = np.clip(np.round(batch * 32768.0),
+                                -32768, 32767).astype(np.int16)
+        submit.set(bucket=bucket)
+        loop = trips = loop_span = None
         if self._graphed():
             with torch.no_grad(), use_mesh(self.mesh), self._graphs.lock:
                 holder = self.encode_graph(bucket, b_pad)
                 arrays = holder.run(batch, n_valid)
                 loop, trips = holder.greedy.loop, holder.trips
+                loop_span = holder.loop_span
         else:
-            audio = torch.from_numpy(batch).to(self.device)
-            nv = torch.from_numpy(n_valid).to(self.device)
+            with span("encode.upload"):
+                audio = torch.from_numpy(batch).to(self.device)
+                nv = torch.from_numpy(n_valid).to(self.device)
             arrays = self._encode_impl(audio, nv,
                                        self.mel_frame_budget(bucket))
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
-        return PendingEncode(self, arrays, b_real, event, loop, trips)
+        return PendingEncode(self, arrays, b_real, event, loop, trips,
+                             submit.request, loop_span)
 
     def _finalize(self, arrays, b_real: int) -> list:
-        tokens, e_code, p_code, f0, rms = (a.cpu().numpy() for a in arrays)
-        out = []
-        for i in range(b_real):
-            ids = tokens[i]
-            cut = np.where(ids == self.tokenizer.eot)[0]
-            if cut.size:
-                ids = ids[:cut[0]]
-            out.append({
-                "text": self.tokenizer.decode(ids).strip(),
-                "prosody": {"energy": ENERGY_TAGS[int(e_code[i])],
-                            "pitch": PITCH_TAGS[int(p_code[i])]},
-                "f0": float(f0[i]),
-                "rms": float(rms[i]),
-            })
+        with span("encode.read"):
+            tokens, e_code, p_code, f0, rms = (a.cpu().numpy()
+                                               for a in arrays)
+        with span("encode.detok"):
+            out = []
+            for i in range(b_real):
+                ids = tokens[i]
+                cut = np.where(ids == self.tokenizer.eot)[0]
+                if cut.size:
+                    ids = ids[:cut[0]]
+                out.append({
+                    "text": self.tokenizer.decode(ids).strip(),
+                    "prosody": {"energy": ENERGY_TAGS[int(e_code[i])],
+                                "pitch": PITCH_TAGS[int(p_code[i])]},
+                    "f0": float(f0[i]),
+                    "rms": float(rms[i]),
+                })
         return out
 
     def _encode_with_splitting(self, phrases: Sequence[np.ndarray],
@@ -534,9 +566,10 @@ class SemanticEncoder:
         no capture happens inside a live turn (other batch sizes are
         captured at their first encode)."""
         b = bucket or self.buckets[0]
-        self.encode_batch([np.zeros(b, dtype=np.float32)])
-        if not self._graphed():
-            return
-        with torch.no_grad(), use_mesh(self.mesh), self._graphs.lock:
-            for bucket_ in self.buckets:
-                self.encode_graph(bucket_, 1)
+        with span("setup.warmup"):
+            self.encode_batch([np.zeros(b, dtype=np.float32)])
+            if not self._graphed():
+                return
+            with torch.no_grad(), use_mesh(self.mesh), self._graphs.lock:
+                for bucket_ in self.buckets:
+                    self.encode_graph(bucket_, 1)

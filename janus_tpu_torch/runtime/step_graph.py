@@ -63,7 +63,6 @@ import functools
 import gc
 import math
 import threading
-import time
 import types
 import weakref
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
@@ -76,6 +75,7 @@ from janus_tpu_torch.ops.loop_graph import (ChainGraph, WhileGraph,
                                             graph_census,
                                             loop_condition_plain)
 from janus_tpu_torch.parallel.collectives import current_mesh, mesh_shape
+from janus_tpu_torch.runtime.profiling import span
 
 __all__ = ["StepGraph", "LoopGraph", "StepChain", "StepGraphs", "use_graphs",
            "default_graphs"]
@@ -123,7 +123,8 @@ class StepGraph:
     capture up front (the ``warmup`` methods) and captures take turns.
     The warm-up launches count as launches; the capture's are recorded in
     :attr:`counts` and added to the kernels at every replay.
-    ``capture_ms`` is the warm-up and capture's wall time. A bound method
+    ``capture_ms`` is the warm-up and capture's wall time, the
+    ``setup.capture`` span's. A bound method
     ``step`` is held weakly (its object owns this graph); ``args`` are
     passed to it at every call (the capture fixes them). With ``keep``
     the captured ``cudaGraph_t`` is kept (:meth:`raw_graph`), for a
@@ -153,8 +154,7 @@ class StepGraph:
         # one capture at a time in the process: entering a capture
         # synchronises the device, which would invalidate another thread's
         # capture under way
-        with _CAPTURE_LOCK:
-            t0 = time.perf_counter()
+        with _CAPTURE_LOCK, span("setup.capture") as traced:
             stream = stream or torch.cuda.Stream(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
@@ -181,7 +181,7 @@ class StepGraph:
                                a[2] - before[k][2])
                            for k, a in after.items() if a[0] != before[k][0]}
             stream.synchronize()
-            self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        self.capture_ms = (traced.end_ns - traced.start_ns) / 1e6
         return graph
 
     def raw_graph(self) -> int:
@@ -232,7 +232,10 @@ class LoopGraph:
     same launch (a synthesis: the prefill, which zeroes ``trips`` and sets
     ``done``, and the vocoder); their counts are added once a run.
     ``trips`` is the counter of another loop over the same step, where one
-    already owns it."""
+    already owns it. With ``before`` or ``after`` the graph holds an event
+    record node after ``before`` and one after the WHILE node (outside its
+    body), which :meth:`mark` points at a traced launch's events; ``build_ms`` is the
+    ``setup.build`` span's time."""
 
     def __init__(self, step: StepGraph, done: torch.Tensor, limit: int,
                  before: Optional[StepGraph] = None,
@@ -251,15 +254,15 @@ class LoopGraph:
         self.trips_run = 0   # bodies run, as account() was told
         self.counts: Counts = step.counts
         self.build_ms = 0.0
-        self._pending: List[torch.Tensor] = []
+        self._pending: List[tuple] = []
         self._graph = None
         if self.device.type == "cuda":
-            t0 = time.perf_counter()
-            self._graph = WhileGraph(
-                step.raw_graph(), done, self.trips, limit,
-                before.raw_graph() if before is not None else None,
-                after.raw_graph() if after is not None else None)
-            self.build_ms = 1e3 * (time.perf_counter() - t0)
+            with span("setup.build", steps=limit) as traced:
+                self._graph = WhileGraph(
+                    step.raw_graph(), done, self.trips, limit,
+                    before.raw_graph() if before is not None else None,
+                    after.raw_graph() if after is not None else None)
+            self.build_ms = (traced.end_ns - traced.start_ns) / 1e6
 
     def run(self) -> torch.Tensor:
         """The loop from the holder's state (after ``before``, then
@@ -284,6 +287,12 @@ class LoopGraph:
         """The loop's WHILE body's nodes and edges; None on the CPU."""
         return None if self._graph is None else self._graph.census()
 
+    def mark(self, events: Optional[list]) -> None:
+        """Point the boundary nodes (a loop with ``before`` or ``after``) at two
+        events for the next runs, or with None back at the loop's own."""
+        if self._graph is not None:
+            self._graph.mark(events)
+
     def account(self, trips: int) -> None:
         """A run's ``trips`` as read back: its kernels' launches."""
         trips = int(trips)
@@ -298,18 +307,22 @@ class LoopGraph:
             LOOP_KERNEL.bytes += (1 + trips) * (self.done.numel() + 8.0)
         self.trips_run += trips
 
-    def defer(self, trips: torch.Tensor) -> None:
-        """Keep a run's ``trips`` copy until :meth:`settle`."""
-        self._pending.append(trips)
+    def defer(self, trips: torch.Tensor, traced=None) -> None:
+        """Keep a run's ``trips`` copy until :meth:`settle`, which sets
+        them as the ``steps`` of the run's span ``traced``."""
+        self._pending.append((trips, traced))
 
     def settle(self) -> None:
         """Read back and :meth:`account` every deferred run (a wait for the
         last of them)."""
         if self._pending:
-            runs = torch.stack(self._pending).cpu().tolist()
+            runs = torch.stack([t for t, _ in self._pending]).cpu().tolist()
+            spans = [s for _, s in self._pending]
             self._pending.clear()
-            for trips in runs:
+            for trips, traced in zip(runs, spans):
                 self.account(trips)
+                if traced is not None:
+                    traced.set(steps=int(trips))
 
 
 class StepChain:
@@ -318,7 +331,8 @@ class StepChain:
     captured with ``keep=True``), its nodes and edges copied ``n`` times
     into one executable graph (:class:`~janus_tpu_torch.ops.loop_graph.
     ChainGraph`), one launch a run; on the CPU the step ``n`` times
-    eagerly. Each run on the card adds the step's counts ``n`` times."""
+    eagerly. Each run on the card adds the step's counts ``n`` times.
+    ``build_ms`` is the ``setup.build`` span's time."""
 
     def __init__(self, step: StepGraph, n: int):
         self.step_graph, self.n = step, n
@@ -327,9 +341,9 @@ class StepChain:
         self.build_ms = 0.0
         self._graph = None
         if self.device.type == "cuda":
-            t0 = time.perf_counter()
-            self._graph = ChainGraph(step.raw_graph(), n)
-            self.build_ms = 1e3 * (time.perf_counter() - t0)
+            with span("setup.build", steps=n) as traced:
+                self._graph = ChainGraph(step.raw_graph(), n)
+            self.build_ms = (traced.end_ns - traced.start_ns) / 1e6
 
     def census(self) -> Optional[dict]:
         """The chain's nodes and edges; None on the CPU."""

@@ -50,6 +50,7 @@ from janus_tpu_torch.models import vocoder as voc_mod
 from janus_tpu_torch.models.params import tree_to
 from janus_tpu_torch.models.tokenizer import ByteTokenizer
 from janus_tpu_torch.ops.resample import resample_poly
+from janus_tpu_torch.runtime.profiling import span
 from janus_tpu_torch.runtime.step_graph import (StepGraph, StepGraphs,
                                                 use_graphs)
 from janus_tpu_torch.runtime.synthesizer import rate_ratio
@@ -262,11 +263,23 @@ class StreamingSynthesizer:
 
     # -- streaming ----------------------------------------------------------
 
-    @torch.no_grad()
     def stream(self, text: str, emotion_tag: str = "neutral",
                speaker=None) -> Iterator[np.ndarray]:
         """Yield 48 kHz float32 chunks; their concatenation is the
-        non-streaming synthesis of the same prompt."""
+        non-streaming synthesis of the same prompt. Traced as one
+        ``stream.request``: its ``stream.prefill``, and a chunk's
+        ``stream.decode`` (its ``steps``), ``stream.dones`` (the flags'
+        read), ``stream.emit`` and ``stream.read`` (the samples' read,
+        whose end is the chunk's arrival on the host)."""
+        req = span("stream.request")
+        try:
+            yield from self._stream(req, text, emotion_tag, speaker)
+        finally:
+            req.close()
+
+    @torch.no_grad()
+    def _stream(self, req, text: str, emotion_tag: str,
+                speaker) -> Iterator[np.ndarray]:
         tcfg, vcfg, dev = self.cfg.tts, self.cfg.vocoder, self.device
         r = tcfg.reduction
         max_groups = tcfg.max_mel_frames // r
@@ -283,7 +296,7 @@ class StreamingSynthesizer:
 
         graphed = self._graphed()
         lock = self._graphs.lock
-        with lock:
+        with lock, span("stream.prefill", parent=req, device=dev):
             if graphed:
                 out = self.stream_graph()
                 first, done, state = self.ar_graph(
@@ -315,12 +328,16 @@ class StreamingSynthesizer:
             # never a step past the budget: the caches hold prompt +
             # max_groups positions and a write beyond them raises (the JAX
             # package runs the full chunk and drops the surplus groups)
-            groups, dones, prev, done, state = tts_mod.tts_decode_chunk(
-                self.tts_params, tcfg, state, prev, done, lo - 1,
-                n_steps=hi - lo, stop_threshold=self.stop_threshold)
-            out.mel[0, lo * r: hi * r, :] = groups[0].reshape(-1, tcfg.n_mels)
+            with span("stream.decode", parent=req, device=dev,
+                      steps=hi - lo):
+                groups, dones, prev, done, state = tts_mod.tts_decode_chunk(
+                    self.tts_params, tcfg, state, prev, done, lo - 1,
+                    n_steps=hi - lo, stop_threshold=self.stop_threshold)
+                out.mel[0, lo * r: hi * r, :] = groups[0].reshape(
+                    -1, tcfg.n_mels)
             if not stopped:
-                d = dones[0].cpu().numpy()   # done BEFORE each group
+                with span("stream.dones", parent=req):
+                    d = dones[0].cpu().numpy()   # done BEFORE each group
                 n_valid_groups = lo + int(np.argmax(d)) if d.any() else hi
                 stopped = bool(d.any())
             groups_have = hi
@@ -344,8 +361,11 @@ class StreamingSynthesizer:
                 if emitted48 >= n48:
                     break
                 take = min(e.n, n48 - emitted48)
+                with span("stream.emit", parent=req, device=dev):
+                    pcm = out.emit(i, epoch)[:take]
                 # a copy: the static output is the next emission's
-                chunk = out.emit(i, epoch)[:take].to("cpu", copy=True).numpy()
+                with span("stream.read", parent=req):
+                    chunk = pcm.to("cpu", copy=True).numpy()
             emitted48 += len(chunk)
             if len(chunk):
                 yield chunk
@@ -365,12 +385,13 @@ class StreamingSynthesizer:
         # the last one what is left
         lengths = {min(self.chunk_groups, max_groups - lo)
                    for lo in range(1, max_groups, self.chunk_groups)} - {1}
-        with torch.no_grad(), self._graphs.lock:
+        with torch.no_grad(), self._graphs.lock, span("setup.warmup"):
             for bucket in tts_mod.text_buckets(self.cfg.tts.max_text_tokens):
                 h = self.ar_graph(bucket, speaker)
                 for n in sorted(lengths):
                     h.chain(n)
             self.stream_graph()
+
     def stream_pcm16(self, text: str, emotion_tag: str = "neutral",
                      speaker=None) -> Iterator[bytes]:
         for chunk in self.stream(text, emotion_tag, speaker=speaker):

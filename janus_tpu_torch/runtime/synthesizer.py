@@ -53,6 +53,7 @@ from janus_tpu_torch.parallel.sharding import (TTS_PARTITION_RULES,
                                                VOCODER_PARTITION_RULES,
                                                shard_params)
 from janus_tpu_torch.runtime.emotion import tts_emotion_tag
+from janus_tpu_torch.runtime.profiling import span
 from janus_tpu_torch.runtime.step_graph import (LoopGraph, StepGraph,
                                                 StepGraphs, use_graphs)
 
@@ -87,9 +88,11 @@ class SynthGraph:
     and the tail (:func:`vocode_48k` over the holder's output buffer,
     captured, writing the static ``wav48[b, T48]`` and ``n48[b]``), built
     into one :class:`~janus_tpu_torch.runtime.step_graph.LoopGraph`: the
-    prefill, the WHILE node around the step, the tail. :meth:`run` is one
-    upload and one launch; on the CPU the same functions run eagerly over
-    the same buffers. ``pool_bytes`` is what its captures added to the
+    prefill, the WHILE node around the step, the tail, with an event record
+    node at each boundary of the WHILE part (outside its body), which a
+    traced launch points at its span's events. :meth:`run` is one upload
+    and one launch; on the CPU the same functions run eagerly over the same
+    buffers. ``pool_bytes`` is what its captures added to the
     shared pool. It holds what it needs of its synthesizer, not the
     synthesizer (which owns it)."""
 
@@ -140,13 +143,22 @@ class SynthGraph:
         loop, tail); nothing read back. Returns the static ``(wav48,
         n48)``, which the next run overwrites: read them with the graphs'
         lock held. The loop's trips are deferred to :meth:`~janus_tpu_torch.
-        runtime.step_graph.StepGraphs.settle`."""
+        runtime.step_graph.StepGraphs.settle`. Traced as ``synth.launch``
+        (a device span) and its parts ``synth.prefill``, ``synth.loop``
+        (whose ``steps`` the settle sets) and ``synth.tail``."""
         self.ar.load(text_ids, emotion, speaker)
         if self.loop is None:
-            self.ar.prefill_graph.replay()
-            self.tail.replay()
+            with span("synth.launch", device=self.n48.device):
+                self.ar.prefill_graph.replay()
+                self.tail.replay()
         else:
-            self.loop.defer(self.loop.run())
+            with span("synth.launch", device=self.n48.device) as launch:
+                marks = launch.marks(2)
+                self.loop.mark(marks)
+                trips = self.loop.run()
+            _, loop_part, _ = launch.parts(
+                ("synth.prefill", "synth.loop", "synth.tail"), marks)
+            self.loop.defer(trips, loop_part)
         self.ar.begin()
         self.ar.steps = None
         return self.wav48, self.n48
@@ -297,7 +309,7 @@ class Synthesizer:
                     None if speaker is None else speaker.dtype).run(
                         text_ids, emotion, speaker)
         text_ids, emotion = (t.to(self.device) for t in (text_ids, emotion))
-        with use_mesh(self.mesh):
+        with use_mesh(self.mesh), span("synth.launch", device=self.device):
             mel, n_frames = tts_mod.tts_generate(
                 self.tts_params, self.cfg.tts, text_ids, emotion,
                 speaker=speaker, text_vocab=self.tokenizer.vocab_size,
@@ -327,15 +339,16 @@ class Synthesizer:
                   * 48_000)
         # the lock keeps the graph path's static results until they are
         # read; the inputs go up from the host (one pinned upload there)
-        with torch.no_grad(), self._graphs.lock:
-            wav, n_samples = self._synth_impl(torch.from_numpy(padded), emo,
-                                              speaker)
-            n = int(n_samples[0])
-            pcm = wav[0, : max(min(n, cap), 0)].cpu().numpy()
-        # the AR loop's bodies that ran (read after the samples)
-        self._graphs.settle()
-        pcm = np.clip(pcm, -1.0, 1.0)
-        return (pcm * 32767.0).astype(np.int16).tobytes()
+        with span("synth.request"):
+            with torch.no_grad(), self._graphs.lock:
+                wav, n_samples = self._synth_impl(torch.from_numpy(padded),
+                                                  emo, speaker)
+                n = int(n_samples[0])
+                pcm = wav[0, : max(min(n, cap), 0)].cpu().numpy()
+            # the AR loop's bodies that ran (read after the samples)
+            self._graphs.settle()
+            pcm = np.clip(pcm, -1.0, 1.0)
+            return (pcm * 32767.0).astype(np.int16).tobytes()
 
     def _resolve_emotion(self, packet: JanusPacket) -> str:
         if packet.override_emotion and packet.override_emotion != "Auto":
@@ -406,7 +419,8 @@ class Synthesizer:
             return
         speaker = self._speaker_arg()
         spk = None if speaker is None else speaker.dtype
-        with torch.no_grad(), use_mesh(self.mesh), self._graphs.lock:
+        with torch.no_grad(), use_mesh(self.mesh), self._graphs.lock, \
+                span("setup.warmup"):
             for bucket in tts_mod.text_buckets(self.cfg.tts.max_text_tokens):
                 self.synth_graph(bucket, 1, spk)
         self.streamer().warmup(speaker=spk)

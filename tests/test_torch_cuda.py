@@ -2158,3 +2158,107 @@ def test_decode_steps_launch_the_new_kernels_in_their_graphs(dev):
     assert counts == {"layer_norm": 2 * tcfg.layers + 1,
                       "decode_attn": tcfg.layers,
                       "mixed_linear": 4 * tcfg.layers + 3}
+
+
+def _traced(fn, busy: bool = False):
+    """``fn()`` with the tracer on; its spans (the store cleared before).
+    ``busy``: the card is left working on products when tracing starts, so
+    that the period's anchor is taken behind a full queue."""
+    from janus_tpu_torch.runtime import profiling
+
+    profiling.take()
+    if busy:
+        a = torch.randn(4096, 4096, device="cuda")
+        for _ in range(40):
+            a = torch.tanh(a @ a)
+    profiling.enable()
+    try:
+        fn()
+    finally:
+        profiling.disable()
+    torch.cuda.synchronize()
+    return profiling.take()
+
+
+# the anchor's host time is read just before its event is recorded: a
+# device time may lead the truth by that call's latency
+_ANCHOR_SLACK_NS = 50_000
+
+
+def test_device_spans_lie_inside_their_launch_and_request(dev):
+    """On the card, each device span of an encode, a synthesis and a stream
+    starts after its launching span starts and ends before its request's
+    last span ends, on the host's clock; the synthesis launch's three parts
+    tile its device span, the WHILE part with the steps the loop ran."""
+    from janus_tpu_torch.common.protocol import JanusPacket
+
+    enc = _front_encoders(dev, False)[0]
+    syn = _receive_small(dev, stop_bias=-5.0)   # every loop runs to its cap
+    packet = JanusPacket(text="alpha bravo")
+
+    def work():
+        enc.encode_batch_submit(_front_phrases(0)).result()
+        syn.synthesize(packet)
+        list(syn.synthesize_streaming(packet))
+
+    work()   # captures and builds outside the traced part
+    recs = [s for s in _traced(work, busy=True)
+            if not s["name"].startswith("setup.")]
+    ends = {}
+    for s in recs:
+        ends[s["request"]] = max(ends.get(s["request"], 0), s["end_ns"])
+    devs = [s for s in recs if s["device_start_ns"] is not None]
+    assert {s["name"] for s in devs} >= {
+        "encode.front", "encode.loop", "synth.launch", "synth.prefill",
+        "synth.loop", "synth.tail", "stream.prefill", "stream.emit"}
+    by_id = {s["id"]: s for s in recs}
+    for s in devs:
+        launch = s if s["end_ns"] > s["start_ns"] else by_id[s["parent"]]
+        assert s["device_start_ns"] + _ANCHOR_SLACK_NS >= launch["start_ns"]
+        assert s["device_start_ns"] <= s["device_end_ns"]
+        assert s["device_end_ns"] <= ends[s["request"]] + _ANCHOR_SLACK_NS
+    launch = next(s for s in recs if s["name"] == "synth.launch")
+    parts = [next(s for s in recs if s["name"] == n and s["parent"] ==
+                  launch["id"]) for n in ("synth.prefill", "synth.loop",
+                                          "synth.tail")]
+    assert parts[0]["device_start_ns"] == launch["device_start_ns"]
+    assert parts[-1]["device_end_ns"] == launch["device_end_ns"]
+    for a, b in zip(parts, parts[1:]):
+        assert a["device_end_ns"] == b["device_start_ns"]
+    assert parts[1]["attrs"]["steps"] >= 1
+    loop = next(s for s in recs if s["name"] == "encode.loop")
+    assert loop["attrs"]["trips"] >= 1
+
+
+def test_tracing_leaves_the_graphs_and_their_output_as_they_were(dev):
+    """With the tracer on, every loop's captured step and WHILE body and
+    every chain keeps its census, and a synthesis, a stream and an encode give the bytes they
+    give with it off; the synthesis's boundary nodes go back to the
+    graph's own events once tracing is off."""
+    from janus_tpu_torch.common.protocol import JanusPacket
+
+    enc = _front_encoders(dev, False)[0]
+    syn = _receive_small(dev)
+    packet = JanusPacket(text="alpha bravo")
+
+    def work():
+        return (enc.encode_batch_submit(_front_phrases(1)).result(),
+                syn.synthesize(packet),
+                b"".join(syn.synthesize_streaming(packet)))
+
+    def censuses():
+        out = []
+        for graphs in (enc._graphs, syn._graphs, syn.streamer()._graphs):
+            out += [(lp.step_graph.census(), lp.census())
+                    for lp in graphs.loops()]
+            out += [c.census() for c in graphs.chains()]
+        return out
+
+    off = work()
+    before = censuses()
+    on = []
+    _traced(lambda: on.append(work()))
+    assert on[0] == off and censuses() == before
+    h = syn._graphs.holders("synth")[0]
+    assert work() == off
+    assert h.loop._graph._marks is h.loop._graph._own_marks

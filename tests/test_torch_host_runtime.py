@@ -4,8 +4,9 @@ trace cases of ``tests/test_sessions.py``): the native ring buffer,
 deframer and pacer, on the C++ library and on the pure-Python fallback,
 give the JAX package's outputs on the same pushes, feeds and clock
 readings; the library builds into ``build/janus_tpu_torch/``, never into
-the package; the watchdog alarms as the JAX one does; the stage timer
-reports the same numbers on the same clock; ``trace`` writes a trace."""
+the package; the watchdog alarms as the JAX one does; ``trace`` writes a
+trace that holds the program's spans. The tracer itself:
+``tests/test_torch_profiling.py``."""
 
 import json
 import os
@@ -16,7 +17,6 @@ import numpy as np
 import pytest
 
 import janus_tpu.native as j_native
-import janus_tpu.runtime.profiling as j_profiling
 import janus_tpu.runtime.watchdog as j_watchdog
 import janus_tpu_torch.native as t_native
 import janus_tpu_torch.runtime.profiling as t_profiling
@@ -178,38 +178,26 @@ def test_watchdog_background_thread():
         assert "x" in wd.stalls and wd._thread is None
 
 
-def test_stage_timer_report_equals_jax(monkeypatch):
-    """Both timers on one scripted clock report the same numbers."""
-    reports = []
-    for m in (t_profiling, j_profiling):
-        ticks = iter([0.0, 0.25, 1.0, 1.125, 2.0, 2.5])
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-        timer = m.StageTimer()
-        with timer.stage("encode"):
-            pass
-        with timer.stage("encode"):
-            pass
-        with timer.stage("vad"):
-            pass
-        timer.add_audio_seconds(10.0)
-        reports.append(timer.report())
-        timer.reset()
-        assert timer.report() == {}
-    assert reports[0] == reports[1]
-    assert reports[0]["encode"] == {"total_s": 0.375, "calls": 2,
-                                    "mean_ms": 187.5, "rtf": 0.0375}
-
-
 def test_trace_noop_and_chrome_trace(tmp_path):
     import torch
 
     with t_profiling.trace(None):
         x = 1 + 1
     assert x == 2
+    t_profiling.take()
+    assert t_profiling.span("encode.pad") is t_profiling.NOOP
     with t_profiling.trace(str(tmp_path / "tr")):
-        torch.ones(64).sum()
+        with t_profiling.span("encode.submit", batch=2):
+            with t_profiling.span("encode.pad"):
+                torch.ones(64).sum()
+    assert t_profiling.span("encode.pad") is t_profiling.NOOP
+    recs = t_profiling.take()
+    assert [s["name"] for s in recs] == ["encode.submit", "encode.pad"]
+    assert recs[1]["parent"] == recs[0]["id"]
     files = os.listdir(tmp_path / "tr")
     assert len(files) == 1 and files[0].endswith(".json")
     with open(tmp_path / "tr" / files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    names = {e.get("name") for e in events}
+    assert {"janus.encode.submit", "janus.encode.pad"} <= names
